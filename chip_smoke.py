@@ -16,6 +16,14 @@ Scenes:
   overflow_policy="sync" so the bin capacities and layer counts grow to
   the scene's demand.
 
+Phase 4 holds each kernel against its plain version on the scenes' own
+bins (bit-equal): K1 on scene B (S=4) and scene A (S=1), K2 in both modes
+on scene B at K=4 and at the layer counts the frame grew to. Its rows carry
+the kernel's time, the plain version's, the bound (see `bound`), the
+launches a frame and `tests_kept`, the share of (pair, footprint) blocks
+that the kernels' exact footprint rejection keeps, counted by its plain
+version (raster_kernel.footprint_keep).
+
 Each phase prints one line; any failure raises (exit code ≠ 0). The line
 before the last is a JSON object with one entry per kernel; the last line is
 {"ok": true, "device": {...}}. Without CUDA the script fails before printing
@@ -93,7 +101,7 @@ def render_checked(renderer, scene, name):
     return img, stats, moved
 
 
-def scene_bins(renderer, scene):
+def scene_bins(renderer, scene, name):
     """The bins the renderer's frame feeds the kernels (same stages and
     config as pipeline.render_shard phase 2)."""
     cfg = renderer.config
@@ -113,8 +121,91 @@ def scene_bins(renderer, scene):
         pair_capacity=cfg.pair_capacity, row_capacity=cfg.row_capacity,
         zbuckets=cfg.opaque_z_buckets)
     if int(ov.sum()) or int(row_ov):
-        raise RuntimeError("scene B bins overflowed")
+        raise RuntimeError(f"scene {name} bins overflowed")
     return b, s, c
+
+
+def footprint(n_s: int, n_layers: int | None = None):
+    """(footprint columns, samples a block) of the kernel instantiation that
+    serves n_s samples (K1) or n_s samples and n_layers layers (K2): the
+    dispatch in csrc/raster_kernel.cu and csrc/layers.cu. A footprint is
+    8P columns x 4 rows, P pixels a thread."""
+    if n_layers is None:
+        return 8, n_s
+    kc = 1 << (n_layers - 1).bit_length()
+    tests = 8 if kc <= 2 else (4 if kc <= 8 else 2)
+    ts = min(n_s, tests)
+    return 8 * min(4, max(1, tests // ts)), ts
+
+
+def bound(pairs: int, n_s: int, cfg, n_bytes: int, keep):
+    """(bound_ms, bound_by, dense_ms) of one launch, at 67 TFLOP/s FP32 and
+    3.35 TB/s (H100 SXM data sheet). A (pair, sample) test is 20 FP32
+    operations (five planes of 2 multiplies and 2 adds, no FMA). bound_ms
+    counts what these inputs need: the tests of the (pair, footprint)
+    blocks the rejection keeps plus its corner tests (four planes a block),
+    against the bytes moved; dense_ms, every pair tested at every sample of
+    its tile."""
+    dense = pairs * cfg.tile_h * cfg.tile_w * n_s
+    kept = float(keep.float().mean()) if keep.numel() else 0.0
+    ops = dense * kept * 20 + keep.numel() * 16
+    ops_ms, bytes_ms = ops / 67e12 * 1e3, n_bytes / 3.35e12 * 1e3
+    by = "operations" if ops_ms >= bytes_ms else "bytes"
+    return max(ops_ms, bytes_ms), by, dense * 20 / 67e12 * 1e3
+
+
+def kernel_row(name, source, replaces, counter, main_launches, run, plain,
+               keep, pairs, n_s, cfg, n_bytes, scene):
+    """One entry of the kernels line: `run` launches the kernel and `plain`
+    runs its plain version on the same inputs; `keep` is footprint_keep of
+    the kernel's bins and footprint; `counter` names its launch count."""
+    bound_ms, bound_by, dense_ms = bound(pairs, n_s, cfg, n_bytes, keep)
+    return dict(
+        name=name, route="cuda", source=source, replaces=replaces,
+        launches=main_launches[counter], max_abs_err=max_abs_err(run(), plain()),
+        ms=cuda_ms(run, 10), plain_ms=cuda_ms(plain, 1), bound_ms=bound_ms,
+        bound_by=bound_by, library_ms=None, launches_per_frame=None,
+        tests_kept=float(keep.float().mean()) if keep.numel() else 0.0,
+        scene=scene, counter=counter, pairs=pairs, n_s=n_s, dense_ms=dense_ms)
+
+
+def scene_rows(scene, renderer, sc, layer_counts, main_launches):
+    """Phase-4 rows on one scene's bins: K1 at the scene's sample count,
+    then K2 in each mode at each of layer_counts[mode] over K1's depth."""
+    cfg = renderer.config
+    b, s, c = scene_bins(renderer, sc, scene)
+    spos = STANDARD_SAMPLE_POSITIONS[cfg.msaa_samples]
+    n_s, px = len(spos), cfg.padded_height * cfg.padded_width
+    kw = dict(padded_height=cfg.padded_height, padded_width=cfg.padded_width,
+              tile_h=cfg.tile_h, tile_w=cfg.tile_w, sample_positions=spos)
+    pairs = [int(n.sum()) for n in c]
+
+    def keep(cls, zfloor, fp):
+        return raster_kernel.footprint_keep(
+            b, s[cls], c[cls], zfloor, fp_w=fp[0], fp_h=4,
+            samples_per_block=fp[1], **kw)
+
+    floor = raster_kernel.rasterize_binned(b, s[0], c[0], **kw)[0]
+    rows = [kernel_row(
+        f"K1 rasterize_binned (opaque visibility, scene {scene}, S={n_s})",
+        "renderer_tpu_torch/csrc/raster_kernel.cu",
+        "renderer_tpu/raster/raster_kernel.py:300", "k1", main_launches,
+        lambda: raster_kernel.rasterize_binned(b, s[0], c[0], **kw),
+        lambda: raster_kernel.rasterize_binned_plain(b, s[0], c[0], **kw),
+        keep(0, None, footprint(n_s)), pairs[0], n_s, cfg,
+        pairs[0] * binning.B_ROWS * 4 + n_s * px * 8, scene)]
+    for cls, mode in ((1, "masked"), (2, "blended")):
+        for k in layer_counts[mode]:
+            lkw = dict(kw, mode=mode, n_layers=k)
+            rows.append(kernel_row(
+                f"K2 rasterize_layers ({mode}, scene {scene}, S={n_s}, K={k})",
+                "renderer_tpu_torch/csrc/layers.cu",
+                "renderer_tpu/raster/layers.py:228", f"k2_{mode}", main_launches,
+                lambda: layers.rasterize_layers(b, s[cls], c[cls], floor, **lkw),
+                lambda: layers.rasterize_layers_plain(b, s[cls], c[cls], floor, **lkw),
+                keep(cls, floor, footprint(n_s, k)), pairs[cls], n_s, cfg,
+                pairs[cls] * binning.B_ROWS * 4 + n_s * px * (8 + 8 * k), scene))
+    return rows
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -185,43 +276,22 @@ def main() -> int:
           f"{rb.config.mask_layers} blend_layers {rb.config.blend_layers} "
           f"pair_capacity {rb.config.pair_capacity}", flush=True)
 
-    # -- 4. kernels against their plain versions, on scene B's bins --------
-    b, s, c = scene_bins(rb, sc_b)
-    spos = STANDARD_SAMPLE_POSITIONS[4]
-    kw = dict(padded_height=cfg_b.padded_height, padded_width=cfg_b.padded_width,
-              tile_h=cfg_b.tile_h, tile_w=cfg_b.tile_w, sample_positions=spos)
-    k1_out = raster_kernel.rasterize_binned(b, s[0], c[0], **kw)
-    k1_ref = raster_kernel.rasterize_binned_plain(b, s[0], c[0], **kw)
-    floor = k1_out[0]
-    results = [dict(
-        name="K1 rasterize_binned (opaque visibility, S=4)",
-        route="cuda", source="renderer_tpu_torch/csrc/raster_kernel.cu",
-        replaces="renderer_tpu/raster/raster_kernel.py:300",
-        launches=main_launches["k1"], max_abs_err=max_abs_err(k1_out, k1_ref),
-        ms=cuda_ms(lambda: raster_kernel.rasterize_binned(b, s[0], c[0], **kw), 10),
-        plain_ms=cuda_ms(lambda: raster_kernel.rasterize_binned_plain(
-            b, s[0], c[0], **kw), 1),
-    )]
-    for cls, mode in ((1, "masked"), (2, "blended")):
-        lkw = dict(kw, mode=mode, n_layers=4)
-        out = layers.rasterize_layers(b, s[cls], c[cls], floor, **lkw)
-        ref = layers.rasterize_layers_plain(b, s[cls], c[cls], floor, **lkw)
-        results.append(dict(
-            name=f"K2 rasterize_layers ({mode}, S=4, K=4)",
-            route="cuda", source="renderer_tpu_torch/csrc/layers.cu",
-            replaces="renderer_tpu/raster/layers.py:228",
-            launches=main_launches[f"k2_{mode}"], max_abs_err=max_abs_err(out, ref),
-            ms=cuda_ms(lambda: layers.rasterize_layers(b, s[cls], c[cls], floor, **lkw), 10),
-            plain_ms=cuda_ms(lambda: layers.rasterize_layers_plain(
-                b, s[cls], c[cls], floor, **lkw), 1),
-        ))
-    for r, cls in zip(results, (0, 1, 2)):
-        pairs = int(c[cls].sum())
-        evals = pairs * cfg_b.tile_h * cfg_b.tile_w * len(spos)
-        print(f"kernel: {r['name']}: exact vs plain (max_abs_err {r['max_abs_err']}) "
-              f"| {r['ms']:.3f} ms vs plain {r['plain_ms']:.1f} ms | {pairs} bin "
-              f"pairs, {evals / r['ms'] / 1e6:.1f} G (triangle, sample) tests/s "
-              f"| {card}", flush=True)
+    # -- 4. kernels against their plain versions, on the scenes' bins -----
+    # K1 on both scenes; K2 on scene B at K=4 and at the layer counts the
+    # frame grew to
+    results = scene_rows("B", rb, sc_b, {
+        "masked": sorted({4, rb.config.mask_layers}),
+        "blended": sorted({4, rb.config.blend_layers})}, main_launches)
+    results += scene_rows("A", ra, sc_a, {"masked": [], "blended": []},
+                          main_launches)
+    for row in results:
+        dense = row["pairs"] * cfg_b.tile_h * cfg_b.tile_w * row["n_s"]
+        print(f"kernel: {row['name']}: exact vs plain (max_abs_err {row['max_abs_err']}) "
+              f"| {row['ms']:.3f} ms vs plain {row['plain_ms']:.1f} ms | bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']}; dense tests "
+              f"{row['dense_ms']:.3f} ms), tests_kept {row['tests_kept']:.4f} | "
+              f"{row['pairs']} bin pairs, {dense / row['ms'] / 1e6:.1f} G dense "
+              f"(pair, sample) tests/s | {card}", flush=True)
 
     # -- 5. goldens on the card -------------------------------------------
     goldens = np.load(GOLDEN)
@@ -242,9 +312,10 @@ def main() -> int:
         print(f"golden: {key} drifted px {bad:.4%} (max diff {diff.max()})", flush=True)
 
     # -- 6. frame timing ---------------------------------------------------
-    frame_ms = {}
+    frame_ms, per_frame = {}, {}
     for name, r, sc in (("A", ra, sc_a), ("B", rb, sc_b)):
         times, host = [], []
+        reset_counters()
         for _ in range(FRAMES):
             e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             t0 = time.perf_counter()
@@ -255,12 +326,16 @@ def main() -> int:
             host.append((time.perf_counter() - t0) * 1e3)
             times.append(e0.elapsed_time(e1))
         frame_ms[name] = statistics.median(times)
+        per_frame[name] = {k: v / FRAMES for k, v in counters().items()}
         print(f"frame {name}: median {frame_ms[name]:.2f} ms (CUDA events, "
               f"{FRAMES} frames; host median {statistics.median(host):.2f} ms, "
               f"min {min(times):.2f} max {max(times):.2f}) | {card}", flush=True)
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
 
+    for row in results:
+        row["launches_per_frame"] = per_frame[row.pop("scene")][row.pop("counter")]
+        del row["pairs"], row["n_s"], row["dense_ms"]
     print(json.dumps({"frame_ms": frame_ms, "card": card}))
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {

@@ -8,10 +8,11 @@ that queues the same meshes reuses device-resident geometry (the analog of
 the static vertex library staying in VRAM), so steady-state host→device
 traffic is one i32 blob of transforms + camera + joints.
 
-The device is explicit: `Renderer(registry, config, device=...)`. A CUDA
-device runs the raster passes through the hand-written kernels; a CPU device
-runs their plain PyTorch versions. Asking for CUDA where there is none
-raises — nothing moves the work to the CPU quietly.
+The frames run on the card unless the caller asks for the CPU:
+`Renderer(registry, config)` takes device "cuda", where the raster passes
+run through the hand-written kernels; `device="cpu"` runs their plain
+PyTorch versions. Asking for CUDA where there is none raises — nothing moves
+the work to the CPU quietly.
 """
 
 from __future__ import annotations
@@ -72,7 +73,7 @@ class Renderer:
         overflow_policy: str = "auto",
         shrink_after: int = 120,
         max_layers: int = MAX_LAYERS,
-        device="cpu",
+        device="cuda",
     ) -> None:
         """overflow_policy — what to do when the frame's stats vector reports
         dropped work (bin pair/row capacity exceeded, or a layered capture
@@ -97,7 +98,8 @@ class Renderer:
 
         max_layers — ceiling for the layer-count growth (see MAX_LAYERS).
 
-        device — the torch device the frames run on ("cuda" or "cpu")."""
+        device — the torch device the frames run on: "cuda" (the default)
+        or "cpu"."""
         assert overflow_policy in ("auto", "sync", "off")
         self.device = _resolve_device(device)
         self.config = (config or RenderConfig()).validate()

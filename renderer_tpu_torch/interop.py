@@ -12,9 +12,10 @@ import numpy as np
 import torch
 
 
-def from_numpy_arrays(d, device="cpu"):
+def from_numpy_arrays(d, device="cuda"):
     """Convert a numpy array, or a dict / list / tuple nesting them, to
-    torch tensors on `device`. Anything else (None, Python scalars) passes
+    torch tensors on `device` (the card unless the caller asks for the
+    CPU). Anything else (None, Python scalars) passes
     through unchanged."""
     if isinstance(d, dict):
         return {k: from_numpy_arrays(v, device) for k, v in d.items()}

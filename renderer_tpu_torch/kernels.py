@@ -1,15 +1,18 @@
 """Build and bind the hand-written CUDA kernels (renderer_tpu_torch/csrc/*.cu).
 
-The sources are compiled with nvcc for Hopper (sm_90a) into one shared
-library with a plain C interface, at first use, into `build/kernels/` under
-the repository root, and loaded with ctypes. The library name carries a
-digest of the sources and flags, so an edited kernel is rebuilt and a stale
-one is never loaded. Nothing here runs at import time: a CPU-only process
-never builds or loads anything.
+The sources are compiled with nvcc for Hopper (sm_90a), one nvcc per
+source, all started together, and linked into one shared library with a
+plain C interface, at first use, into `build/kernels/` under the repository
+root, and loaded with ctypes. The library name carries a digest of the
+sources and flags, so an edited kernel is rebuilt and a stale one is never
+loaded. Nothing here runs at import time: a CPU-only process never builds
+or loads anything.
 
 Kernels are compiled with `--fmad=false`: the coverage tests compare edge
 functions `a*px + b*py + c` against 0, and a contracted FMA rounds them
-differently from the plain PyTorch versions, moving boundary pixels.
+differently from the plain PyTorch versions, moving boundary pixels. They
+are compiled with `-ftz=false` (nvcc's default, stated because the kernels'
+edge test compares against the smallest denormal).
 """
 
 from __future__ import annotations
@@ -25,10 +28,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "kernels"
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    *ARCH_FLAGS, "-std=c++17", "-O3", "--fmad=false", "-ftz=false",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 )
 
 _lock = threading.Lock()
@@ -71,6 +74,37 @@ def library_path() -> Path:
     return BUILD_DIR / f"librenderer_kernels-{h.hexdigest()[:16]}.so"
 
 
+def _build(so: Path) -> None:
+    """Compile every source to an object in parallel, then link `so`; the
+    commands and their output (with `ptxas -v`) go to build.log."""
+    tmp = so.with_name(f"{so.stem}.tmp{os.getpid()}")
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [Path(f"{tmp}.{src.stem}.o") for src in srcs]
+    cmds = [[_nvcc(), *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+            for src, obj in zip(srcs, objs)]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    outs = [proc.communicate()[0] for proc in procs]
+    log = "".join(" ".join(cmd) + "\n" + out for cmd, out in zip(cmds, outs))
+    failed = [(cmd, proc.returncode) for cmd, proc in zip(cmds, procs)
+              if proc.returncode != 0]
+    if not failed:
+        link = [_nvcc(), *ARCH_FLAGS, "-shared", "-o", f"{tmp}.so",
+                *(str(obj) for obj in objs)]
+        proc = subprocess.run(link, capture_output=True, text=True)
+        log += " ".join(link) + "\n" + proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            failed.append((link, proc.returncode))
+    (BUILD_DIR / "build.log").write_text(log)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    if failed:
+        raise RuntimeError(f"nvcc failed ({failed[0][1]}): {failed[0][0]}\n"
+                           f"{log[-4000:]}")
+    os.replace(f"{tmp}.so", so)
+
+
 def load() -> ctypes.CDLL:
     """The kernel library, built on first use. Raises if it cannot be built."""
     global _lib, build_seconds
@@ -81,16 +115,7 @@ def load() -> ctypes.CDLL:
         if not so.exists():
             t0 = time.perf_counter()
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = so.with_name(f"{so.stem}.tmp{os.getpid()}.so")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   *(str(p) for p in sorted(CSRC.glob("*.cu")))]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            (BUILD_DIR / "build.log").write_text(
-                " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-            if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-            os.replace(tmp, so)
+            _build(so)
             build_seconds = time.perf_counter() - t0
         lib = ctypes.CDLL(str(so))
         for name, args in _SIGNATURES.items():

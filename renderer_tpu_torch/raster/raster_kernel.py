@@ -137,6 +137,66 @@ def rasterize_binned_plain(
     return from_tiles(depth, tiles_x), from_tiles(tid, tiles_x)
 
 
+def footprint_keep(
+    binned, starts, counts, zfloor=None, *, fp_w: int, fp_h: int,
+    samples_per_block: int, padded_height: int, padded_width: int,
+    tile_h: int = 32, tile_w: int = 128,
+    sample_positions: tuple = ((0.5, 0.5),), tile_row_offset: int = 0,
+    row_stride: int = 1,
+):
+    """Plain version of the kernels' exact footprint rejection
+    (csrc/raster_common.cuh): for every binned pair, in bin order, and every
+    block of fp_w × fp_h pixels × `samples_per_block` samples of its tile,
+    whether the corner test keeps the triangle. Returns bool
+    [pairs, S / samples_per_block, tile_h / fp_h, tile_w / fp_w].
+
+    A block is rejected when an edge plane's upper bound over the block's
+    samples is < 0, or the depth plane's bound, clamped to 1, is below the
+    block's smallest `zfloor` [S, Hp, Wp] (0 when None). The bounds evaluate
+    each plane at the box corner that maximises it, in the kernels' rounding
+    order, so a rejected block holds no sample the triangle covers at a
+    depth >= the floor."""
+    dev = binned.device
+    tiles_x = padded_width // tile_w
+    tiles_y = padded_height // tile_h
+    n_s = len(sample_positions)
+    n_g = n_s // samples_per_block
+    counts = counts.long()
+    tile = torch.repeat_interleave(torch.arange(tiles_x * tiles_y, device=dev), counts)
+    first = torch.cumsum(counts, 0) - counts
+    col = starts.long()[tile] + torch.arange(tile.numel(), device=dev) - first[tile]
+    rows = binned[:, col]
+    x0, y0 = tile_grid(tiles_x, tiles_y, tile_w, tile_h, tile_row_offset,
+                       row_stride, dev)
+    pos = torch.tensor(sample_positions, dtype=torch.float32, device=dev)
+    pos = pos.reshape(n_g, samples_per_block, 2)
+    fx = torch.arange(0, tile_w, fp_w, dtype=torch.float32, device=dev)
+    fy = torch.arange(0, tile_h, fp_h, dtype=torch.float32, device=dev)[:, None]
+
+    def box_edge(origin, offsets, pixel):
+        # (tile origin + in-pixel offset) + pixel index, as the kernels sum
+        return (origin[tile][:, None] + offsets)[:, :, None, None] + pixel
+
+    xlo = box_edge(x0, pos[..., 0].amin(1), fx)
+    xhi = box_edge(x0, pos[..., 0].amax(1), fx + (fp_w - 1))
+    ylo = box_edge(y0, pos[..., 1].amin(1), fy)
+    yhi = box_edge(y0, pos[..., 1].amax(1), fy + (fp_h - 1))
+
+    def bound(k):
+        a, b, c = (rows[k + i][:, None, None, None] for i in range(3))
+        return a * torch.where(a > 0, xhi, xlo) + b * torch.where(b > 0, yhi, ylo) + c
+
+    keep = ~(bound(0) < 0) & ~(bound(3) < 0) & ~(bound(6) < 0)
+    if zfloor is None:
+        zmin = torch.zeros((), device=dev)
+    else:
+        z = to_tiles(zfloor, tile_h, tile_w).reshape(
+            n_g, samples_per_block, tiles_x * tiles_y, tile_h // fp_h, fp_h,
+            tile_w // fp_w, fp_w)
+        zmin = z.amin(dim=(1, 4, 6)).transpose(0, 1)[tile]
+    return keep & ~(torch.fmin(bound(9), torch.ones((), device=dev)) < zmin)
+
+
 def check_bins(binned, starts, counts, n_tiles: int) -> None:
     dev = binned.device
     if binned.dtype != torch.float32 or binned.ndim != 2 or binned.shape[0] != B_ROWS:
@@ -154,8 +214,8 @@ def check_bins(binned, starts, counts, n_tiles: int) -> None:
 
 
 def check_tiling(padded_height, padded_width, tile_h, tile_w) -> None:
-    """The kernels give each block 1024 pixels of a tile (256 threads × 4)."""
-    if padded_height % tile_h or padded_width % tile_w or (tile_h * tile_w) % 1024:
+    """The kernels cut a tile into blocks of up to 128 columns × 8 rows."""
+    if padded_height % tile_h or padded_width % tile_w or tile_h % 8:
         raise ValueError(f"tiling {tile_h}x{tile_w} over {padded_height}x"
                          f"{padded_width} is not supported by the kernels")
     if tile_w % 128:

@@ -19,6 +19,7 @@ import renderer_tpu_torch as trt
 from renderer_tpu_torch.assets import demo_scenes
 from renderer_tpu_torch.raster import binning, layers, raster_kernel, setup
 from renderer_tpu_torch.raster.pipeline import STANDARD_SAMPLE_POSITIONS
+from tests.torch_bins import CASES, H, W, crafted_bins, crafted_floor
 
 GOLDEN = Path(__file__).parent / "golden" / "goldens.npz"
 pytestmark = pytest.mark.cuda
@@ -90,6 +91,40 @@ def test_k2_kernel_equals_plain(cuda, mode, msaa, n_layers):
     ref = layers.rasterize_layers_plain(b, s[cls], c[cls], floor, mode=mode,
                                         n_layers=n_layers, **kw)
     assert int(ref[2].max()) > 1
+    for got, want in zip(out, ref):
+        assert _bits_equal(got, want)
+
+
+# The kernels' footprint rejection must be exact: tests/torch_bins.py's
+# cases put edges exactly through sample positions and footprint corners,
+# edges with a == 0, sub-pixel triangles, 1/w crossing 0 and whole-tile
+# triangles in depth order (the depth skip), with both staging paths. K1 at
+# every pixels-a-thread choice; K2 at every tests-a-thread choice (layer
+# counts 1, 4, 8, 16 × 1, 4, 8 samples).
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("msaa", [1, 4, 8])
+def test_k1_exact_on_crafted_cases(cuda, case, msaa):
+    b, s, c = crafted_bins(case, cuda)
+    kw = dict(padded_height=H, padded_width=W,
+              sample_positions=STANDARD_SAMPLE_POSITIONS[msaa])
+    z, t = raster_kernel.rasterize_binned(b, s, c, **kw)
+    pz, pt = raster_kernel.rasterize_binned_plain(b, s, c, **kw)
+    assert int((pt >= 0).sum()) > 0
+    assert _bits_equal(t, pt) and _bits_equal(z, pz)
+
+
+@pytest.mark.parametrize("case", CASES)
+@pytest.mark.parametrize("mode", ["masked", "blended"])
+@pytest.mark.parametrize("n_layers", [1, 4, 8, 16])
+@pytest.mark.parametrize("msaa", [1, 4, 8])
+def test_k2_exact_on_crafted_cases(cuda, case, mode, n_layers, msaa):
+    b, s, c = crafted_bins(case, cuda)
+    floor = crafted_floor(msaa, cuda)
+    kw = dict(mode=mode, n_layers=n_layers, padded_height=H, padded_width=W,
+              sample_positions=STANDARD_SAMPLE_POSITIONS[msaa])
+    out = layers.rasterize_layers(b, s, c, floor, **kw)
+    ref = layers.rasterize_layers_plain(b, s, c, floor, **kw)
+    assert int(ref[2].max()) >= 1
     for got, want in zip(out, ref):
         assert _bits_equal(got, want)
 

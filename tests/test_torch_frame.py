@@ -30,9 +30,11 @@ def _assert_golden_close(got, expected, what):
 def triangle_renderers():
     registry, scene = demo_scenes.triangle_scene()
     return (scene,
-            trt.Renderer(registry, trt.RenderConfig(width=W, height=H)),
+            trt.Renderer(registry, trt.RenderConfig(width=W, height=H),
+                         device="cpu"),
             trt.Renderer(registry, trt.RenderConfig(width=W, height=H,
-                                                    msaa_samples=4)))
+                                                    msaa_samples=4),
+                         device="cpu"))
 
 
 @pytest.mark.parametrize("name", [
@@ -50,7 +52,7 @@ def test_triangle_goldens(triangle_renderers, name):
 
 def test_alpha_layers_golden():
     registry, scene = demo_scenes.alpha_layers_scene()
-    r = trt.Renderer(registry, trt.RenderConfig(width=W, height=H))
+    r = trt.Renderer(registry, trt.RenderConfig(width=W, height=H), device="cpu")
     img = r.render_frame(scene, 1)
     _assert_golden_close(img, np.load(GOLDEN)["alpha-layers"], "alpha-layers")
     stats = r.frame_stats()
@@ -66,7 +68,7 @@ def test_static_sandbox_matches_jax():
     img_j = rj.render_frame(scene_j)
     reg_t, scene_t = demo_scenes.patch_ring_scene()
     rt_ = trt.Renderer(reg_t, trt.RenderConfig(width=W, height=H, msaa_samples=4),
-                       overflow_policy="off")
+                       overflow_policy="off", device="cpu")
     img_t = rt_.render_frame(scene_t)
     _assert_golden_close(img_t, img_j, "sandbox-static")
     assert rt_.frame_stats() == rj.frame_stats()
@@ -81,3 +83,14 @@ def test_cuda_device_requested_without_cuda_raises(monkeypatch):
     registry, _ = demo_scenes.triangle_scene()
     with pytest.raises(RuntimeError, match="CUDA"):
         trt.Renderer(registry, device="cuda")
+
+
+def test_renderer_defaults_to_the_card(monkeypatch):
+    """With no device the Renderer asks for CUDA: without it, it raises
+    rather than running on the CPU."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    registry, _ = demo_scenes.triangle_scene()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        trt.Renderer(registry)

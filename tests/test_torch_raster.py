@@ -25,11 +25,16 @@ from renderer_tpu.raster import raster_kernel as jrk
 from renderer_tpu.raster import setup as jsetup
 from renderer_tpu.raster import vertex_stage as jvs
 from renderer_tpu.scene import draw_stream as jds
-from renderer_tpu_torch.interop import from_numpy_arrays as to_torch
+from renderer_tpu_torch.interop import from_numpy_arrays
 from renderer_tpu_torch.raster import layers as tlayers
 from renderer_tpu_torch.raster import raster_kernel as trk
 from renderer_tpu_torch.raster.pipeline import STANDARD_SAMPLE_POSITIONS
 from tests.torch_parity import host_inputs
+
+
+def to_torch(d):
+    return from_numpy_arrays(d, device="cpu")
+
 
 TILE_H, TILE_W = 32, 128
 

@@ -31,7 +31,7 @@ from renderer_tpu.raster import setup as jsetup
 from renderer_tpu.raster import shade as jshade
 from renderer_tpu.raster import vertex_stage as jvs
 from renderer_tpu.scene import draw_stream as jds
-from renderer_tpu_torch.interop import from_numpy_arrays as to_torch
+from renderer_tpu_torch.interop import from_numpy_arrays
 from renderer_tpu_torch.raster import binning as tbin
 from renderer_tpu_torch.raster import post as tpost
 from renderer_tpu_torch.raster import setup as tsetup
@@ -40,6 +40,10 @@ from renderer_tpu_torch.raster import vertex_stage as tvs
 from renderer_tpu_torch.raster.pipeline import STANDARD_SAMPLE_POSITIONS
 from renderer_tpu_torch.scene import draw_stream as tds
 from tests.torch_parity import SCENES, host_inputs
+
+
+def to_torch(d):
+    return from_numpy_arrays(d, device="cpu")
 
 
 def _np(x):

@@ -1,0 +1,116 @@
+"""Binned buffers built by hand for the raster kernels' edge cases, with the
+layout of renderer_tpu_torch.raster.binning (f32 [16, pp] SoA, one column a
+(tile, triangle) pair, per-tile starts and counts).
+
+Every coefficient and sample coordinate is a dyadic rational of small
+magnitude, so plane values are exact: edges pass exactly through sample
+positions and footprint corners (e' == 0 exactly, where top-left ownership
+decides), depths tie exactly, and the 1/w plane crosses 0 inside tiles.
+Imports no jax, so the card-only tests can use it on a machine without it.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from renderer_tpu_torch.raster.pipeline import STANDARD_SAMPLE_POSITIONS
+
+TILE_H, TILE_W = 32, 128
+H, W = 96, 384
+CASES = ("sample-edges", "footprint-corners", "subpixel", "w-crossing",
+         "depth-skip")
+
+# per-tile triangle counts: empty tiles, one triangle, exact and ragged
+# chunks of 128
+_COUNTS = (257, 0, 300, 128, 1, 200, 263, 131, 64)
+_OFFSETS = sorted({p for m in (1, 4, 8) for p in STANDARD_SAMPLE_POSITIONS[m]})
+_NORMALS = ((1.0, 0.0), (0.0, 1.0), (-1.0, 0.0), (0.0, -1.0), (1.0, 1.0),
+            (-1.0, 1.0), (1.0, -1.0), (-1.0, -1.0), (2.0, 1.0), (-1.0, 2.0),
+            (0.5, -1.0), (-2.0, -0.5))
+# inward normals that span the plane positively: bounded triangles
+_SPANNING = (((1.0, 0.0), (-1.0, 1.0), (-1.0, -1.0)),
+             ((0.0, 1.0), (1.0, -1.0), (-1.0, -1.0)),
+             ((-1.0, 0.0), (1.0, 1.0), (1.0, -1.0)),
+             ((2.0, 1.0), (-1.0, 2.0), (-1.0, -3.0)))
+
+
+def _triangle(rng, case: str, x0: float, y0: float, i: int, n: int):
+    """16 binned rows of one triangle of tile origin (x0, y0), the i-th of n
+    in its bin."""
+    dx, dy = _OFFSETS[rng.integers(len(_OFFSETS))]
+    col, row = rng.integers(TILE_W), rng.integers(TILE_H)
+    radii = (0.0, 0.0, 0.5, 1.0, 3.0, 8.0)
+    if case == "footprint-corners":
+        # through the first / last sample column and row of 8-, 16- and
+        # 32-pixel wide footprints
+        col = int(rng.choice((8, 16, 32))) * rng.integers(1, 4) - rng.integers(2)
+        row = 4 * rng.integers(1, 8) - rng.integers(2)
+        radii = (0.0, 0.0, 0.0, 64.0)
+    elif case == "subpixel":
+        # around a sample or between samples, at most a pixel across
+        if rng.random() < 0.5:
+            dx, dy = rng.integers(32, size=2) / 32.0
+        radii = (1 / 16, 1 / 8, 1 / 4, 1 / 2)
+    elif case in ("w-crossing", "depth-skip"):
+        radii = (4.0, 16.0, 64.0, 1e4)
+    cx, cy = x0 + dx + col, y0 + dy + row
+    if case == "subpixel" or rng.random() < 0.5:
+        normals = _SPANNING[rng.integers(len(_SPANNING))]
+    else:  # some one-sided wedges and half-planes too
+        normals = [_NORMALS[k] for k in rng.choice(len(_NORMALS), size=3, replace=False)]
+    planes = []
+    for a, b in normals:
+        planes += [a, b, float(rng.choice(radii)) - (a * cx + b * cy)]
+    if case == "depth-skip":
+        # whole-tile triangles, nearest first with exact ties, then a few
+        # nearer ones late in the bin
+        planes = [0.0, 0.0, 1.0] * 3 if rng.random() < 0.7 else planes
+        z = 1.0 - (i // 3) / 256.0 if rng.random() < 0.9 else rng.integers(257) / 256.0
+        zplane = [0.0, 0.0, z]
+    else:
+        za, zb = rng.choice((0.0, 0.0, 1 / 1024, -1 / 1024, 1 / 256), size=2)
+        zc = float(rng.choice((0.0, 0.25, 0.5, 0.75, 1.0, -0.125, 1.125)))
+        zplane = [za, zb, zc - za * x0 - zb * y0]
+    wplane = [0.0, 0.0, 1.0]
+    if case == "w-crossing":
+        wa, wb = _NORMALS[rng.integers(len(_NORMALS))]
+        wplane = [wa / 64, wb / 64, -(wa * cx + wb * cy) / 64]
+    return planes + zplane + wplane + [float(rng.integers(1 << 20))]
+
+
+def crafted_bins(case: str, device, seed: int = 0):
+    """(binned, starts, counts) of `case` for an H × W screen in 32 × 128
+    tiles. Odd cases put tile starts off 16-byte alignment and give pp an
+    odd length, so both of the kernels' staging paths run."""
+    rng = np.random.default_rng([CASES.index(case), seed])
+    aligned = CASES.index(case) % 2 == 0
+    tiles_x = W // TILE_W
+    cols, starts, at = [], [], 0
+    for t, n in enumerate(_COUNTS):
+        x0, y0 = (t % tiles_x) * TILE_W, (t // tiles_x) * TILE_H
+        start = at if aligned else at + 1 + t % 3
+        cols += [[0.0] * 16] * (start - at)
+        cols += [_triangle(rng, case, x0, y0, i, n) for i in range(n)]
+        starts.append(start)
+        at = start + n
+        pad = (-at) % 128 if aligned else 0
+        cols += [[0.0] * 16] * pad
+        at += pad
+    cols += [[0.0] * 16] * (256 if aligned else 257)
+    binned = np.ascontiguousarray(np.asarray(cols, np.float32).T)
+    return (torch.from_numpy(binned).to(device),
+            torch.tensor(starts, dtype=torch.int32, device=device),
+            torch.tensor(_COUNTS, dtype=torch.int32, device=device))
+
+
+def crafted_floor(n_s: int, device, seed: int = 0):
+    """A depth floor [S, H, W] for the layered kernel: per 8 × 4 block one of
+    a few exact levels (some high enough to reject most triangles), plus
+    exact per-sample steps of 1/64."""
+    rng = np.random.default_rng([99, seed])
+    levels = np.array([0.0, 0.0, 0.25, 0.5, 0.75, 0.9375], np.float32)
+    block = levels[rng.integers(len(levels), size=(n_s, H // 4, W // 8))]
+    floor = np.repeat(np.repeat(block, 4, axis=1), 8, axis=2)
+    floor += rng.integers(4, size=floor.shape).astype(np.float32) / 64
+    return torch.from_numpy(np.ascontiguousarray(floor)).to(device)
