@@ -1,9 +1,10 @@
 """Smoke run of the PyTorch/CUDA port (renderer_tpu_torch) on one NVIDIA GPU.
 
 Builds the hand-written CUDA kernels from renderer_tpu_torch/csrc, drives the
-port's main path — Renderer.render_frame at 1920×1080 — on two scenes, checks
-every kernel against its plain PyTorch version, checks the card's frames
-against the golden images, and times frames and kernels with CUDA events.
+port's main path — Renderer.render_frame at 1920×1080 — on three scenes,
+checks every kernel against its plain PyTorch version, checks the card's
+frames against the golden images, and times frames and kernels with CUDA
+events.
 
     python3 chip_smoke.py
 
@@ -14,15 +15,26 @@ Scenes:
   6272 triangles (301,056) in staggered walls, cycling textured-opaque,
   masked (a2c) and blended materials, 4×MSAA, rendered under
   overflow_policy="sync" so the bin capacities and layer counts grow to
-  the scene's demand.
+  the scene's demand;
+- C: the mini-sandbox (demo_scenes.MiniSandbox: the six-patch ring in all
+  three alpha classes and the skinned character playing both animations)
+  at 4×MSAA with the default exact sampler, under "sync", with the
+  "Performance stats" window as its UI overlay. Every frame advances game
+  time (the animation is evaluated and the character skinned anew) and
+  rebuilds the window through UiContext from the renderer's own profiler
+  spans, so K2 also runs its UI launch (layers.launches["ui"]).
 
 Phase 4 holds each kernel against its plain version on the scenes' own
 bins (bit-equal): K1 on scene B (S=4) and scene A (S=1), K2 in both modes
-on scene B at K=4 and at the layer counts the frame grew to. Its rows carry
+on scene B at K=4 and at the layer counts the frame grew to, and K2's UI
+launch on scene C's UI bins at S=1 (the frame's) and at S=4 (the bins and
+sample positions of RenderConfig.ui_msaa). Its rows carry
 the kernel's time, the plain version's, the bound (see `bound`), the
 launches a frame and `tests_kept`, the share of (pair, footprint) blocks
 that the kernels' exact footprint rejection keeps, counted by its plain
-version (raster_kernel.footprint_keep).
+version (raster_kernel.footprint_keep). Phase 5 renders the golden images
+of tests/golden/goldens.npz and every key of tests/golden/sandbox-golden.npz
+on the card.
 
 Each phase prints one line; any failure raises (exit code ≠ 0). The line
 before the last is a JSON object with one entry per kernel; the last line is
@@ -44,13 +56,22 @@ import torch
 import renderer_tpu_torch as trt
 from renderer_tpu_torch import kernels
 from renderer_tpu_torch.assets import demo_scenes
-from renderer_tpu_torch.raster import binning, layers, raster_kernel, setup, vertex_stage
+from renderer_tpu_torch.interop import from_numpy_arrays
+from renderer_tpu_torch.raster import (
+    binning,
+    layers,
+    raster_kernel,
+    setup,
+    ui_stage,
+    vertex_stage,
+)
 from renderer_tpu_torch.raster.pipeline import STANDARD_SAMPLE_POSITIONS
 from renderer_tpu_torch.scene import draw_stream
 
 W, H = 1920, 1080
-FRAMES = 20
+FRAMES = {"A": 20, "B": 20, "C": 10}
 GOLDEN = "tests/golden/goldens.npz"
+SANDBOX_GOLDEN = "tests/golden/sandbox-golden.npz"
 OVERFLOW_STATS = ("overflow_opaque", "overflow_masked", "overflow_blended",
                   "overflow_ui", "row_overflow")
 
@@ -75,20 +96,26 @@ def scene_b():
     return registry, scene, cfg, "sync"
 
 
+def scene_c():
+    frames = demo_scenes.SandboxFrames()
+    cfg = trt.RenderConfig(width=W, height=H, msaa_samples=4)
+    return frames, cfg, "sync"
+
+
 def counters():
     return {"k1": raster_kernel.launches, "k2_masked": layers.launches["masked"],
-            "k2_blended": layers.launches["blended"]}
+            "k2_blended": layers.launches["blended"], "k2_ui": layers.launches["ui"]}
 
 
 def reset_counters():
     raster_kernel.launches = 0
-    layers.launches["masked"] = 0
-    layers.launches["blended"] = 0
+    for mode in layers.launches:
+        layers.launches[mode] = 0
 
 
-def render_checked(renderer, scene, name):
+def render_checked(renderer, scene, name, ui=None):
     before = counters()
-    img = renderer.render_frame(scene, 0)
+    img = renderer.render_frame(scene, 0, ui=ui)
     stats = renderer.frame_stats()
     after = counters()
     moved = {k: after[k] - before[k] for k in after}
@@ -208,6 +235,95 @@ def scene_rows(scene, renderer, sc, layer_counts, main_launches):
     return rows
 
 
+def ui_rows(renderer, dl, main_launches):
+    """Phase-4 rows of K2's UI launch on scene C's UI (DrawList `dl`) over
+    the UI pass's zero floor: S=1 (pixel centers, the frame's launch) and
+    S=4 (RenderConfig.ui_msaa's bins and sample positions), both at the
+    frame's ui_layers."""
+    cfg = renderer.config
+    ui = from_numpy_arrays(dl.pack(), device=renderer.device)
+    k = cfg.ui_layers
+    px = cfg.padded_height * cfg.padded_width
+    rows = []
+    for spos in (STANDARD_SAMPLE_POSITIONS[1], STANDARD_SAMPLE_POSITIONS[4]):
+        n_s = len(spos)
+        b, s, c, ov = ui_stage.bin_ui(ui, config=cfg, local_tiles_y=cfg.tiles_y,
+                                      tile_row_offset=0, n_samples=n_s)
+        if int(ov):
+            raise RuntimeError("scene C UI bins overflowed")
+        floor = torch.zeros((n_s, cfg.padded_height, cfg.padded_width),
+                            dtype=torch.float32, device=b.device)
+        kw = dict(padded_height=cfg.padded_height, padded_width=cfg.padded_width,
+                  tile_h=cfg.tile_h, tile_w=cfg.tile_w, sample_positions=spos)
+        lkw = dict(kw, mode="blended", n_layers=k)
+        fp = footprint(n_s, k)
+        keep = raster_kernel.footprint_keep(b, s, c, floor, fp_w=fp[0], fp_h=4,
+                                            samples_per_block=fp[1], **kw)
+        pairs = int(c.sum())
+        rows.append(kernel_row(
+            f"K2 rasterize_layers (blended, UI pass, scene C, S={n_s}, K={k})",
+            "renderer_tpu_torch/csrc/layers.cu",
+            "renderer_tpu/raster/layers.py:228", "k2_ui", main_launches,
+            lambda: layers.rasterize_layers(b, s, c, floor, launch_key="ui", **lkw),
+            lambda: layers.rasterize_layers_plain(b, s, c, floor, **lkw),
+            keep, pairs, n_s, cfg, pairs * binning.B_ROWS * 4 + n_s * px * (8 + 8 * k),
+            "C"))
+    return rows
+
+
+def golden_checks(dev):
+    """Phase 5: the golden images on the card at 160×96 — goldens.npz's
+    triangle-msaa4 and alpha-layers, and every key of sandbox-golden.npz
+    (the mini-sandbox at game time 0.4 s with its HUD or its "Performance
+    stats" window), plus the bound on the default vs fast_sampler() drift."""
+    goldens = np.load(GOLDEN)
+    reg_t, sc_t = demo_scenes.triangle_scene()
+    reg_l, sc_l = demo_scenes.alpha_layers_scene()
+    cases = {
+        "triangle-msaa4": (trt.Renderer(reg_t, trt.RenderConfig(
+            width=160, height=96, msaa_samples=4), device=dev), sc_t, 3),
+        "alpha-layers": (trt.Renderer(reg_l, trt.RenderConfig(
+            width=160, height=96), device=dev), sc_l, 1),
+    }
+    for key, (r, sc, mode) in cases.items():
+        check_golden(key, r.render_frame(sc, mode), goldens[key])
+
+    sandbox_goldens = np.load(SANDBOX_GOLDEN)
+    images = {}
+    for key, msaa, fast, kind in (
+            ("mini-sandbox-msaa4", 4, False, "hud"),
+            ("mini-sandbox-perfwin", 4, False, "perfwin"),
+            ("mini-sandbox-fast-msaa4", 4, True, "hud"),
+            ("mini-sandbox-exact", 1, False, "hud"),
+            (None, 1, True, "hud")):
+        sandbox = demo_scenes.mini_sandbox_scene(0.4)
+        ui = demo_scenes.mini_sandbox_ui(sandbox.registry, kind)
+        cfg = trt.RenderConfig(width=160, height=96, msaa_samples=msaa)
+        r = trt.Renderer(sandbox.registry, cfg.fast_sampler() if fast else cfg,
+                         device=dev)
+        img = r.render_frame(sandbox.scene, 0, ui=ui)
+        stats = r.frame_stats()
+        bad = {k: stats[k] for k in OVERFLOW_STATS if stats[k]}
+        if bad:
+            raise RuntimeError(f"golden {key}: overflow stats {bad}")
+        if key is not None:
+            check_golden(key, img, sandbox_goldens[key])
+        images[key] = img
+    drift = float(np.abs(images["mini-sandbox-exact"].astype(int)
+                         - images[None].astype(int)).mean())
+    if drift >= 8.0:
+        raise RuntimeError(f"default vs fast sampler mean drift {drift:.2f}")
+    print(f"golden: default vs fast sampler mean drift {drift:.3f} (< 8)", flush=True)
+
+
+def check_golden(key, img, expected):
+    diff = np.abs(img.astype(int) - expected.astype(int)).max(axis=-1)
+    bad = float((diff > 2).mean())
+    if bad >= 0.005:
+        raise RuntimeError(f"golden {key}: {bad:.2%} of pixels drifted")
+    print(f"golden: {key} drifted px {bad:.4%} (max diff {diff.max()})", flush=True)
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean device milliseconds of fn() over `reps` back-to-back calls."""
     fn()
@@ -253,28 +369,38 @@ def main() -> int:
           f"(nvcc {kernels.build_seconds:.1f} s) -> {kernels.library_path().name}",
           flush=True)
 
-    # -- 3. main path: Renderer.render_frame on scenes A and B -------------
+    # -- 3. main path: Renderer.render_frame on scenes A, B and C ----------
     reg_a, sc_a, cfg_a, pol_a = scene_a()
     reg_b, sc_b, cfg_b, pol_b = scene_b()
+    frames_c, cfg_c, pol_c = scene_c()
     ra = trt.Renderer(reg_a, cfg_a, overflow_policy=pol_a, device=dev)
     rb = trt.Renderer(reg_b, cfg_b, overflow_policy=pol_b, device=dev)
+    rc = trt.Renderer(frames_c.registry, cfg_c, profiler=frames_c.profiler,
+                      overflow_policy=pol_c, device=dev)
+    sc_c, ui_c = frames_c.next()
     reset_counters()
     t0 = time.perf_counter()
     img_a, stats_a, moved_a = render_checked(ra, sc_a, "A")
     img_b, stats_b, moved_b = render_checked(rb, sc_b, "B")
+    img_c, stats_c, moved_c = render_checked(rc, sc_c, "C", ui=ui_c)
     torch.cuda.synchronize()
     main_launches = counters()
     first_s = time.perf_counter() - t0
-    if moved_a["k1"] < 1 or moved_b["k1"] < 1:
-        raise RuntimeError(f"K1 not launched: A {moved_a} B {moved_b}")
-    if moved_b["k2_masked"] < 1 or moved_b["k2_blended"] < 1:
-        raise RuntimeError(f"K2 not launched in both modes for B: {moved_b}")
-    print(f"main path: A {moved_a} B {moved_b} first frames {first_s:.1f} s | "
-          f"A total_pairs {stats_a['total_pairs']} | B total_pairs "
+    if moved_a["k1"] < 1 or moved_b["k1"] < 1 or moved_c["k1"] < 1:
+        raise RuntimeError(f"K1 not launched: A {moved_a} B {moved_b} C {moved_c}")
+    for name, moved in (("B", moved_b), ("C", moved_c)):
+        if moved["k2_masked"] < 1 or moved["k2_blended"] < 1:
+            raise RuntimeError(f"K2 not launched in both modes for {name}: {moved}")
+    if moved_c["k2_ui"] < 1:
+        raise RuntimeError(f"K2's UI launch not made for C: {moved_c}")
+    print(f"main path: A {moved_a} B {moved_b} C {moved_c} first frames "
+          f"{first_s:.1f} s | A total_pairs {stats_a['total_pairs']} | B total_pairs "
           f"{stats_b['total_pairs']} masked_demand {stats_b['masked_demand_max']} "
           f"blended_demand {stats_b['blended_demand_max']} -> mask_layers "
           f"{rb.config.mask_layers} blend_layers {rb.config.blend_layers} "
-          f"pair_capacity {rb.config.pair_capacity}", flush=True)
+          f"pair_capacity {rb.config.pair_capacity} | C UI triangles "
+          f"{int(ui_c.pack()['counts'][0])} ui_demand {stats_c['ui_demand_max']} -> ui_layers "
+          f"{rc.config.ui_layers}, {stats_c['total_pairs']} scene pairs", flush=True)
 
     # -- 4. kernels against their plain versions, on the scenes' bins -----
     # K1 on both scenes; K2 on scene B at K=4 and at the layer counts the
@@ -284,6 +410,7 @@ def main() -> int:
         "blended": sorted({4, rb.config.blend_layers})}, main_launches)
     results += scene_rows("A", ra, sc_a, {"masked": [], "blended": []},
                           main_launches)
+    results += ui_rows(rc, ui_c, main_launches)
     for row in results:
         dense = row["pairs"] * cfg_b.tile_h * cfg_b.tile_w * row["n_s"]
         print(f"kernel: {row['name']}: exact vs plain (max_abs_err {row['max_abs_err']}) "
@@ -294,42 +421,36 @@ def main() -> int:
               f"(pair, sample) tests/s | {card}", flush=True)
 
     # -- 5. goldens on the card -------------------------------------------
-    goldens = np.load(GOLDEN)
-    reg_t, sc_t = demo_scenes.triangle_scene()
-    reg_l, sc_l = demo_scenes.alpha_layers_scene()
-    cases = {
-        "triangle-msaa4": (trt.Renderer(reg_t, trt.RenderConfig(
-            width=160, height=96, msaa_samples=4), device=dev), sc_t, 3),
-        "alpha-layers": (trt.Renderer(reg_l, trt.RenderConfig(
-            width=160, height=96), device=dev), sc_l, 1),
-    }
-    for key, (r, sc, mode) in cases.items():
-        img = r.render_frame(sc, mode)
-        diff = np.abs(img.astype(int) - goldens[key].astype(int)).max(axis=-1)
-        bad = float((diff > 2).mean())
-        if bad >= 0.005:
-            raise RuntimeError(f"golden {key}: {bad:.2%} of pixels drifted")
-        print(f"golden: {key} drifted px {bad:.4%} (max diff {diff.max()})", flush=True)
+    golden_checks(dev)
 
     # -- 6. frame timing ---------------------------------------------------
+    # scene C's host work of a frame (game time, animation, skinning, the UI
+    # window) runs before the first event and is not in the frame's time
+    def fixed(sc):
+        return lambda: (sc, None)
+
     frame_ms, per_frame = {}, {}
-    for name, r, sc in (("A", ra, sc_a), ("B", rb, sc_b)):
+    for name, r, next_frame in (("A", ra, fixed(sc_a)), ("B", rb, fixed(sc_b)),
+                                ("C", rc, frames_c.next)):
         times, host = [], []
+        n = FRAMES[name]
         reset_counters()
-        for _ in range(FRAMES):
+        for _ in range(n):
+            sc, ui = next_frame()
             e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             t0 = time.perf_counter()
             e0.record()
-            r.render_frame_device(sc, 0)
+            r.render_frame_device(sc, 0, ui=ui)
             e1.record()
             torch.cuda.synchronize()
             host.append((time.perf_counter() - t0) * 1e3)
             times.append(e0.elapsed_time(e1))
         frame_ms[name] = statistics.median(times)
-        per_frame[name] = {k: v / FRAMES for k, v in counters().items()}
+        per_frame[name] = {k: v / n for k, v in counters().items()}
         print(f"frame {name}: median {frame_ms[name]:.2f} ms (CUDA events, "
-              f"{FRAMES} frames; host median {statistics.median(host):.2f} ms, "
-              f"min {min(times):.2f} max {max(times):.2f}) | {card}", flush=True)
+              f"{n} frames; host median {statistics.median(host):.2f} ms, "
+              f"min {min(times):.2f} max {max(times):.2f}) | launches a frame "
+              f"{per_frame[name]} | {card}", flush=True)
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
 

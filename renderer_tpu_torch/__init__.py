@@ -18,6 +18,7 @@ from renderer_tpu_torch.core.constants import (
 )
 from renderer_tpu_torch.engine.profiling import Profiler
 from renderer_tpu_torch.engine.renderer import Renderer
+from renderer_tpu_torch.engine.stats import format_bytes, log_memory_usage, memory_usage
 from renderer_tpu_torch.geometry.vertex_library import (
     Mesh,
     VertexLibrary,
@@ -33,6 +34,7 @@ from renderer_tpu_torch.materials.registry import (
     TextureKind,
     TextureWrap,
 )
+from renderer_tpu_torch.assets.gltf_loader import Gltf
 from renderer_tpu_torch.scene.scene import Scene
 
 __all__ = [
@@ -41,4 +43,8 @@ __all__ = [
     "Profiler", "Renderer", "Mesh", "VertexLibrary", "VertexLibraryBuilder",
     "VertexLibraryMeasurer", "AlphaMode", "Material", "MaterialRegistry",
     "PbrMaterialParameters", "Texture", "TextureKind", "TextureWrap", "Scene",
+    "Gltf",
+    # device memory accounting — the reference's Bytes printer + vram
+    # getters (lib.rs:75-95,103-128)
+    "format_bytes", "memory_usage", "log_memory_usage",
 ]

@@ -7,12 +7,17 @@
   masked (alpha-to-coverage) and blended materials — the mini-sandbox
   golden's scene (tests/test_sandbox_golden.py) without its skinned
   character and HUD.
+- `mini_sandbox_scene`: the whole mini-sandbox golden scene
+  (tests/golden/sandbox-golden.npz) — the ring plus the skinned character
+  playing both its animations — and `mini_sandbox_ui`, its HUD or its
+  "Performance stats" window.
 - `patch_wall_scene`: the same materials on 48 larger patches in staggered
   walls — the all-classes scene at Sponza scale.
 - `stress_scene`: the >1M-triangle stress field of the JAX package's
   apps/configs.py stress row.
 
-Each builder returns (registry, scene); meshes are built and frozen.
+Each builder returns (registry, scene) (`mini_sandbox_scene` a
+MiniSandbox); meshes are built and frozen.
 """
 
 from __future__ import annotations
@@ -22,6 +27,7 @@ import numpy as np
 from renderer_tpu_torch.assets import proxy
 from renderer_tpu_torch.core import camera as camera_mod
 from renderer_tpu_torch.core import math3d
+from renderer_tpu_torch.engine.profiling import Profiler, Span
 from renderer_tpu_torch.geometry.vertex_library import VertexLibraryBuilder
 from renderer_tpu_torch.materials.registry import (
     AlphaMode,
@@ -172,6 +178,143 @@ def patch_ring_scene():
         )
         scene.queue_mesh(mesh, mats[i % 3], None, tr)
     return registry, scene
+
+
+class MiniSandbox:
+    """The mini-sandbox golden's scene (tests/test_sandbox_golden.py): the
+    six-patch ring of `patch_ring_scene` and the procedural skinned
+    character (proxy.make_skinned_character) at the origin. `queue(t)`
+    re-queues the scene with the character playing both its animations at
+    game time t, so each call evaluates the animation and skins anew."""
+
+    def __init__(self) -> None:
+        self.registry = MaterialRegistry()
+        builder = VertexLibraryBuilder()
+        self._meshes = _patches(builder, 6, 400, 1200)
+        self._mats = _patch_materials(self.registry)
+        self.character = proxy.make_skinned_character(builder, self.registry)
+        builder.build()
+        self.scene = Scene(world_space=camera_mod.GLTF)
+        _sandbox_camera(self.scene)
+
+    def queue(self, game_time: float) -> Scene:
+        scene = self.scene
+        scene.clear()
+        for i, mesh in enumerate(self._meshes):
+            ang = 2 * np.pi * i / len(self._meshes)
+            tr = math3d.trs(
+                translation=np.array(
+                    [1.2 * np.cos(ang), 0.6 + 0.1 * i, 1.2 * np.sin(ang)],
+                    np.float32),
+                rotation=math3d.quat_from_axis_angle([0, 1, 0], ang),
+            )
+            scene.queue_mesh(mesh, self._mats[i % 3], None, tr)
+        playing = [(game_time % a.end_time, a) for a in self.character.animations]
+        self.character.queue_animated(scene, math3d.IDENTITY, playing)
+        return scene
+
+
+def mini_sandbox_scene(game_time: float = 0.4) -> MiniSandbox:
+    """The mini-sandbox golden's scene queued at `game_time` (the golden
+    images are rendered at 0.4 s)."""
+    sandbox = MiniSandbox()
+    sandbox.queue(game_time)
+    return sandbox
+
+
+def sandbox_spans():
+    """The golden's deterministic span timings: (frame tree, startup
+    section), new Span objects on each call."""
+    return ([Span("frame", 0, 1.0e-3, 1), Span("raster", 1, 0.8e-3, 1),
+             Span("post", 1, 0.05e-3, 1)], [Span("load", 0, 0.5, 1)])
+
+
+def perf_window_frame(ctx, io, registry, frame_spans, startup_spans,
+                      pos=(4.0, 4.0), size=(150.0, 88.0)):
+    """One UiContext frame of the interactive "Performance stats" window
+    (overlay/perf_window.py), expanded at the fixed rect pos/size. Returns
+    the frame's DrawList."""
+    from renderer_tpu_torch.overlay.perf_window import performance_stats_window
+
+    io.new_frame()
+    ui = ctx.new_frame(io, registry)
+    performance_stats_window(ui, False, frame_spans, startup_spans)
+    dl = ui.end_frame()
+    st = ctx.windows["Performance stats"]
+    st.collapsed = False
+    st.pos = tuple(pos)
+    st.size = tuple(size)
+    return dl
+
+
+def mini_sandbox_ui(registry, kind: str):
+    """The golden's overlay DrawList with deterministic spans: "hud" — the
+    flat span-tree HUD (one collapsed section, one expanded with low/high
+    %-of-frame tints); "perfwin" — the interactive "Performance stats"
+    window after two UiContext frames, so the Condition::Appearing state
+    settles before the golden frame. Both fit the golden's 160×96 frame."""
+    from renderer_tpu_torch.overlay.hud import build_hud_drawlist
+    from renderer_tpu_torch.ui import UiContext, UiIo
+
+    if kind == "perfwin":
+        ctx, io = UiContext(), UiIo()
+        dl = None
+        for _ in range(2):
+            dl = perf_window_frame(ctx, io, registry, *sandbox_spans())
+        return dl
+    if kind != "hud":
+        raise ValueError(f"kind must be 'hud' or 'perfwin', got {kind!r}")
+    frame_spans, startup_spans = sandbox_spans()
+    prof = Profiler(enabled=True)
+    prof.sections = {"startup": startup_spans}
+    prof._spans = {(s.depth, s.name): s for s in frame_spans}
+    prof._order = list(prof._spans)
+    return build_hud_drawlist(registry, prof, ["mini sandbox"],
+                              collapsed={"startup"}, max_width=160,
+                              show_memory=False)
+
+
+class SandboxFrames:
+    """A frame loop over the mini-sandbox with its interactive overlay, as
+    an app would run it: each `next()` advances game time by 1/60 s,
+    re-queues the scene (animation + skinning) and rebuilds the
+    "Performance stats" window (expanded at the reference's 640×480)
+    through one UiContext from the spans `profiler` took in the previous
+    frame — pass it to the Renderer. The first frame shows the golden's
+    deterministic spans; the first rendered frame's spans become the
+    window's startup section."""
+
+    POS, SIZE = (40.0, 40.0), (640.0, 480.0)
+
+    def __init__(self):
+        from renderer_tpu_torch.ui import UiContext, UiIo
+
+        self.sandbox = MiniSandbox()
+        self.registry = self.sandbox.registry
+        self.profiler = Profiler(enabled=True)
+        self.ctx, self.io = UiContext(), UiIo()
+        self.game_time = 0.0
+        self.frames = 0
+        self.startup = []
+        # one settling UiContext frame: the window's Condition::Appearing
+        # state (collapsed) is overridden before the first drawn frame
+        perf_window_frame(self.ctx, self.io, self.registry, [], [],
+                          self.POS, self.SIZE)
+
+    def next(self):
+        """(scene, DrawList) of the next frame."""
+        spans = self.profiler.report()
+        if self.frames == 0:
+            spans, self.startup = sandbox_spans()
+        elif self.frames == 1:
+            self.startup = spans
+        self.profiler.reset()
+        self.game_time += 1.0 / 60.0
+        self.frames += 1
+        scene = self.sandbox.queue(self.game_time)
+        dl = perf_window_frame(self.ctx, self.io, self.registry, spans,
+                               self.startup, self.POS, self.SIZE)
+        return scene, dl
 
 
 def patch_wall_scene(n_patches: int = 48, grid: int = 56):

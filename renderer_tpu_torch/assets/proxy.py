@@ -1,16 +1,24 @@
 """Procedural proxy geometry: deformed grid patches (the geometry generator
-of the benchmark scenes) and the >1M-triangle stress field.
+of the benchmark scenes), the >1M-triangle stress field, and a procedural
+skinned character (for the missing Smol Ame geometry) so the
+skeletal-animation path runs with real joint palettes and keyframes.
 
-The JAX package also reconstructs glTF scenes and a skinned character from
-these patches; the port carries only the asset-free generators its slice
-renders.
+The JAX package also reconstructs glTF scenes from these patches
+(load_gltf_proxy); the port does not carry that yet.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from renderer_tpu_torch.assets import gltf_loader
+from renderer_tpu_torch.core import math3d
 from renderer_tpu_torch.geometry.vertex_library import VertexLibraryBuilder
+from renderer_tpu_torch.materials.registry import (
+    MaterialRegistry,
+    PbrMaterialParameters,
+    Texture,
+)
 
 
 def _patch_geometry(vertex_count: int, index_count: int, aabb_min, aabb_max, seed: int):
@@ -122,3 +130,167 @@ def make_stress_field(
         )
         meshes.append(builder.add_mesh(p, uv, n, t, idx))
     return meshes, material
+
+
+def make_skinned_character(
+    builder: VertexLibraryBuilder,
+    registry: MaterialRegistry,
+    *,
+    n_joints: int = 8,
+    segments: int = 24,
+    radial: int = 12,
+    height: float = 1.0,
+    textures: list[Texture] | None = None,
+) -> gltf_loader.Gltf:
+    """A procedurally skinned, animated tube character (stand-in for the
+    missing Smol Ame geometry): a vertical cylinder bound to a chain of
+    n_joints bones with a looping sway animation. Exercises the exact same
+    runtime path as a real skinned glTF: joints/weights attributes, inverse
+    bind matrices, keyframed TRS channels, joint palettes."""
+    out = gltf_loader.Gltf()
+
+    # cylinder mesh with 4-bone skinning
+    zs = np.linspace(0.0, height, segments, dtype=np.float32)
+    angles = np.linspace(0, 2 * np.pi, radial, endpoint=False, dtype=np.float32)
+    radius = 0.15 * (1.0 + 0.3 * np.sin(np.linspace(0, np.pi, segments)))
+    positions, normals, uvs, joints, weights = [], [], [], [], []
+    for si, z in enumerate(zs):
+        for ai, ang in enumerate(angles):
+            r = radius[si]
+            positions.append([r * np.cos(ang), z, r * np.sin(ang)])
+            normals.append([np.cos(ang), 0.0, np.sin(ang)])
+            uvs.append([ai / radial, si / (segments - 1)])
+            # bind to the two nearest bones along the chain
+            f = z / height * (n_joints - 1)
+            j0 = int(np.floor(f))
+            j1 = min(j0 + 1, n_joints - 1)
+            w1 = f - j0
+            joints.append([j0, j1, 0, 0])
+            weights.append([1.0 - w1, w1, 0.0, 0.0])
+    positions = np.asarray(positions, np.float32)
+    normals = np.asarray(normals, np.float32)
+    uvs = np.asarray(uvs, np.float32)
+    tangents = np.zeros((positions.shape[0], 4), np.float32)
+    tangents[:, 1] = 1.0
+    tangents[:, 3] = 1.0
+
+    indices = []
+    for si in range(segments - 1):
+        for ai in range(radial):
+            a = si * radial + ai
+            b = si * radial + (ai + 1) % radial
+            c = (si + 1) * radial + ai
+            d = (si + 1) * radial + (ai + 1) % radial
+            indices += [a, c, b, b, c, d]
+    indices = np.asarray(indices, np.uint32)
+
+    mesh = builder.add_mesh(
+        positions, uvs, normals, tangents, indices,
+        joints=np.asarray(joints, np.int32), weights=np.asarray(weights, np.float32),
+    )
+    params = PbrMaterialParameters(
+        base_color=(textures[0] if textures else None),
+        base_color_factor=(0.9, 0.6, 0.7, 1.0),
+        roughness_factor=0.8,
+    )
+    material = registry.create_material("proxy-character", params)
+    out.materials = [material]
+    out.meshes = [[(mesh, material)]]
+
+    # node hierarchy: node 0 = mesh+skin root; nodes 1..n_joints = bone chain
+    seg_h = height / (n_joints - 1)
+    out.nodes.append(gltf_loader.Node("root", mesh=0, skin=0, children=[1],
+                                      transform=math3d.IDENTITY))
+    for j in range(n_joints):
+        local = math3d.trs(translation=np.array([0, 0 if j == 0 else seg_h, 0], np.float32))
+        out.nodes.append(
+            gltf_loader.Node(
+                f"bone{j}", mesh=None, skin=None,
+                children=[j + 2] if j < n_joints - 1 else [],
+                transform=local,
+            )
+        )
+    out.root_nodes = [0]
+    # flatten parents (loader parity)
+    parents = [0]
+    while parents:
+        p = parents.pop()
+        for c in out.nodes[p].children:
+            out.nodes[c].transform = out.nodes[p].transform @ out.nodes[c].transform
+            parents.append(c)
+
+    ibms = []
+    for j in range(n_joints):
+        bind = math3d.trs(translation=np.array([0, j * seg_h, 0], np.float32))
+        ibms.append(math3d.affine_inverse(bind))
+    out.skins = [gltf_loader.Skin(
+        [gltf_loader.Joint(node_index=j + 1, inverse_bind_matrix=ibms[j])
+         for j in range(n_joints)]
+    )]
+
+    # Sway animation: each bone rotates about Z with a phase offset. Every
+    # animated bone also gets a constant translation channel carrying its
+    # LOCAL offset — required because animation evaluation starts from the
+    # parent-flattened node transform (reference quirk, lib.rs:199-230):
+    # channels provide local TRS, overriding the flattened decomposition.
+    duration = 2.0
+    times = np.linspace(0, duration, 16, dtype=np.float32)
+    channels: list[list | None] = [None] * len(out.nodes)
+    for j in range(n_joints):
+        quats = np.stack(
+            [
+                math3d.quat_from_axis_angle(
+                    [0, 0, 1], 0.35 * np.sin(2 * np.pi * t / duration + 0.5 * j)
+                )
+                for t in times
+            ]
+        )
+        local_t = np.tile(
+            np.array([0.0, 0.0 if j == 0 else seg_h, 0.0], np.float32), (len(times), 1)
+        )
+        channels[j + 1] = [
+            gltf_loader.AnimationChannel("LINEAR", "rotation", times, quats),
+            gltf_loader.AnimationChannel("LINEAR", "translation", times, local_t),
+        ]
+    # Second animation, "bob": vertical bounce on every other bone plus a
+    # breathing scale on the last bone, layered ON TOP of "sway" (the demo
+    # plays ALL animations, main.rs:565-571 — the real Smol Ame layers
+    # several; playing ≥2 exercises the decompose-accumulate path of
+    # lib.rs:199-230 every frame).
+    bob_duration = 3.0
+    bob_times = np.linspace(0, bob_duration, 12, dtype=np.float32)
+    bob_channels: list[list | None] = [None] * len(out.nodes)
+    for j in range(1, n_joints, 2):
+        local_y = 0.0 if j == 0 else seg_h
+        tr = np.stack(
+            [
+                np.array(
+                    [0.0, local_y + 0.03 * np.sin(2 * np.pi * t / bob_duration),
+                     0.0], np.float32,
+                )
+                for t in bob_times
+            ]
+        )
+        bob_channels[j + 1] = [
+            gltf_loader.AnimationChannel("LINEAR", "translation", bob_times, tr),
+        ]
+    breathe = np.stack(
+        [
+            np.array(
+                [1.0, 1.0 + 0.15 * np.sin(2 * np.pi * t / bob_duration), 1.0],
+                np.float32,
+            )
+            for t in bob_times
+        ]
+    )
+    last = n_joints  # node index of the last bone
+    if bob_channels[last] is None:
+        bob_channels[last] = []
+    bob_channels[last].append(
+        gltf_loader.AnimationChannel("LINEAR", "scale", bob_times, breathe)
+    )
+    out.animations = [
+        gltf_loader.Animation("sway", 0.0, float(duration), channels),
+        gltf_loader.Animation("bob", 0.0, float(bob_duration), bob_channels),
+    ]
+    return out

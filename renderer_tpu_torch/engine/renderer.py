@@ -77,7 +77,7 @@ class Renderer:
     ) -> None:
         """overflow_policy — what to do when the frame's stats vector reports
         dropped work (bin pair/row capacity exceeded, or a layered capture
-        truncated past mask_layers/blend_layers — the reference's
+        truncated past mask_layers/blend_layers/ui_layers — the reference's
         fixed-function blending is unbounded, pipelines.rs:112-132), the
         analog of the reference's loud arena-OOM errors
         (arena/buffers.rs:126-163):
@@ -404,14 +404,20 @@ class Renderer:
             (gs.num_tris, gs.num_opaque_tris, gs.num_masked_tris, debug_mode),
             morph_k=gs.morph_k, joint_cap=self._joint_cap(scene),
         )
-        host = torch.from_numpy(blob)
+        return {"blob": self._upload(blob)}
+
+    def _upload(self, a: np.ndarray) -> torch.Tensor:
+        """A per-frame host array on the renderer's device, copied from
+        pinned host memory on the card (the copy does not wait for the
+        device)."""
+        host = torch.from_numpy(np.ascontiguousarray(a))
         if self.device.type == "cuda":
             host = host.pin_memory()
-        return {"blob": host.to(self.device, non_blocking=True)}
+        return host.to(self.device, non_blocking=True)
 
     # -- frame loop ----------------------------------------------------------
 
-    def _dispatch(self, scene: Scene, debug_mode: int):
+    def _dispatch(self, scene: Scene, debug_mode: int, ui=None):
         p = self.profiler
         with p.span("sort draws + pack"):
             fv = draw_stream.frame_view(scene)
@@ -419,6 +425,9 @@ class Renderer:
             gs, geom_dev = self._geometry(scene, fv.order, fv.geom_key)
         with p.span("frame arrays"):
             frame = self._frame_arrays(scene, fv, gs, debug_mode)
+            if ui is not None:
+                packed_ui = ui.pack() if hasattr(ui, "pack") else ui
+                frame["ui"] = {k: self._upload(v) for k, v in packed_ui.items()}
         with p.span("materials"):
             mats = self._materials()
         with p.span("queue frame"):
@@ -431,12 +440,15 @@ class Renderer:
             )
         return img, stats
 
-    def render_frame_device(self, scene: Scene, debug_mode: int = 0) -> torch.Tensor:
-        """One frame, returned as a device u8 [H,W,3] tensor (no host copy)."""
+    def render_frame_device(self, scene: Scene, debug_mode: int = 0,
+                            ui=None) -> torch.Tensor:
+        """One frame, returned as a device u8 [H,W,3] tensor (no host copy).
+        `ui` — optional renderer_tpu_torch.ui.DrawList (or its packed dict):
+        the overlay rendered through the raster pipeline's UI pass."""
         p = self.profiler
         with p.span("render_frame"):
             prev_stats = self._last_stats
-            img, stats = self._dispatch(scene, debug_mode)
+            img, stats = self._dispatch(scene, debug_mode, ui)
             self._last_stats = stats
             if self.overflow_policy == "sync":
                 # loop: regrow until the frame reports no dropped/truncated
@@ -446,7 +458,7 @@ class Renderer:
                     if not self._grow_capacities(host):
                         self._maybe_shrink_capacities(host)
                         break
-                    img, stats = self._dispatch(scene, debug_mode)
+                    img, stats = self._dispatch(scene, debug_mode, ui)
                     self._last_stats = stats
             elif self.overflow_policy == "auto" and prev_stats is not None:
                 # one-frame-delayed check: the previous frame is queued ahead
@@ -470,8 +482,9 @@ class Renderer:
         )
         return proj @ view
 
-    def render_frame(self, scene: Scene, debug_mode: int = 0) -> np.ndarray:
+    def render_frame(self, scene: Scene, debug_mode: int = 0,
+                     ui=None) -> np.ndarray:
         """One frame, copied back to the host (the 'present' boundary)."""
-        img = self.render_frame_device(scene, debug_mode)
+        img = self.render_frame_device(scene, debug_mode, ui)
         with self.profiler.span("present (device→host)"):
             return img.cpu().numpy()

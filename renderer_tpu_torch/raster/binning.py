@@ -99,6 +99,40 @@ def _tile_spans(tri_data, bounds, n_classes, *, tiles_x, tiles_y,
     return tx0, ty0, span_w, span_h, n_pairs, cls
 
 
+def bin_triangles(
+    tri_data: torch.Tensor,  # [ROWS, Tc] from triangle_setup
+    lo=0,  # bin only triangles with lo <= index < hi
+    hi=None,
+    *,
+    tiles_x: int,
+    tiles_y: int,
+    tile_w: int,
+    tile_h: int,
+    pair_capacity: int,
+    row_capacity: int | None = None,
+    tile_row_lo: int = 0,
+    local_tiles_y: int | None = None,
+    row_stride: int = 1,
+):
+    """Single-class binning (the UI pass, raster/ui_stage.py; the scene
+    uses `bin_triangle_classes` — one sort for all alpha classes).
+    `row_capacity` defaults to `pair_capacity` (tile rows per triangle never
+    exceed its bbox pairs). Returns (binned [B_ROWS, Pp] f32 SoA, starts
+    [tiles] i32 (128-aligned), counts [tiles] i32, overflow i32 scalar) —
+    the overflow folds the row truncation into the pair overflow (each
+    dropped row hides ≥ 0 pairs; callers only test > 0 and grow their one
+    capacity knob)."""
+    binned, starts, counts, overflow, row_ov, _pd, _rd = bin_triangle_classes(
+        tri_data, (lo, tri_data.shape[1] if hi is None else hi),
+        tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w, tile_h=tile_h,
+        pair_capacity=pair_capacity,
+        row_capacity=pair_capacity if row_capacity is None else row_capacity,
+        tile_row_lo=tile_row_lo, local_tiles_y=local_tiles_y,
+        row_stride=row_stride,
+    )
+    return binned, starts[0], counts[0], overflow[0] + row_ov
+
+
 def bin_triangle_classes(
     tri_data: torch.Tensor,  # [ROWS, Tc] from triangle_setup
     bounds,  # (C+1) scalars: class c = triangles [bounds[c], bounds[c+1])

@@ -15,7 +15,9 @@ sharing one reverse-Z depth buffer):
 5. one deferred full shade of the merged solid visibility buffer (shade)
 6. blended ordered-accept layer raster (layers, kernel K2) → per-layer full
    shade → src-alpha composite in acceptance order (pipelines.rs:112-132)
-7. ACES tonemap + sRGB encode (post)
+7. UI overlay (ui_stage: kernel K2 in blended mode over the DrawList
+   triangles) composited into every sample's HDR buffer
+8. ACES tonemap + sRGB encode (post)
 
 MSAA (the reference's default 4×, examples/sandbox/src/main.rs:114-117):
 VISIBILITY runs once per sample by evaluating the edge/depth planes at the
@@ -41,6 +43,7 @@ from renderer_tpu_torch.raster import (
     raster_kernel,
     setup,
     shade,
+    ui_stage,
     vertex_stage,
 )
 
@@ -58,8 +61,7 @@ MSAA4_POSITIONS = STANDARD_SAMPLE_POSITIONS[4]
 
 # Per-frame device stats vector returned next to the image — the analog of
 # the reference's loud resource-exhaustion errors (arena/buffers.rs:126-163).
-# Same names and order as the JAX package's pipeline.STAT_NAMES; the UI
-# entries stay 0 until the port has a UI pass.
+# Same names and order as the JAX package's pipeline.STAT_NAMES.
 STAT_NAMES = (
     "overflow_opaque",
     "overflow_masked",
@@ -351,11 +353,46 @@ def render_shard(
                                 torch.zeros_like(color_k[..., 3:4]))
                 hdr[s] = hdr[s] * (1.0 - a) + color_k[..., :3] * a
 
+    # -- phase 6: UI overlay into the HDR buffer of every sample (the
+    # reference's ImGui pipeline position: blended, no depth, last in the
+    # geometry pass, BEFORE tonemap — renderer.rs:433-441) ------------------
+    ov_ui = ui_sat = ui_demand = zero
+    ui = frame.get("ui")
+    if ui is not None:
+        # coverage at pixel centers by default; at the MSAA sample positions
+        # under cfg.ui_msaa — shading stays at pixel centers either way
+        ui_spos = spos if (cfg.ui_msaa and msaa > 1) else ((0.5, 0.5),)
+        lt_ui, ov_ui, aux_ui = ui_stage.rasterize_ui(
+            ui, config=cfg, local_tiles_y=local_tiles_y,
+            tile_row_offset=tile_row_offset, sample_positions=ui_spos,
+            row_stride=row_stride,
+        )
+        ui_sat = saturated_px(aux_ui, cfg.ui_layers)
+        ui_demand = demand_max(aux_ui)
+        # ALL layers (and sample sets under ui_msaa) shaded in one stacked
+        # call; composited in layer order
+        if len(ui_spos) == 1:
+            rgb_all, a_all = ui_stage.shade_ui_layer(
+                lt_ui[0], ui, materials, config=cfg, row0=row0
+            )  # [K,H,W,3], [K,H,W]
+            for k in range(cfg.ui_layers):
+                a_k = a_all[k][..., None]
+                for s in range(msaa):
+                    hdr[s] = hdr[s] * (1.0 - a_k) + rgb_all[k] * a_k
+        else:
+            rgb_all, a_all = ui_stage.shade_ui_layer(
+                lt_ui, ui, materials, config=cfg, row0=row0
+            )  # [S,K,H,W,3], [S,K,H,W]
+            for k in range(cfg.ui_layers):
+                for s in range(msaa):
+                    a_k = a_all[s, k][..., None]
+                    hdr[s] = hdr[s] * (1.0 - a_k) + rgb_all[s, k] * a_k
+
     img = post.tonemap(torch.stack(hdr) if msaa > 1 else hdr[0])
     clamped = torch.sum(clamp_mask[:out_rows, : cfg.width].to(torch.int32))
     stats = torch.stack(
-        [ov_opaque, ov_masked, ov_blended, zero, mask_sat, blend_sat, zero,
-         clamped, pair_demand, mask_demand, blend_demand, zero,
+        [ov_opaque, ov_masked, ov_blended, ov_ui, mask_sat, blend_sat, ui_sat,
+         clamped, pair_demand, mask_demand, blend_demand, ui_demand,
          shade_demand, row_demand, row_overflow]
     ).to(torch.int32)
     return img[:out_rows, : cfg.width], stats

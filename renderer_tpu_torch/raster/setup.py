@@ -54,6 +54,9 @@ def triangle_setup(
     width: int,
     height: int,
     bbox_pad: float = 0.0,  # grown bbox (binning stays conservative for MSAA)
+    double_sided: bool = False,  # no back-face cull (the ImGui pipeline,
+    # pipeline_parameters.rs IMGUI double_sided=true): back-facing triangles
+    # get their edge planes negated so the inside test still holds
 ) -> torch.Tensor:
     tc = tri_v.shape[0]
     c = clip[tri_v.long()]  # [Tc,3,4]
@@ -84,6 +87,12 @@ def triangle_setup(
     a2, b2, c2 = cross(x0, y0, w0, x1, y1, w1)  # opposite v2
 
     det = a0 * x0 + b0 * y0 + c0 * w0
+    if double_sided:
+        flip = torch.where(det < 0.0, -1.0, 1.0)
+        a0, b0, c0 = a0 * flip, b0 * flip, c0 * flip
+        a1, b1, c1 = a1 * flip, b1 * flip, c1 * flip
+        a2, b2, c2 = a2 * flip, b2 * flip, c2 * flip
+        det = det * flip
     front = det > 0.0
     one = torch.ones_like(det)
     inv_det = torch.reciprocal(torch.where(front, det, one))

@@ -1,0 +1,169 @@
+"""UI pass device stages: raster + shade of the DrawList through the same
+layer machinery as blended scene geometry.
+
+Pipeline-state parity with the reference's ImGui pipeline
+(pipeline_parameters.rs IMGUI): blended src-alpha/one-minus, double-sided,
+depth test/write OFF, drawn LAST in the geometry pass into the HDR target —
+i.e. BEFORE tonemap (renderer.rs:433-441 pipeline order, render pass
+Geometry). Fragment behavior parity with imgui.frag: clip-rect discard on
+screen coordinates (:28-33), tex_kind 1 = alpha-from-R font, 2 = RGBA
+modulate, else discard (:34-44).
+
+Triangles are already 2D screen-space; kernel K2 in "blended" mode (constant
+depth 0.5 over a floor of 0, so every fragment passes GE and the chain is
+submission order) captures up to ui_layers fragments per pixel; each
+captured layer is shaded once per pixel with 2D-affine barycentrics (w = 1 →
+no perspective) and composited in order. UI coverage is evaluated at pixel
+centers by default and the same composite is applied to every MSAA sample;
+`RenderConfig.ui_msaa` evaluates coverage at the MSAA sample positions with
+per-sample accept chains, shading at pixel centers either way.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from renderer_tpu_torch.raster import binning, layers, setup
+from renderer_tpu_torch.raster.shade import _rows, make_sampler
+
+TEX_KIND_FONT = 1
+TEX_KIND_RGBA = 2
+
+
+def bin_ui(ui: dict, *, config, local_tiles_y: int, tile_row_offset: int,
+           n_samples: int, row_stride: int = 1):
+    """Pixel-space UI triangles (packed DrawList tensors) → clip space →
+    double-sided setup → single-class bins at ui_pair_capacity. Returns
+    (binned, starts, counts, overflow scalar) — binning.bin_triangles."""
+    cfg = config
+    pos = ui["pos"]
+    x = pos[:, 0] * (2.0 / cfg.width) - 1.0
+    y = pos[:, 1] * (2.0 / cfg.height) - 1.0
+    clip = torch.stack([x, y, torch.full_like(x, 0.5), torch.ones_like(x)], dim=-1)
+    tri_data = setup.triangle_setup(
+        clip, ui["tris"], ui["counts"][0], cfg.width, cfg.height,
+        double_sided=True,
+        bbox_pad=(0.5 if n_samples > 1 else 0.0),
+    )
+    return binning.bin_triangles(
+        tri_data, 0, None,
+        tiles_x=cfg.tiles_x, tiles_y=cfg.tiles_y,
+        tile_w=cfg.tile_w, tile_h=cfg.tile_h,
+        pair_capacity=cfg.ui_pair_capacity,
+        tile_row_lo=tile_row_offset, local_tiles_y=local_tiles_y,
+        row_stride=row_stride,
+    )
+
+
+def rasterize_ui(
+    ui: dict,
+    *,
+    config,
+    local_tiles_y: int,
+    tile_row_offset: int,
+    sample_positions: tuple = ((0.5, 0.5),),
+    row_stride: int = 1,
+):
+    """Bin + layer-rasterize the UI triangles (packed DrawList tensors).
+    `sample_positions` — in-pixel coverage evaluation points: pixel centers
+    by default, the MSAA sample positions under RenderConfig.ui_msaa.
+    Returns (layer tids [S, K, Hp, Wp] i32, overflow scalar, aux counts
+    [S, Hp, Wp]); the K2 launch counts under layers.launches["ui"]."""
+    cfg = config
+    pad_h = local_tiles_y * cfg.tile_h
+    n_s = len(sample_positions)
+    binned, starts, counts, overflow = bin_ui(
+        ui, config=cfg, local_tiles_y=local_tiles_y,
+        tile_row_offset=tile_row_offset, n_samples=n_s, row_stride=row_stride)
+    # constant z = 0.5 vs floor 0.0 → every covered fragment passes GE and
+    # the accept chain is pure submission (painter's) order
+    floor = torch.zeros((n_s, pad_h, cfg.padded_width), dtype=torch.float32,
+                        device=binned.device)
+    _lz, lt, aux = layers.rasterize_layers(
+        binned, starts, counts, floor,
+        mode="blended", n_layers=cfg.ui_layers,
+        tile_row_offset=tile_row_offset,
+        padded_height=pad_h, padded_width=cfg.padded_width,
+        tile_h=cfg.tile_h, tile_w=cfg.tile_w,
+        sample_positions=tuple(sample_positions), row_stride=row_stride,
+        launch_key="ui",
+    )
+    return lt, overflow, aux
+
+
+def shade_ui_layer(
+    lt: torch.Tensor,  # [..., Hp, Wp] i32 layer tids (-1 empty)
+    ui: dict,
+    materials: dict,
+    *,
+    config,
+    row0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """imgui.frag for captured layers at pixel centers. Returns
+    (rgb [..., H, W, 3], alpha [..., H, W]) ready for src-alpha compositing.
+    Leading-dim polymorphic: the pipeline shades ALL captured UI layers (and
+    MSAA sample sets under ui_msaa) in one stacked call."""
+    h, w = lt.shape[-2:]
+    dev = lt.device
+    covered = lt >= 0
+    t = torch.where(covered, lt, torch.zeros_like(lt))
+
+    vid = _rows(ui["tris"], t)  # [...,H,W,3]
+    p = _rows(ui["pos"], vid)  # [...,H,W,3,2]
+    px = torch.arange(w, dtype=torch.float32, device=dev)[None, :] + 0.5
+    py = torch.arange(h, dtype=torch.float32, device=dev)[:, None] + 0.5 + row0
+
+    # 2D affine barycentrics (w = 1): g_i = cross2(p_j - pt, p_k - pt);
+    # the shared denominator's sign cancels, so both windings interpolate
+    # correctly (the pipeline is double-sided).
+    def g(j, k):
+        ax = p[..., j, 0] - px
+        ay = p[..., j, 1] - py
+        bx = p[..., k, 0] - px
+        by = p[..., k, 1] - py
+        return ax * by - ay * bx
+
+    g0, g1, g2 = g(1, 2), g(2, 0), g(0, 1)
+    s = g0 + g1 + g2
+    inv_s = torch.reciprocal(torch.where(torch.abs(s) > 1e-12, s, torch.ones_like(s)))
+    lam = torch.stack([g0, g1, g2], dim=-1) * inv_s[..., None]
+
+    uvv = _rows(ui["uv"], vid)  # [...,H,W,3,2]
+    uv = torch.einsum("...v,...vk->...k", lam, uvv)
+    col = torch.einsum("...v,...vk->...k", lam, _rows(ui["col"], vid))
+
+    # analytic UV derivatives of the affine map (∂lam_i/∂x = a_i / s with
+    # a_i from the edge vectors; Σ a_i = 0)
+    a = torch.stack(
+        [p[..., 1, 1] - p[..., 2, 1], p[..., 2, 1] - p[..., 0, 1],
+         p[..., 0, 1] - p[..., 1, 1]], dim=-1,
+    ) * inv_s[..., None]
+    b = torch.stack(
+        [p[..., 2, 0] - p[..., 1, 0], p[..., 0, 0] - p[..., 2, 0],
+         p[..., 1, 0] - p[..., 0, 0]], dim=-1,
+    ) * inv_s[..., None]
+    duv_dx = torch.einsum("...v,...vk->...k", a, uvv)
+    duv_dy = torch.einsum("...v,...vk->...k", b, uvv)
+
+    cmd = _rows(ui["tri_cmd"], t)  # [...,H,W]
+    crect = _rows(ui["clip"], cmd)  # [...,H,W,4]
+    # clip-rect discard on screen coords (imgui.frag:28-33)
+    in_clip = (
+        (crect[..., 0] < px) & (crect[..., 2] >= px)
+        & (crect[..., 1] < py) & (crect[..., 3] >= py)
+    )
+    kind = _rows(ui["tex_kind"], cmd)
+    slot = _rows(ui["tex_slot"], cmd)
+
+    sampler = make_sampler(materials, uv, torch.zeros_like(s), True,
+                           duv_dx, duv_dy, aniso=1)
+    tex = sampler(slot)
+
+    # tex_kind 1: rgb = vertex color, alpha = vertex alpha · tex.r (R8 font);
+    # tex_kind 2: full modulate; anything else discards (imgui.frag:34-44)
+    rgb = torch.where((kind == TEX_KIND_RGBA)[..., None],
+                      col[..., :3] * tex[..., :3], col[..., :3])
+    alpha = torch.where(kind == TEX_KIND_FONT, col[..., 3] * tex[..., 0],
+                        col[..., 3] * tex[..., 3])
+    live = covered & in_clip & ((kind == TEX_KIND_FONT) | (kind == TEX_KIND_RGBA))
+    return rgb, torch.where(live, alpha, torch.zeros_like(alpha))

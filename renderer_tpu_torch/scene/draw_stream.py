@@ -371,4 +371,7 @@ def unpack_frame(packed: dict, morph_k: int = 0,
         "n_opaque": counts[1],
         "n_masked": counts[2],
         "debug_mode": counts[3],
+        # optional UI overlay draw data (renderer_tpu_torch/ui); None = no
+        # UI pass
+        "ui": packed.get("ui"),
     }

@@ -1,0 +1,118 @@
+"""Where a frame's device time goes, on the card: one frame of the
+mini-sandbox (scene C of chip_smoke.py: 1920×1080, 4×MSAA, the skinned
+character and the "Performance stats" window) under torch.profiler, and the
+UI pass alone timed with CUDA events.
+
+    python -m renderer_tpu_torch.tools.frame_profile
+
+Prints one JSON object: the CUDA-event time of the profiled frame and of
+the next, unprofiled one; the summed device time of the profiled frame's
+kernels and copies (device-side events only) and their count; the device
+idle share (1 − busy / unprofiled frame); the ten PyTorch ops with the most
+device time; and the UI pass's milliseconds (bin + K2 launch + stacked
+shade + composite of the frame's own DrawList). Needs CUDA; without it, it
+exits with an error.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+
+import torch
+
+import renderer_tpu_torch as trt
+from renderer_tpu_torch.assets import demo_scenes
+from renderer_tpu_torch.interop import from_numpy_arrays
+from renderer_tpu_torch.raster import ui_stage
+from renderer_tpu_torch.raster.pipeline import STANDARD_SAMPLE_POSITIONS
+
+W, H = 1920, 1080
+
+
+def _event_ms(fn, reps: int = 5) -> float:
+    fn()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        raise SystemExit("frame_profile: torch.cuda.is_available() is False")
+    dev = torch.device("cuda")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    frames = demo_scenes.SandboxFrames()
+    r = trt.Renderer(frames.registry, trt.RenderConfig(width=W, height=H, msaa_samples=4),
+                     profiler=frames.profiler, overflow_policy="sync", device=dev)
+    for _ in range(3):  # grow the capacities, build the kernels, warm up
+        sc, dl = frames.next()
+        r.render_frame_device(sc, 0, ui=dl)
+    torch.cuda.synchronize()
+
+    sc, dl = frames.next()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        e0.record()
+        r.render_frame_device(sc, 0, ui=dl)
+        e1.record()
+        torch.cuda.synchronize()
+    profiled_ms = e0.elapsed_time(e1)
+    sc, dl = frames.next()
+    frame_ms = _event_ms(lambda: r.render_frame_device(sc, 0, ui=dl), reps=1)
+    # device-side events (kernels, copies) carry the device time once; a
+    # PyTorch op's own entry repeats its kernels' time
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    kernels = [e for e in rows if e.device_type == cuda]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted((e for e in rows if e.device_type != cuda),
+                 key=lambda e: -e.self_device_time_total)[:10]
+
+    # the UI pass alone on this frame's DrawList: bin, K2, stacked shade of
+    # every layer, composite into the MSAA samples' HDR buffers
+    cfg = r.config
+    ui = from_numpy_arrays(dl.pack(), device=dev)
+    mats = r._materials()
+    row0 = torch.zeros((cfg.padded_height, 1), dtype=torch.float32, device=dev)
+    hdr = [torch.zeros((cfg.padded_height, cfg.padded_width, 3), device=dev)
+           for _ in range(cfg.msaa_samples)]
+
+    def ui_pass():
+        lt, _ov, _aux = ui_stage.rasterize_ui(
+            ui, config=cfg, local_tiles_y=cfg.tiles_y, tile_row_offset=0,
+            sample_positions=STANDARD_SAMPLE_POSITIONS[1])
+        rgb, a = ui_stage.shade_ui_layer(lt[0], ui, mats, config=cfg, row0=row0)
+        out = list(hdr)
+        for k in range(cfg.ui_layers):
+            a_k = a[k][..., None]
+            for s in range(len(out)):
+                out[s] = out[s] * (1.0 - a_k) + rgb[k] * a_k
+        return out
+
+    print(json.dumps({
+        "card": card, "frame_ms": frame_ms, "profiled_frame_ms": profiled_ms,
+        "device_busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / frame_ms,
+        "kernels_and_copies": sum(e.count for e in kernels),
+        "top_ops_device_ms": [[e.key, e.self_device_time_total / 1e3, e.count]
+                              for e in top],
+        "ui_triangles": int(dl.pack()["counts"][0]),
+        "ui_pass_ms": _event_ms(ui_pass),
+        "config": {"mask_layers": cfg.mask_layers, "blend_layers": cfg.blend_layers,
+                   "ui_layers": cfg.ui_layers,
+                   "msaa_shade_candidates": cfg.msaa_shade_candidates},
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

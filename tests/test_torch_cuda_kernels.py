@@ -17,9 +17,18 @@ import torch
 
 import renderer_tpu_torch as trt
 from renderer_tpu_torch.assets import demo_scenes
-from renderer_tpu_torch.raster import binning, layers, raster_kernel, setup
+from renderer_tpu_torch.raster import binning, layers, raster_kernel, setup, ui_stage
 from renderer_tpu_torch.raster.pipeline import STANDARD_SAMPLE_POSITIONS
-from tests.torch_bins import CASES, H, W, crafted_bins, crafted_floor
+from tests.torch_bins import (
+    CASES,
+    UI_CASES,
+    H,
+    W,
+    crafted_bins,
+    crafted_floor,
+    ui_config,
+    ui_drawlist,
+)
 
 GOLDEN = Path(__file__).parent / "golden" / "goldens.npz"
 pytestmark = pytest.mark.cuda
@@ -129,6 +138,38 @@ def test_k2_exact_on_crafted_cases(cuda, case, mode, n_layers, msaa):
         assert _bits_equal(got, want)
 
 
+# K2's UI launch (raster/ui_stage.py): blended mode at z = 0.5 over a zero
+# floor, on double-sided setup planes. Every accept ties the running depth
+# (z >= cur_z at equality), and aux counts each one, so the deep stacks
+# check the kernel's depth skip stays strict at equal depth.
+@pytest.mark.parametrize("case", UI_CASES)
+@pytest.mark.parametrize("n_layers", [1, 4, 8, 16])
+@pytest.mark.parametrize("msaa", [1, 4])
+def test_k2_ui_launch_exact(cuda, case, n_layers, msaa):
+    dl, _registry = ui_drawlist(case)
+    cfg = ui_config(n_layers)
+    ui = {k: torch.from_numpy(v).to(cuda) for k, v in dl.pack().items()}
+    spos = STANDARD_SAMPLE_POSITIONS[msaa]
+    b, s, c, ov = ui_stage.bin_ui(ui, config=cfg, local_tiles_y=cfg.tiles_y,
+                                  tile_row_offset=0, n_samples=msaa)
+    assert int(ov) == 0
+    before = layers.launches["ui"]
+    lt, _ov, aux = ui_stage.rasterize_ui(ui, config=cfg, local_tiles_y=cfg.tiles_y,
+                                         tile_row_offset=0, sample_positions=spos)
+    torch.cuda.synchronize()
+    assert layers.launches["ui"] == before + 1
+    floor = torch.zeros((msaa, cfg.padded_height, cfg.padded_width), device=cuda)
+    kw = dict(mode="blended", n_layers=n_layers, padded_height=cfg.padded_height,
+              padded_width=cfg.padded_width, sample_positions=spos)
+    out = layers.rasterize_layers(b, s, c, floor, launch_key="ui", **kw)
+    ref = layers.rasterize_layers_plain(b, s, c, floor, **kw)
+    assert _bits_equal(lt, ref[1]) and _bits_equal(aux, ref[2])
+    for got, want in zip(out, ref):
+        assert _bits_equal(got, want)
+    if case == "deep-stack":
+        assert int(ref[2].max()) > n_layers
+
+
 def test_wrappers_check_their_inputs(cuda):
     b, s, c, h, w = soup_bins(cuda, n=64)
     kw = dict(padded_height=h, padded_width=w)
@@ -141,6 +182,23 @@ def test_wrappers_check_their_inputs(cuda):
     with pytest.raises(ValueError):
         layers.rasterize_layers(b, s[1], c[1], torch.zeros(1, h, w, device=cuda),
                                 mode="masked", n_layers=17, **kw)
+
+
+@pytest.mark.parametrize("key", ["mini-sandbox-msaa4", "mini-sandbox-perfwin"])
+def test_renderer_on_card_matches_sandbox_goldens(cuda, key):
+    """The whole mini-sandbox (skinned character, three alpha classes, the
+    HUD or the "Performance stats" window through K2's UI launch)."""
+    sandbox = demo_scenes.mini_sandbox_scene(0.4)
+    ui = demo_scenes.mini_sandbox_ui(sandbox.registry,
+                                     "perfwin" if key.endswith("perfwin") else "hud")
+    r = trt.Renderer(sandbox.registry, trt.RenderConfig(width=160, height=96,
+                                                         msaa_samples=4), device=cuda)
+    before = layers.launches["ui"]
+    img = r.render_frame(sandbox.scene, 0, ui=ui)
+    assert layers.launches["ui"] > before
+    expected = np.load(Path(__file__).parent / "golden" / "sandbox-golden.npz")[key]
+    diff = np.abs(img.astype(int) - expected.astype(int)).max(axis=-1)
+    assert (diff > 2).mean() < 0.005
 
 
 @pytest.mark.parametrize("case", ["triangle-msaa4", "alpha-layers", "triangle-mode3"])

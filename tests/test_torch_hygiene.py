@@ -1,6 +1,7 @@
 """The port imports torch and numpy only: every module of renderer_tpu_torch
-imports with jax unavailable, and no source file names jax or the JAX
-package."""
+(ui/ and overlay/ included) imports with jax, the JAX package and Pillow
+unavailable — the card's machine has none of them — and no source file
+names jax or the JAX package."""
 
 import subprocess
 import sys
@@ -19,15 +20,21 @@ def _modules():
 def test_every_module_imports_without_jax():
     mods = list(_modules())
     assert len(mods) > 20
+    assert {"renderer_tpu_torch.ui.widgets", "renderer_tpu_torch.overlay.hud",
+            "renderer_tpu_torch.raster.ui_stage"} <= set(mods)
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['renderer_tpu'] = None\n"
+        "sys.modules['PIL'] = None\n"
         "import importlib\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "assert not any(k == 'jax' or k.startswith(('jax.', 'renderer_tpu.'))\n"
+        "assert not any(k in ('jax', 'PIL')\n"
+        "               or k.startswith(('jax.', 'renderer_tpu.', 'PIL.'))\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
+        "from renderer_tpu_torch.ui.font import get_font\n"
+        "assert len(get_font().glyphs) == 95\n"
         "print('ok')\n"
     )
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,
@@ -44,3 +51,17 @@ def test_no_source_names_jax_or_the_jax_package():
             if "import jax" in line or "from jax" in line or "renderer_tpu." in line:
                 offenders.append(f"{path.relative_to(PKG.parent)}:{i}: {line.strip()}")
     assert not offenders, "\n".join(offenders)
+
+
+def test_only_the_font_atlas_script_imports_pillow():
+    """The font atlas is committed (ui/font_atlas.npz); only the script that
+    regenerates it imports Pillow, inside its main()."""
+    script = PKG / "tools" / "make_font_atlas.py"
+    offenders = []
+    for path in sorted(PKG.rglob("*.py")):
+        for i, line in enumerate(path.read_text().splitlines(), 1):
+            if "import PIL" in line or "from PIL" in line:
+                if path != script or not line.startswith("    "):
+                    offenders.append(f"{path.relative_to(PKG.parent)}:{i}: {line.strip()}")
+    assert not offenders, "\n".join(offenders)
+    assert (PKG / "ui" / "font_atlas.npz").is_file()

@@ -114,3 +114,82 @@ def crafted_floor(n_s: int, device, seed: int = 0):
     floor = np.repeat(np.repeat(block, 4, axis=1), 8, axis=2)
     floor += rng.integers(4, size=floor.shape).astype(np.float32) / 64
     return torch.from_numpy(np.ascontiguousarray(floor)).to(device)
+
+
+# -- UI pass cases (raster/ui_stage.py): K2 in blended mode at z = 0.5 -------
+
+UI_CASES = ("windings", "deep-stack", "glyphs", "edges-on-samples")
+
+
+def ui_drawlist(case: str, seed: int = 0):
+    """A renderer_tpu_torch.ui.DrawList of `case` on the H × W screen, and
+    the MaterialRegistry its font is registered in:
+    - windings: quads of 1-60 px drawn counter-clockwise (add_quad) and the
+      same shapes clockwise (add_triangle with the vertices reversed);
+    - deep-stack: 24 quads over one spot (deeper than every layer count the
+      kernel takes) and partial overlaps, every fragment at z = 0.5;
+    - glyphs: text lines from the font atlas (glyph-sized quads);
+    - edges-on-samples: quad edges on pixel centres, on MSAA sample offsets
+      and on the corners of 8-, 16- and 32-pixel-wide footprints."""
+    from renderer_tpu_torch.materials.registry import MaterialRegistry
+    from renderer_tpu_torch.ui import DrawList, get_font
+
+    rng = np.random.default_rng([UI_CASES.index(case), seed])
+    registry = MaterialRegistry()
+    dl = DrawList()
+
+    def color():
+        return tuple(int(c) for c in rng.integers(40, 256, size=4))
+
+    def quad(x0, y0, x1, y1, clockwise=False):
+        if clockwise:  # the two triangles of add_quad, vertex order reversed
+            c = color()
+            dl.add_triangle((x0, y1), (x1, y0), (x0, y0), c)
+            dl.add_triangle((x1, y1), (x1, y0), (x0, y1), c)
+        else:
+            dl.add_rect_filled((x0, y0), (x1, y1), color())
+
+    if case == "windings":
+        for i in range(120):
+            w, h = rng.uniform(1.0, 60.0, size=2)
+            x0, y0 = rng.uniform(-8.0, W), rng.uniform(-8.0, H)
+            quad(x0, y0, x0 + w, y0 + h, clockwise=bool(i % 2))
+    elif case == "deep-stack":
+        for i in range(24):
+            quad(100.0 + i, 30.0 + (i % 3), 160.0 - i, 70.0, clockwise=bool(i % 3 == 0))
+        for _ in range(40):
+            x0, y0 = rng.uniform(0.0, W - 40.0), rng.uniform(0.0, H - 20.0)
+            quad(x0, y0, x0 + 40.0, y0 + 20.0, clockwise=bool(rng.integers(2)))
+    elif case == "glyphs":
+        font = get_font()
+        dl.push_clip_rect(4.0, 4.0, W - 20.0, H - 4.0)
+        for line in range(6):
+            text = "".join(chr(c) for c in rng.integers(32, 127, size=40))
+            dl.add_text((float(rng.integers(0, 8)) + 0.5 * (line % 2),
+                         4.0 + line * font.line_height), text, color(), font,
+                        registry)
+        dl.pop_clip_rect()
+    else:
+        assert case == "edges-on-samples", case
+        offsets = sorted({p for m in (1, 4, 8) for p in STANDARD_SAMPLE_POSITIONS[m]})
+        for i in range(160):
+            if i % 2:  # footprint corners
+                x0 = float(rng.choice((8, 16, 32)) * rng.integers(0, 12))
+                y0 = float(4 * rng.integers(0, 22))
+                w = float(rng.choice((8, 16, 32)) * rng.integers(1, 4))
+                h = float(4 * rng.integers(1, 4))
+            else:  # pixel centres and sample offsets
+                dx, dy = offsets[rng.integers(len(offsets))]
+                x0 = float(rng.integers(0, W - 16)) + dx
+                y0 = float(rng.integers(0, H - 8)) + dy
+                w, h = float(rng.integers(1, 16)), float(rng.integers(1, 8))
+            quad(x0, y0, x0 + w, y0 + h, clockwise=bool(i % 3 == 0))
+    return dl, registry
+
+
+def ui_config(n_layers: int = 4):
+    """RenderConfig of the UI cases' H × W screen."""
+    from renderer_tpu_torch.core.config import RenderConfig
+
+    return RenderConfig(width=W, height=H, ui_layers=n_layers,
+                        ui_pair_capacity=1 << 12)
