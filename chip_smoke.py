@@ -29,12 +29,28 @@ bins (bit-equal): K1 on scene B (S=4) and scene A (S=1), K2 in both modes
 on scene B at K=4 and at the layer counts the frame grew to, and K2's UI
 launch on scene C's UI bins at S=1 (the frame's) and at S=4 (the bins and
 sample positions of RenderConfig.ui_msaa). Its rows carry
-the kernel's time, the plain version's, the bound (see `bound`), the
+the kernel's time (ten launches as the host issues them, see `cuda_ms`;
+`ms_queued`: the same launches queued behind a spin kernel, see
+`queued_ms`), the plain version's, the bound (see `bound`), the
 launches a frame and `tests_kept`, the share of (pair, footprint) blocks
 that the kernels' exact footprint rejection keeps, counted by its plain
 version (raster_kernel.footprint_keep). Phase 5 renders the golden images
 of tests/golden/goldens.npz and every key of tests/golden/sandbox-golden.npz
 on the card.
+
+Phase 7 ("assets") runs the asset path on the card: the BC7 decoder against
+Pillow's decode stored in tests/golden/torch-bc7-vectors.npz (the card's
+machine has no Pillow), the same mip chain written as an .ntex file and
+decoded through ntex.decode_file, realize_atlas against build_atlas (on that
+registry and on scenes A-C's), the loader fixture tests/fixtures/strided.gltf
+loaded on the card and rendered against tests/golden/loader-fixture-golden.npz,
+and the sandbox app's run_loop at 1920×1080, 4×MSAA with its HUD over a
+scene source that queues the fixture with its animations playing. It times
+the BC7 decode and realize_atlas on a synthetic registry of 24 BC7 textures
+of 1024×1024 (full mip chains, random blocks of every mode), the fixture's
+load, and run_loop's frames (its first frame, which uploads the atlas and
+the geometry, apart from the later ones). These are smoke figures of a small
+fixture, not the startup or frame rate of a real scene.
 
 Each phase prints one line; any failure raises (exit code ≠ 0). The line
 before the last is a JSON object with one entry per kernel; the last line is
@@ -45,18 +61,27 @@ either.
 from __future__ import annotations
 
 import json
+import os
 import statistics
+import struct
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
 
 import renderer_tpu_torch as trt
 from renderer_tpu_torch import kernels
-from renderer_tpu_torch.assets import demo_scenes
+from renderer_tpu_torch.apps.sandbox import run_loop
+from renderer_tpu_torch.assets import demo_scenes, ntex
+from renderer_tpu_torch.assets.gltf_loader import load_gltf, ntex_texture
+from renderer_tpu_torch.core import math3d
 from renderer_tpu_torch.interop import from_numpy_arrays
+from renderer_tpu_torch.materials import atlas_device, bc7
+from renderer_tpu_torch.materials.atlas import build_atlas
 from renderer_tpu_torch.raster import (
     binning,
     layers,
@@ -69,9 +94,17 @@ from renderer_tpu_torch.raster.pipeline import STANDARD_SAMPLE_POSITIONS
 from renderer_tpu_torch.scene import draw_stream
 
 W, H = 1920, 1080
-FRAMES = {"A": 20, "B": 20, "C": 10}
+FRAMES = {"A": 20, "B": 10, "C": 10}
 GOLDEN = "tests/golden/goldens.npz"
 SANDBOX_GOLDEN = "tests/golden/sandbox-golden.npz"
+BC7_VECTORS = "tests/golden/torch-bc7-vectors.npz"
+CHAIN_W, CHAIN_H, CHAIN_MIPS = 37, 29, 5  # the vectors' mip chain
+FIXTURE = Path("tests/fixtures/strided.gltf")
+FIXTURE_GOLDEN = "tests/golden/loader-fixture-golden.npz"
+RUN_LOOP_FRAMES = 4
+TIMED_TEXTURES, TIMED_SIDE = 24, 1024  # the registry that times the decode
+BYTES_PER_S = 3.35e12  # H100 SXM HBM3 data sheet
+SPIN_CYCLES = 40_000_000  # ~20 ms at the H100's 1.98 GHz boost clock
 OVERFLOW_STATS = ("overflow_opaque", "overflow_masked", "overflow_blended",
                   "overflow_ui", "row_overflow")
 
@@ -190,7 +223,8 @@ def kernel_row(name, source, replaces, counter, main_launches, run, plain,
     return dict(
         name=name, route="cuda", source=source, replaces=replaces,
         launches=main_launches[counter], max_abs_err=max_abs_err(run(), plain()),
-        ms=cuda_ms(run, 10), plain_ms=cuda_ms(plain, 1), bound_ms=bound_ms,
+        ms=cuda_ms(run, 10), ms_queued=queued_ms(run, 10),
+        plain_ms=cuda_ms(plain, 1), bound_ms=bound_ms,
         bound_by=bound_by, library_ms=None, launches_per_frame=None,
         tests_kept=float(keep.float().mean()) if keep.numel() else 0.0,
         scene=scene, counter=counter, pairs=pairs, n_s=n_s, dense_ms=dense_ms)
@@ -324,8 +358,214 @@ def check_golden(key, img, expected):
     print(f"golden: {key} drifted px {bad:.4%} (max diff {diff.max()})", flush=True)
 
 
+def write_ntex(path: Path, w: int, h: int, vk_format: int, mips) -> Path:
+    """An .ntex container: the 1024-byte header, then the packed BC7 mips."""
+    header = bytearray(1024)
+    header[:len(ntex.MAGIC)] = ntex.MAGIC
+    struct.pack_into("<8I", header, 992, w, h, 1, len(mips), vk_format, 4, 4, 16)
+    path.write_bytes(bytes(header) + b"".join(np.ascontiguousarray(m).tobytes()
+                                              for m in mips))
+    return path
+
+
+def random_bc7_blocks(rng, n: int) -> np.ndarray:
+    """n random BC7 blocks of random modes 0-7 (any bits after the prefix)."""
+    blocks = rng.integers(0, 256, (n, 16), dtype=np.uint8)
+    mode = rng.integers(0, 8, n)
+    blocks[:, 0] = ((1 << mode) | (blocks[:, 0].astype(np.int64) << (mode + 1))) & 0xFF
+    return blocks
+
+
+def bc7_texture(mips_blocks, h: int, w: int, kind: str, wrap, name: str):
+    """A lazy texture of in-memory BC7 mips (down to 1×1): the blocks feed
+    the device plan, and build_atlas decodes them on the CPU."""
+    shapes = [(max(h >> m, 1), max(w >> m, 1)) for m in range(len(mips_blocks))]
+
+    def load():
+        return [bc7.blocks_to_image(bc7.decode_blocks(b, device="cpu"), mw, mh).numpy()
+                for b, (mh, mw) in zip(mips_blocks, shapes)]
+
+    return trt.Texture(None, kind, name, loader=load, shape=(h, w),
+                       fingerprint=f"chip-smoke:{name}", wrap_s=wrap[0],
+                       wrap_t=wrap[1], blocks_loader=lambda: mips_blocks)
+
+
+def check_device_atlas(name, registry, dev) -> bool:
+    """realize_atlas on the card equals build_atlas's data bit for bit;
+    returns whether the renderer's rule (the plan ships fewer bytes than
+    the decoded atlas) takes the device path for this registry."""
+    plan = atlas_device.build_atlas_plan(registry)
+    got = atlas_device.realize_atlas(plan, dev).cpu().numpy().view(np.uint32)
+    want = build_atlas(registry).data
+    if got.shape != want.shape or not np.array_equal(got, want):
+        raise RuntimeError(f"assets: device atlas of {name} differs from build_atlas")
+    return plan.upload_bytes < plan.shape[0] * plan.shape[1] * 4
+
+
+class FixtureSource:
+    """run_loop's scene source: the loader fixture with every animation
+    playing at the loop's game time, queued four times at half size in a
+    ring of radius 0.6 around the orbit's centre, each copy facing out, so
+    the orbiting camera sees one copy's front faces from every side."""
+
+    def __init__(self, registry, gltf):
+        self.registry, self.gltf = registry, gltf
+        half = math3d.trs(scale=np.full(3, 0.5, np.float32))
+        out = math3d.trs(translation=np.array([0.0, 1.0, 0.6], np.float32))
+        self.ring = [math3d.trs(rotation=math3d.quat_from_axis_angle(
+            [0, 1, 0], k * np.pi / 2)) @ out @ half for k in range(4)]
+
+    def build_scene(self, game_time: float, scene=None):
+        if scene is None:
+            scene = trt.Scene(world_space=trt.GLTF)
+        else:
+            scene.clear()
+        playing = [(game_time % a.end_time, a) for a in self.gltf.animations]
+        for transform in self.ring:
+            self.gltf.queue_animated(scene, transform, playing)
+        return scene
+
+
+def load_fixture(dev):
+    registry, builder = trt.MaterialRegistry(), trt.VertexLibraryBuilder()
+    t0 = time.perf_counter()
+    gltf = load_gltf(FIXTURE, builder, registry, device=dev)
+    builder.build()
+    return registry, gltf, (time.perf_counter() - t0) * 1e3
+
+
+def asset_checks(dev, registries, card) -> dict:
+    """Phase 7: the asset path on the card (module docstring). Returns the
+    numbers of the assets line."""
+    z = np.load(BC7_VECTORS)
+    got = bc7.decode_blocks(z["blocks"], device=dev).cpu().numpy().view(np.uint32)
+    if not np.array_equal(got, z["texels"]):
+        raise RuntimeError(f"assets: BC7 decode differs from Pillow's on "
+                           f"{int((got != z['texels']).any(axis=1).sum())} blocks")
+    shapes = [(CHAIN_H >> m, CHAIN_W >> m) for m in range(CHAIN_MIPS)]
+    chain = [z[f"chain{i}_blocks"] for i in range(CHAIN_MIPS)]
+    for i, (mh, mw) in enumerate(shapes):
+        img = bc7.blocks_to_image(bc7.decode_blocks(chain[i], device=dev), mw, mh)
+        if not np.array_equal(img.cpu().numpy(), z[f"chain{i}_rgba"]):
+            raise RuntimeError(f"assets: BC7 chain mip {i} differs from Pillow's")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        os.environ["RENDERER_TPU_CACHE"] = str(tmp / "cache")
+        try:
+            out = _asset_checks_in(tmp, dev, z, chain, shapes, registries)
+        finally:
+            del os.environ["RENDERER_TPU_CACHE"]
+    print(f"assets: BC7 {out['bc7_blocks']} blocks at {out['bc7_mblocks_per_s']:.1f} "
+          f"Mblocks/s ({out['bc7_ms']:.3f} ms, {out['bc7_share_of_bound']:.4%} of its "
+          f"bytes bound {out['bc7_bound_ms']:.4f} ms) | realize_atlas "
+          f"{out['realize_atlas_ms']:.2f} ms ({out['realize_atlas_shape']} atlas) | "
+          f"fixture load {out['fixture_load_ms']:.2f} ms | run_loop render_fps "
+          f"{out['render_fps']:.4f} p99 {out['p99_ms']:.1f} ms, first frame "
+          f"{out['run_loop_first_frame_ms']:.1f} ms, later frames "
+          f"{[round(t, 1) for t in out['run_loop_later_frames_ms']]} ms | {card}",
+          flush=True)
+    return out
+
+
+def _asset_checks_in(tmp: Path, dev, z, chain, shapes, registries) -> dict:
+    # the chain as an .ntex file, decoded on the card through the disk cache
+    path = write_ntex(tmp / "chain.ntex", CHAIN_W, CHAIN_H, ntex.VK_FORMAT_BC7_SRGB, chain)
+    for attempt in ("cold", "warm"):
+        header, mips = ntex.decode_file(path, device=dev)
+        if header.mip_levels != CHAIN_MIPS or not all(
+                np.array_equal(m, z[f"chain{i}_rgba"]) for i, m in enumerate(mips)):
+            raise RuntimeError(f"assets: ntex.decode_file ({attempt}) differs from Pillow's")
+
+    # realize_atlas against build_atlas: on the chain's registry (with
+    # wrap modes, a normal map and a raw texture) and on scenes A-C's
+    rng = np.random.default_rng(7)
+    reg = trt.MaterialRegistry()
+    reg.register_texture(ntex_texture(path, trt.TextureKind.SRGB_COLOR, device="cpu"))
+    picks = z["blocks"][rng.permutation(len(z["blocks"]))]
+    reg.register_texture(bc7_texture(
+        [picks[:64], picks[64:80], picks[80:84], picks[84:86], picks[86:87],
+         picks[87:88], picks[88:89]], 16, 64, trt.TextureKind.LINEAR_COLOR, (1, 2), "b"))
+    reg.register_texture(bc7_texture([picks[89:90], picks[90:91], picks[91:92]], 4, 4,
+                                     trt.TextureKind.NORMAL_MAP, (2, 0), "c"))
+    raw = [rng.integers(0, 256, (24, 24, 4), dtype=np.uint8)]
+    while raw[-1].shape[0] > 1:
+        raw.append(np.ascontiguousarray(raw[-1][::2, ::2]))
+    reg.register_texture(trt.Texture(raw, trt.TextureKind.SRGB_COLOR, "raw", wrap_s=1))
+    paths = {"chain": check_device_atlas("the chain registry", reg, dev)}
+    for name, r in registries.items():
+        paths[name] = check_device_atlas(f"scene {name}", r, dev)
+
+    # times on a registry of 24 BC7 textures of 1024×1024 with full chains
+    big = trt.MaterialRegistry()
+    side = TIMED_SIDE
+    for t in range(TIMED_TEXTURES):
+        mips = [random_bc7_blocks(rng, max(1, (side >> m) // 4) ** 2)
+                for m in range(side.bit_length())]
+        big.register_texture(bc7_texture(mips, side, side, trt.TextureKind.SRGB_COLOR,
+                                         (0, 0), f"big{t}"))
+    plan = atlas_device.build_atlas_plan(big)
+    realize_ms = cuda_ms(lambda: atlas_device.realize_atlas(plan, dev), 3)
+    words = bc7.words_from_bytes(plan.blocks.view(np.uint8).reshape(-1, 16), dev)
+    n = words.shape[0]
+    bc7_ms = cuda_ms(lambda: bc7.decode_words(words), 3)
+    bound_ms = n * (16 + 64) / BYTES_PER_S * 1e3
+    del words
+
+    # the fixture: loaded on the card, its golden frame, then run_loop
+    loads = [load_fixture(dev) for _ in range(3)]
+    registry, gltf, _ = loads[-1]
+    scene = trt.Scene(world_space=trt.GLTF)
+    scene.camera.position, scene.camera.orientation = math3d.look_at(
+        np.array([0.3, 1.2, 4.0], np.float32), np.array([0.3, 0.5, 0.0], np.float32),
+        np.array([0.0, 1.0, 0.0], np.float32))
+    gltf.queue_animated(scene, math3d.IDENTITY,
+                        [(0.7 % a.end_time, a) for a in gltf.animations])
+    r = trt.Renderer(registry, trt.RenderConfig(width=160, height=96, msaa_samples=4),
+                     device=dev)
+    reset_counters()
+    img = r.render_frame(scene, 0)
+    moved = counters()
+    stats = r.frame_stats()
+    bad = {k: stats[k] for k in OVERFLOW_STATS if stats[k]}
+    if bad or moved["k1"] < 1 or moved["k2_masked"] < 1:
+        raise RuntimeError(f"assets: fixture frame overflow {bad}, launches {moved}")
+    check_golden("loader-fixture", img, np.load(FIXTURE_GOLDEN)["loader-fixture"])
+
+    registry, gltf, _ = load_fixture(dev)
+    reset_counters()
+    loop = run_loop(frames=RUN_LOOP_FRAMES, width=W, height=H, msaa=4, show_hud=True,
+                    sandbox=FixtureSource(registry, gltf), device=dev)
+    torch.cuda.synchronize()
+    loop_launches = counters()
+    fs = loop["frame_stats"]
+    bad = {k: fs[k] for k in OVERFLOW_STATS if fs[k]}
+    missing = [k for k in ("k1", "k2_masked", "k2_ui") if loop_launches[k] < 1]
+    if bad or missing or fs["masked_demand_max"] < 1:
+        raise RuntimeError(f"assets: run_loop overflow {bad}, not launched {missing}, "
+                           f"masked demand {fs['masked_demand_max']}")
+    if loop["image"].shape != (H, W, 3) or loop["image"].std() < 1.0:
+        raise RuntimeError(f"assets: run_loop image {loop['image'].shape} "
+                           f"std {loop['image'].std():.2f}")
+    frame_ms = loop["frame_ms"]
+    return {
+        "bc7_blocks": n, "bc7_ms": bc7_ms, "bc7_mblocks_per_s": n / bc7_ms / 1e3,
+        "bc7_bound_ms": bound_ms, "bc7_share_of_bound": bound_ms / bc7_ms,
+        "realize_atlas_ms": realize_ms, "realize_atlas_shape": list(plan.shape),
+        "realize_atlas_upload_bytes": plan.upload_bytes,
+        "device_atlas_path": paths,
+        "fixture_load_ms": statistics.median(ms for _, _, ms in loads),
+        "fixture_load_ms_runs": [ms for _, _, ms in loads],
+        "render_fps": loop["render_fps"], "p99_ms": loop["p99_ms"],
+        "run_loop_first_frame_ms": frame_ms[0],
+        "run_loop_later_frames_ms": frame_ms[1:],
+        "run_loop_frames": RUN_LOOP_FRAMES, "run_loop_launches": loop_launches,
+    }
+
+
 def cuda_ms(fn, reps: int) -> float:
-    """Mean device milliseconds of fn() over `reps` back-to-back calls."""
+    """Mean device milliseconds of fn() over `reps` back-to-back calls as
+    the host issues them (CUDA events; the host's launch gaps included)."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -333,6 +573,29 @@ def cuda_ms(fn, reps: int) -> float:
     for _ in range(reps):
         fn()
     end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def queued_ms(fn, reps: int) -> float:
+    """Mean device milliseconds of fn() over `reps` calls that the host
+    enqueues while a spin kernel (SPIN_CYCLES) holds the stream, so the
+    events time the device's work without the host's launch gaps. Raises
+    when the spin had ended before the last call was enqueued (the time
+    would then be host-paced)."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    spun = torch.cuda.Event()
+    torch.cuda._sleep(SPIN_CYCLES)
+    spun.record()
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    if spun.query():
+        raise RuntimeError("queued_ms: the spin kernel ended before the calls "
+                           "were enqueued")
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
 
@@ -373,6 +636,7 @@ def main() -> int:
     reg_a, sc_a, cfg_a, pol_a = scene_a()
     reg_b, sc_b, cfg_b, pol_b = scene_b()
     frames_c, cfg_c, pol_c = scene_c()
+    registries = {"A": reg_a, "B": reg_b, "C": frames_c.registry}
     ra = trt.Renderer(reg_a, cfg_a, overflow_policy=pol_a, device=dev)
     rb = trt.Renderer(reg_b, cfg_b, overflow_policy=pol_b, device=dev)
     rc = trt.Renderer(frames_c.registry, cfg_c, profiler=frames_c.profiler,
@@ -414,7 +678,8 @@ def main() -> int:
     for row in results:
         dense = row["pairs"] * cfg_b.tile_h * cfg_b.tile_w * row["n_s"]
         print(f"kernel: {row['name']}: exact vs plain (max_abs_err {row['max_abs_err']}) "
-              f"| {row['ms']:.3f} ms vs plain {row['plain_ms']:.1f} ms | bound "
+              f"| {row['ms']:.3f} ms (queued {row['ms_queued']:.3f}) vs plain "
+              f"{row['plain_ms']:.1f} ms | bound "
               f"{row['bound_ms']:.4f} ms ({row['bound_by']}; dense tests "
               f"{row['dense_ms']:.3f} ms), tests_kept {row['tests_kept']:.4f} | "
               f"{row['pairs']} bin pairs, {dense / row['ms'] / 1e6:.1f} G dense "
@@ -454,10 +719,14 @@ def main() -> int:
     print(f"peak device memory: {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
           flush=True)
 
+    # -- 7. the asset path: BC7, ntex, the device atlas, the loader, run_loop
+    assets = asset_checks(dev, registries, card)
+
     for row in results:
         row["launches_per_frame"] = per_frame[row.pop("scene")][row.pop("counter")]
         del row["pairs"], row["n_s"], row["dense_ms"]
     print(json.dumps({"frame_ms": frame_ms, "card": card}))
+    print(json.dumps({"assets": assets, "card": card}))
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -1,34 +1,72 @@
-"""glTF runtime: nodes, skins and animations of a loaded model, and their
-queueing into a Scene with joint palettes.
+"""glTF 2.0 loader (.gltf + .glb) with skins, animations, morph targets
+and ntex textures, and the runtime of a loaded model: nodes, skins and
+animations, and their queueing into a Scene with joint palettes.
 
 Parity: the gltf crate (reference: gltf/src/lib.rs, gltf_json.rs,
-scene_queueing.rs, mesh_iter.rs). Behavior highlights kept:
+pending_gltf.rs, scene_queueing.rs, mesh_iter.rs). Behavior highlights kept:
 
-- Node transforms are parent-flattened into every node at load time
-  (lib.rs:569-577). Animated transforms start from the flattened transform,
-  decompose to TRS, and replace animated channels (lib.rs:199-230) — quirks
-  included.
-- Animation sampling: LINEAR lerp/slerp, STEP; clamp before the first
-  keyframe, *error* after the last (gltf_json.rs:238-286) — callers wrap
-  time by the animation's end_time.
+- Required attributes per primitive: POSITION (f32 VEC3), TEXCOORD_0 (f32
+  VEC2), NORMAL (f32 VEC3), TANGENT (f32 VEC4); optional JOINTS_0 (u8 VEC4) +
+  WEIGHTS_0 (f32 VEC4) make it skinned; indices must be u16/u32
+  (lib.rs:607-648).
+- Node transforms are TRS or matrix; parent transforms are flattened into
+  every node at load time (lib.rs:569-577). Animated transforms start from
+  the flattened transform, decompose to TRS, and replace animated channels
+  (lib.rs:199-230) — quirks included.
+- Image URIs are retargeted to .ntex (lib.rs:400-401) and decoded lazily
+  through assets/ntex.py on the loader's device; embedded images (a
+  superset) decode through assets/png.py. Texture color-space kind is
+  inferred from material usage: baseColor/emissive → sRGB, normal → normal
+  map, others linear (get_gltf_texture_kinds, lib.rs:726-764).
+- Material factors: glTF defaults, alpha_cutoff forced to 0 unless alphaMode
+  is MASK, MASK → alpha-to-coverage, BLEND → blended
+  (pending_gltf.rs:146-218).
+- Animation sampling: LINEAR lerp/slerp, STEP, CUBICSPLINE; clamp before the
+  first keyframe, *error* after the last (gltf_json.rs:238-286) — callers
+  wrap time by the animation's end_time.
 - Skins: joint = animated_node_transform @ inverse_bind_matrix
   (scene_queueing.rs:38-45).
 
-The file parser (.gltf/.glb, ntex textures) is not part of this module yet;
-models are built in code (assets/proxy.make_skinned_character). Pose
-evaluation runs the vectorized numpy sampler.
+Pose evaluation runs the vectorized numpy sampler.
 """
 
 from __future__ import annotations
 
+import base64
+import json
+import struct
+import warnings
 from dataclasses import dataclass
+from pathlib import Path
 
 import numpy as np
 
-from renderer_tpu_torch.core import math3d
-from renderer_tpu_torch.geometry.vertex_library import Mesh
-from renderer_tpu_torch.materials.registry import Material, Texture
+from renderer_tpu_torch.assets import ntex, png
+from renderer_tpu_torch.core import constants, math3d
+from renderer_tpu_torch.geometry.vertex_library import Mesh, VertexLibraryBuilder
+from renderer_tpu_torch.materials.registry import (
+    AlphaMode,
+    Material,
+    MaterialRegistry,
+    PbrMaterialParameters,
+    Texture,
+    TextureKind,
+)
 from renderer_tpu_torch.scene.scene import Scene
+
+GLTF_BYTE, GLTF_UNSIGNED_BYTE = 5120, 5121
+GLTF_SHORT, GLTF_UNSIGNED_SHORT = 5122, 5123
+GLTF_UNSIGNED_INT, GLTF_FLOAT = 5125, 5126
+
+_CTYPE_NP = {
+    GLTF_BYTE: np.int8,
+    GLTF_UNSIGNED_BYTE: np.uint8,
+    GLTF_SHORT: np.int16,
+    GLTF_UNSIGNED_SHORT: np.uint16,
+    GLTF_UNSIGNED_INT: np.uint32,
+    GLTF_FLOAT: np.float32,
+}
+_ATYPE_N = {"SCALAR": 1, "VEC2": 2, "VEC3": 3, "VEC4": 4, "MAT4": 16}
 
 
 class GltfLoadingError(Exception):
@@ -471,7 +509,6 @@ class Gltf:
         so the sorted stream is identical."""
         cached = getattr(self, "_rows_cache", None)
         if cached is None:
-            from renderer_tpu_torch.core import constants as _c
             from renderer_tpu_torch.scene.scene import make_draw_block
 
             skinned_rows = []
@@ -492,7 +529,7 @@ class Gltf:
                     morph_rows.append((r, mesh.morph_count, ni))
             if morph_rows:
                 static_mw = np.zeros(
-                    (len(static_items), _c.MAX_MORPH_TARGETS), np.float32
+                    (len(static_items), constants.MAX_MORPH_TARGETS), np.float32
                 )
                 for r, mc, ni in morph_rows:
                     w = self._node_default_weights(ni)
@@ -780,3 +817,547 @@ class Gltf:
                     scale = value
             result = math3d.trs(translation, rotation, scale)
         return result
+
+
+# -- container parsing --------------------------------------------------------
+
+
+def _parse_glb(data: bytes) -> tuple[dict, bytes | None]:
+    """GLB container (lib.rs:239-296): 12-byte header then chunks."""
+    magic, version, _length = struct.unpack("<III", data[:12])
+    if magic != 0x46546C67:
+        raise GltfLoadingError("not a GLB file (bad magic)")
+    if version != 2:
+        raise GltfLoadingError(f"unsupported GLB version {version}")
+    offset = 12
+    json_chunk = None
+    bin_chunk = None
+    while offset + 8 <= len(data):
+        clen, ctype = struct.unpack("<II", data[offset : offset + 8])
+        if offset + 8 + clen > len(data):
+            # a truncated container fails here with file context, not later
+            # as a short read in some accessor
+            raise GltfLoadingError(
+                f"GLB truncated: chunk at {offset} claims {clen} bytes, "
+                f"file has {len(data) - offset - 8} left"
+            )
+        chunk = data[offset + 8 : offset + 8 + clen]
+        if ctype == 0x4E4F534A:  # 'JSON'
+            json_chunk = chunk
+        elif ctype == 0x004E4942:  # 'BIN\0'
+            bin_chunk = chunk
+        offset += 8 + clen + (-clen % 4)
+    if json_chunk is None:
+        raise GltfLoadingError("GLB missing JSON chunk")
+    return json.loads(json_chunk), bin_chunk
+
+
+class _Accessors:
+    def __init__(self, gltf: dict, resource_dir: Path, bin_buffer: bytes | None):
+        self.gltf = gltf
+        self.dir = resource_dir
+        self.bin = bin_buffer
+        self._buffers: dict[int, bytes] = {}
+
+    def _buffer(self, index: int) -> bytes:
+        if index not in self._buffers:
+            buf = self.gltf["buffers"][index]
+            uri = buf.get("uri")
+            if uri is None:
+                if self.bin is None:
+                    raise GltfLoadingError("buffer without uri and no GLB BIN chunk")
+                self._buffers[index] = self.bin
+            elif uri.startswith("data:"):
+                self._buffers[index] = base64.b64decode(uri.split(",", 1)[1])
+            else:
+                self._buffers[index] = (self.dir / uri).read_bytes()
+        return self._buffers[index]
+
+    def read(self, accessor_index: int, ctype: int | None, atype: str) -> np.ndarray:
+        """Accessor → numpy [count, ncomp] with ctype/atype validation
+        (lib.rs:650-724). Sparse accessors (common for morph-target deltas)
+        decode per the spec: the dense base (zeros when the accessor has no
+        bufferView) overridden at `sparse.indices` with `sparse.values` —
+        a superset of the reference, which has no sparse handling."""
+        acc = self.gltf["accessors"][accessor_index]
+        if ctype is not None and acc["componentType"] != ctype:
+            raise GltfLoadingError(
+                f"accessor {accessor_index}: componentType "
+                f"{acc['componentType']} != required {ctype}"
+            )
+        if acc["type"] != atype:
+            raise GltfLoadingError(
+                f"accessor {accessor_index}: type {acc['type']} != required {atype}"
+            )
+        dtype = np.dtype(_CTYPE_NP[acc["componentType"]]).newbyteorder("<")
+        ncomp = _ATYPE_N[atype]
+        count = acc["count"]
+        if "bufferView" in acc:
+            base = self._read_view(
+                acc["bufferView"], dtype, ncomp, count, acc.get("byteOffset", 0)
+            )
+        else:
+            # spec: a sparse (or zero-filled) accessor may omit bufferView
+            base = np.zeros((count, ncomp), dtype)
+        sparse = acc.get("sparse")
+        if sparse:
+            sc = sparse["count"]
+            sidx = sparse["indices"]
+            ict = sidx["componentType"]
+            if ict not in (GLTF_UNSIGNED_BYTE, GLTF_UNSIGNED_SHORT,
+                           GLTF_UNSIGNED_INT):
+                raise GltfLoadingError(
+                    "sparse indices componentType must be unsigned int"
+                )
+            idt = np.dtype(_CTYPE_NP[ict]).newbyteorder("<")
+            indices = self._read_view(
+                sidx["bufferView"], idt, 1, sc, sidx.get("byteOffset", 0)
+            ).reshape(-1).astype(np.int64)
+            svals = sparse["values"]
+            values = self._read_view(
+                svals["bufferView"], dtype, ncomp, sc, svals.get("byteOffset", 0)
+            )
+            if sc and (indices.max() >= count or indices.min() < 0):
+                raise GltfLoadingError("sparse index out of accessor range")
+            base = base.copy()
+            base[indices] = values
+        return base
+
+    def _read_view(self, view_index: int, dtype, ncomp: int, count: int,
+                   acc_offset: int) -> np.ndarray:
+        view = self.gltf["bufferViews"][view_index]
+        data = self._buffer(view["buffer"])
+        start = view.get("byteOffset", 0) + acc_offset
+        stride = view.get("byteStride")
+        elem_size = dtype.itemsize * ncomp
+        # spec §3.6.2.1: the accessor must fit inside ITS bufferView — never
+        # silently read the neighbouring bytes of the shared buffer, nor
+        # surface as a bare numpy ValueError on a short file
+        if count:
+            step = stride if stride and stride != elem_size else elem_size
+            need = acc_offset + step * (count - 1) + elem_size
+            avail = view.get("byteLength", len(data) - view.get("byteOffset", 0))
+            if need > avail or start + step * (count - 1) + elem_size > len(data):
+                raise GltfLoadingError(
+                    f"bufferView {view_index}: accessor needs {need} bytes "
+                    f"but the view holds {avail} (buffer {len(data)}B, "
+                    f"offset {start})"
+                )
+        if stride is None or stride == elem_size:
+            arr = np.frombuffer(data, dtype, count=count * ncomp, offset=start)
+            return arr.reshape(count, ncomp)
+        # interleaved view (byteStride > element size): one strided window
+        # over the raw bytes + one contiguous copy (Sponza interleaves all
+        # vertex attributes in one view, lib.rs:607-649)
+        if count == 0:
+            return np.zeros((0, ncomp), dtype)
+        raw = np.frombuffer(
+            data, np.uint8, count=stride * (count - 1) + elem_size, offset=start
+        )
+        window = np.lib.stride_tricks.as_strided(
+            raw, shape=(count, elem_size), strides=(stride, 1), writeable=False
+        )
+        return np.ascontiguousarray(window).view(dtype).reshape(count, ncomp)
+
+
+#: normalized-integer → float dequantization for animation outputs
+#: (rotation VEC4 / weights SCALAR may be stored quantized; glTF spec
+#: §3.6.2.2). The reference dequantizes per component type in parse_float
+#: (gltf/src/lib.rs:766-776) except that its SHORT branch reads the bits as
+#: u16; this keeps the spec mapping (i16/32767, clamped at -1).
+_ANIM_DEQUANT = {
+    GLTF_BYTE: lambda v: np.maximum(v.astype(np.float32) / 127.0, -1.0),
+    GLTF_UNSIGNED_BYTE: lambda v: v.astype(np.float32) / 255.0,
+    GLTF_SHORT: lambda v: np.maximum(v.astype(np.float32) / 32767.0, -1.0),
+    GLTF_UNSIGNED_SHORT: lambda v: v.astype(np.float32) / 65535.0,
+    GLTF_FLOAT: lambda v: v.astype(np.float32),
+}
+
+
+def _dequantize_anim(values: np.ndarray, ctype: int) -> np.ndarray:
+    try:
+        f = _ANIM_DEQUANT[ctype]
+    except KeyError:
+        raise GltfLoadingError(
+            f"animation output componentType {ctype} not float or "
+            "normalized-integer"
+        ) from None
+    return f(values)
+
+
+def _texture_kinds(gltf: dict) -> dict[int, str]:
+    """Image index → color-space kind from material usage (lib.rs:726-764)."""
+    kinds: dict[int, str] = {}
+    textures = gltf.get("textures", [])
+
+    def mark(tex_info, kind):
+        if tex_info is None:
+            return
+        source = textures[tex_info["index"]].get("source")
+        if source is not None:
+            kinds.setdefault(source, kind)
+
+    for mat in gltf.get("materials", []):
+        pbr = mat.get("pbrMetallicRoughness", {})
+        mark(pbr.get("baseColorTexture"), TextureKind.SRGB_COLOR)
+        mark(mat.get("emissiveTexture"), TextureKind.SRGB_COLOR)
+        mark(mat.get("normalTexture"), TextureKind.NORMAL_MAP)
+        mark(pbr.get("metallicRoughnessTexture"), TextureKind.LINEAR_COLOR)
+        mark(mat.get("occlusionTexture"), TextureKind.LINEAR_COLOR)
+    return kinds
+
+
+def _image_wrap_modes(gltf: dict) -> dict[int, tuple[int, int]]:
+    """Image index → (wrap_s, wrap_t) TextureWrap pair, from glTF samplers.
+
+    BEYOND the reference, which parses glTF `samplers` but never uses them
+    (one repeat sampler for everything, descriptors.rs:90-105). A registry
+    Texture is per IMAGE, so an image shared by several glTF textures takes
+    the first *explicit* sampler's modes: samplerless textures (spec
+    default: REPEAT) never claim an entry, and a conflicting second explicit
+    sampler warns. Unknown enums fall back to REPEAT."""
+    _gl_wrap = {10497: 0, 33071: 1, 33648: 2}  # REPEAT / CLAMP / MIRROR
+    samplers = gltf.get("samplers", [])
+    image_wrap: dict[int, tuple[int, int]] = {}
+    for t in gltf.get("textures", []):
+        src = t.get("source")
+        if src is None or "sampler" not in t:
+            continue  # default REPEAT == the caller's .get() fallback
+        s = samplers[t["sampler"]]
+        wrap = (_gl_wrap.get(s.get("wrapS", 10497), 0),
+                _gl_wrap.get(s.get("wrapT", 10497), 0))
+        if src in image_wrap:
+            if wrap != image_wrap[src]:
+                warnings.warn(
+                    f"glTF image {src} is referenced by textures with "
+                    f"conflicting sampler wrap modes {image_wrap[src]} vs "
+                    f"{wrap}; keeping the first (per-image sampler state)",
+                    stacklevel=2,
+                )
+            continue
+        image_wrap[src] = wrap
+    return image_wrap
+
+
+def _parse_nodes(gltf: dict, out: Gltf) -> None:
+    """Nodes (TRS or column-major matrix), then parent transforms flattened
+    into every child (lib.rs:569-577)."""
+    for node in gltf.get("nodes", []):
+        if "matrix" in node:
+            m = np.array(node["matrix"], np.float32).reshape(4, 4).T  # column-major
+        else:
+            m = math3d.trs(
+                np.array(node.get("translation", [0, 0, 0]), np.float32),
+                np.array(node.get("rotation", [0, 0, 0, 1]), np.float32),
+                np.array(node.get("scale", [1, 1, 1]), np.float32),
+            )
+        nw = node.get("weights")
+        out.nodes.append(Node(
+            name=node.get("name"),
+            mesh=node.get("mesh"),
+            skin=node.get("skin"),
+            children=list(node.get("children", [])),
+            transform=m,
+            weights=None if nw is None else np.asarray(nw, np.float32),
+        ))
+
+
+def _flatten_transforms(out: Gltf) -> None:
+    parents = list(out.root_nodes)
+    while parents:
+        p = parents.pop()
+        for c in out.nodes[p].children:
+            out.nodes[c].transform = out.nodes[p].transform @ out.nodes[c].transform
+            parents.append(c)
+
+
+def ntex_texture(ntex_path: Path, kind: str, wrap=(0, 0), device="cuda",
+                 name: str | None = None) -> Texture:
+    """A lazy Texture over an .ntex file: header now (the reference's
+    measure phase), the decode (on `device`) only if the atlas needs the
+    mips, and the raw BC7 blocks for the device-decode atlas."""
+    header = ntex.decode_header_file(ntex_path)
+    return Texture(
+        None, kind, name=ntex_path.name if name is None else name,
+        loader=lambda p=ntex_path: ntex.decode_file(p, device=device)[1],
+        shape=(header.height, header.width),
+        fingerprint=ntex.file_fingerprint(ntex_path),
+        wrap_s=wrap[0], wrap_t=wrap[1],
+        blocks_loader=lambda p=ntex_path: ntex.read_blocks_file(p)[1],
+    )
+
+
+def _material_params(gltf: dict, mat: dict, images: list[Texture],
+                     check_tex_coord: bool) -> PbrMaterialParameters:
+    """PbrMaterialParameters of one glTF material (pending_gltf.rs:146-218)."""
+    pbr = mat.get("pbrMetallicRoughness")
+    if pbr is None:
+        if check_tex_coord:
+            raise GltfLoadingError("material missing pbrMetallicRoughness")
+        pbr = {}
+
+    def tex_for(tex_info) -> Texture | None:
+        if tex_info is None:
+            return None
+        if check_tex_coord and tex_info.get("texCoord", 0) != 0:
+            raise GltfLoadingError("non-0 texCoord used for texture")
+        source = gltf["textures"][tex_info["index"]].get("source")
+        return None if source is None else images[source]
+
+    raw_alpha = mat.get("alphaMode", "OPAQUE")
+    try:
+        alpha_mode = {
+            "OPAQUE": AlphaMode.OPAQUE,
+            "MASK": AlphaMode.ALPHA_TO_COVERAGE,
+            "BLEND": AlphaMode.BLENDED,
+        }[raw_alpha]
+    except KeyError:
+        raise GltfLoadingError(
+            f"material {mat.get('name', '?')!r}: unknown alphaMode {raw_alpha!r}"
+        ) from None
+    return PbrMaterialParameters(
+        base_color=tex_for(pbr.get("baseColorTexture")),
+        metallic_roughness=tex_for(pbr.get("metallicRoughnessTexture")),
+        normal=tex_for(mat.get("normalTexture")),
+        occlusion=tex_for(mat.get("occlusionTexture")),
+        emissive=tex_for(mat.get("emissiveTexture")),
+        base_color_factor=tuple(pbr.get("baseColorFactor", (1, 1, 1, 1))),
+        emissive_factor=tuple(mat.get("emissiveFactor", (0, 0, 0))),
+        occlusion_factor=(mat.get("occlusionTexture") or {}).get("strength", 1.0),
+        roughness_factor=pbr.get("roughnessFactor", 1.0),
+        metallic_factor=pbr.get("metallicFactor", 1.0),
+        normal_strength=(mat.get("normalTexture") or {}).get("scale", 1.0),
+        # cutoff forced to 0 unless MASK (pending_gltf.rs:193)
+        alpha_cutoff=(mat.get("alphaCutoff", 0.5)
+                      if alpha_mode == AlphaMode.ALPHA_TO_COVERAGE else 0.0),
+        alpha_mode=alpha_mode,
+    )
+
+
+def load_gltf(
+    path: str | Path,
+    builder: VertexLibraryBuilder,
+    registry: MaterialRegistry,
+    *,
+    device="cuda",
+) -> Gltf:
+    """Load a .gltf or .glb file: meshes into `builder`, textures+materials
+    into `registry`. The lazy ntex textures decode on `device` (the card
+    unless the caller asks for the CPU) when the atlas needs them."""
+    path = Path(path)
+    raw = path.read_bytes()
+    if raw[:4] == b"glTF":
+        gltf, bin_buffer = _parse_glb(raw)
+    else:
+        gltf, bin_buffer = json.loads(raw), None
+    resource_dir = path.parent
+
+    version = gltf.get("asset", {}).get("version", "2.0")
+    try:
+        if not (2.0 <= float(version) < 3.0):
+            raise GltfLoadingError(f"unsupported glTF version {version}")
+    except ValueError:
+        pass  # assume 2.0 (lib.rs:315-317)
+
+    out = Gltf()
+    acc = _Accessors(gltf, resource_dir, bin_buffer)
+
+    # -- scene / nodes ----------------------------------------------------
+    scene_index = gltf.get("scene")
+    if scene_index is None:
+        raise GltfLoadingError("gltf does not have a scene")
+    out.root_nodes = list(gltf["scenes"][scene_index].get("nodes") or [])
+    if not out.root_nodes:
+        raise GltfLoadingError("no nodes in scene")
+    _parse_nodes(gltf, out)
+
+    # cycle check (lib.rs:553-566)
+    visited = [False] * len(out.nodes)
+    stack = list(out.root_nodes)
+    while stack:
+        n = stack.pop()
+        if visited[n]:
+            raise GltfLoadingError("invalid node graph (cycle or shared child)")
+        visited[n] = True
+        stack.extend(out.nodes[n].children)
+    _flatten_transforms(out)
+
+    # -- images / textures --------------------------------------------------
+    kinds = _texture_kinds(gltf)
+    image_wrap = _image_wrap_modes(gltf)
+    images: list[Texture] = []
+    for i, image in enumerate(gltf.get("images", [])):
+        uri = image.get("uri")
+        kind = kinds.get(i, TextureKind.LINEAR_COLOR)
+        wrap_s, wrap_t = image_wrap.get(i, (0, 0))
+        if uri is not None:
+            # image URIs are retargeted to .ntex (lib.rs:400-401)
+            tex = ntex_texture((resource_dir / uri).with_suffix(".ntex"), kind,
+                               (wrap_s, wrap_t), device, name=uri)
+        elif "bufferView" in image:
+            # embedded image (e.g. testbox.glb): decode + generate a mip
+            # chain (the reference requires ntex uris, lib.rs:396-398; this
+            # is a superset for self-contained glbs)
+            view = gltf["bufferViews"][image["bufferView"]]
+            data = acc._buffer(view["buffer"])
+            start = view.get("byteOffset", 0)
+            mips = generate_mips(png.decode_png(data[start : start + view["byteLength"]]))
+            tex = Texture(mips, kind, name=image.get("name", f"embedded-{i}"),
+                          wrap_s=wrap_s, wrap_t=wrap_t)
+        else:
+            raise GltfLoadingError("image missing an uri")
+        registry.register_texture(tex)
+        images.append(tex)
+    out.textures = images
+
+    # -- materials ----------------------------------------------------------
+    for mat in gltf.get("materials", []):
+        params = _material_params(gltf, mat, images, check_tex_coord=True)
+        out.materials.append(
+            registry.create_material(mat.get("name", "unnamed material"), params)
+        )
+
+    # -- meshes ---------------------------------------------------------------
+    for mesh in gltf.get("meshes", []):
+        primitives = []
+        for prim in mesh.get("primitives", []):
+            attrs = prim["attributes"]
+            if "indices" not in prim:
+                raise GltfLoadingError("primitive missing indices")
+            ict = gltf["accessors"][prim["indices"]]["componentType"]
+            if ict not in (GLTF_UNSIGNED_SHORT, GLTF_UNSIGNED_INT):
+                raise GltfLoadingError("index ctype must be u16 or u32")
+            indices = acc.read(prim["indices"], ict, "SCALAR")
+
+            def req(name, atype):
+                if name not in attrs:
+                    raise GltfLoadingError(f"missing {name} attributes")
+                return acc.read(attrs[name], GLTF_FLOAT, atype)
+
+            positions = req("POSITION", "VEC3")
+            uvs = req("TEXCOORD_0", "VEC2")
+            normals = req("NORMAL", "VEC3")
+            tangents = req("TANGENT", "VEC4")
+            joints = weights = None
+            if "JOINTS_0" in attrs and "WEIGHTS_0" in attrs:
+                joints = acc.read(attrs["JOINTS_0"], GLTF_UNSIGNED_BYTE, "VEC4")
+                weights = acc.read(attrs["WEIGHTS_0"], GLTF_FLOAT, "VEC4")
+
+            # morph targets (POSITION/NORMAL delta accessors) — the
+            # reference leaves morph support as a todo!() (lib.rs:229)
+            morph_targets = None
+            targets = prim.get("targets")
+            if targets:
+                if len(targets) > constants.MAX_MORPH_TARGETS:
+                    raise GltfLoadingError(
+                        f"primitive has {len(targets)} morph targets; the "
+                        f"capacity is {constants.MAX_MORPH_TARGETS} "
+                        "(constants.MAX_MORPH_TARGETS)"
+                    )
+                morph_targets = []
+                for tgt in targets:
+                    if "POSITION" not in tgt:
+                        raise GltfLoadingError("morph target missing POSITION deltas")
+                    pd = acc.read(tgt["POSITION"], GLTF_FLOAT, "VEC3")
+                    nd = (acc.read(tgt["NORMAL"], GLTF_FLOAT, "VEC3")
+                          if "NORMAL" in tgt else None)
+                    morph_targets.append((pd, nd))
+
+            lib_mesh = builder.add_mesh(
+                positions, uvs, normals, tangents, indices.reshape(-1),
+                joints=joints, weights=weights, morph_targets=morph_targets,
+            )
+            if "material" not in prim:
+                raise GltfLoadingError("primitive missing material")
+            primitives.append((lib_mesh, out.materials[prim["material"]]))
+        out.meshes.append(primitives)
+        mw = mesh.get("weights")
+        out.mesh_weights.append(None if mw is None else np.asarray(mw, np.float32))
+
+    # -- animations ------------------------------------------------------------
+    for anim in gltf.get("animations", []):
+        out.animations.append(_parse_animation(gltf, acc, anim, len(out.nodes)))
+
+    # -- skins -------------------------------------------------------------------
+    for skin in gltf.get("skins", []):
+        joint_nodes = skin["joints"]
+        if "inverseBindMatrices" in skin:
+            ibms = acc.read(skin["inverseBindMatrices"], GLTF_FLOAT, "MAT4")
+            if ibms.shape[0] != len(joint_nodes):
+                raise GltfLoadingError("joint/inverse-bind-matrix count mismatch")
+            joints = [Joint(n, ibms[i].reshape(4, 4).T.copy())  # column-major
+                      for i, n in enumerate(joint_nodes)]
+        else:
+            joints = [Joint(n, np.eye(4, dtype=np.float32)) for n in joint_nodes]
+        out.skins.append(Skin(joints))
+
+    for node in out.nodes:
+        if node.skin is not None and node.skin >= len(out.skins):
+            raise GltfLoadingError("node has an out-of-bounds skin index")
+    return out
+
+
+def _parse_animation(gltf: dict, acc: _Accessors, anim: dict,
+                     n_nodes: int) -> Animation:
+    nodes_channels: list[list[AnimationChannel] | None] = [None] * n_nodes
+    start_time = end_time = None
+    for ch in anim.get("channels", []):
+        sampler = anim["samplers"][ch["sampler"]]
+        target = ch["target"]
+        if "node" not in target:
+            continue
+        times = acc.read(sampler["input"], GLTF_FLOAT, "SCALAR").reshape(-1)
+        in_acc = gltf["accessors"][sampler["input"]]
+        if in_acc.get("min"):
+            m = in_acc["min"][0]
+            start_time = m if start_time is None else min(start_time, m)
+        if in_acc.get("max"):
+            m = in_acc["max"][0]
+            end_time = m if end_time is None else max(end_time, m)
+        path = target["path"]
+        out_ctype = gltf["accessors"][sampler["output"]]["componentType"]
+        if path in ("translation", "scale"):
+            values = acc.read(sampler["output"], GLTF_FLOAT, "VEC3")
+        elif path == "rotation":
+            values = _dequantize_anim(
+                acc.read(sampler["output"], None, "VEC4"), out_ctype)
+        else:  # weights
+            values = _dequantize_anim(
+                acc.read(sampler["output"], None, "SCALAR"), out_ctype)
+        interp = sampler.get("interpolation", "LINEAR")
+        if interp not in ("LINEAR", "STEP", "CUBICSPLINE"):
+            raise GltfLoadingError(f"unsupported animation interpolation {interp!r}")
+        in_tan = out_tan = None
+        if interp == "CUBICSPLINE":
+            # the output accessor holds (in-tangent, value, out-tangent)
+            # triples per keyframe (glTF spec §3.8.2.2); split them. A
+            # superset of the reference (gltf_json.rs:235-236)
+            k = len(times)
+            arr = np.asarray(values, np.float32)
+            if k == 0 or arr.size % (3 * k):
+                raise GltfLoadingError(
+                    "CUBICSPLINE output accessor must hold 3 elements per keyframe"
+                )
+            arr = arr.reshape(k, 3, -1)
+            in_tan = np.ascontiguousarray(arr[:, 0])
+            values = np.ascontiguousarray(arr[:, 1])
+            out_tan = np.ascontiguousarray(arr[:, 2])
+        elif path == "weights":
+            # T weights per keyframe ride flat in the SCALAR accessor
+            if len(times) == 0 or values.size % len(times):
+                raise GltfLoadingError(
+                    "weights output accessor count must be a multiple "
+                    "of the keyframe count"
+                )
+            values = values.reshape(len(times), -1)
+        lst = nodes_channels[target["node"]]
+        if lst is None:
+            lst = nodes_channels[target["node"]] = []
+        lst.append(AnimationChannel(
+            interpolation=interp, path=path, times=times, values=values,
+            in_tangents=in_tan, out_tangents=out_tan,
+        ))
+    if start_time is None or end_time is None:
+        raise GltfLoadingError("animation channel input accessor must have min/max")
+    return Animation(anim.get("name"), float(start_time), float(end_time),
+                     nodes_channels)

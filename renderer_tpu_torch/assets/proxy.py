@@ -1,13 +1,25 @@
-"""Procedural proxy geometry: deformed grid patches (the geometry generator
-of the benchmark scenes), the >1M-triangle stress field, and a procedural
-skinned character (for the missing Smol Ame geometry) so the
-skeletal-animation path runs with real joint palettes and keyframes.
+"""Proxy geometry for glTF files whose binary buffers are unavailable, and
+procedural geometry for the benchmark scenes.
 
-The JAX package also reconstructs glTF scenes from these patches
-(load_gltf_proxy); the port does not carry that yet.
+The reference checkout ships Sponza.gltf / smol-ame.gltf with all textures
+(.ntex) but not the .bin geometry buffers (LFS objects). `load_gltf_proxy`
+reconstructs such a scene with the *exact* draw structure from the glTF
+JSON — per-primitive vertex and index counts from the accessors, placed
+inside the real per-primitive POSITION min/max AABBs, with the real nodes,
+materials and textures — substituting a procedurally deformed surface patch
+for the lost vertex data. Triangle count, draw count, material/texture
+binding pattern and spatial distribution match the real scene; only the
+surface shapes differ.
+
+Also: the >1M-triangle stress field, and a procedural skinned character
+(for the missing Smol Ame geometry) so the skeletal-animation path runs
+with real joint palettes and keyframes.
 """
 
 from __future__ import annotations
+
+import json
+from pathlib import Path
 
 import numpy as np
 
@@ -18,6 +30,7 @@ from renderer_tpu_torch.materials.registry import (
     MaterialRegistry,
     PbrMaterialParameters,
     Texture,
+    TextureKind,
 )
 
 
@@ -88,6 +101,57 @@ def _patch_geometry(vertex_count: int, index_count: int, aabb_min, aabb_max, see
         padding = np.zeros(index_count - indices.size, np.uint32)
         indices = np.concatenate([indices, padding])
     return positions.astype(np.float32), uvs, n.astype(np.float32), tangents.astype(np.float32), indices
+
+
+def load_gltf_proxy(
+    path: str | Path, builder: VertexLibraryBuilder, registry: MaterialRegistry,
+    *, device="cuda",
+) -> gltf_loader.Gltf:
+    """Like gltf_loader.load_gltf but substituting procedural geometry for
+    missing buffer data. Nodes, textures (lazy ntex, decoded on `device` —
+    the card unless the caller asks for the CPU), materials and the draw
+    structure are loaded for real."""
+    path = Path(path)
+    gltf = json.loads(path.read_bytes())
+    resource_dir = path.parent
+    out = gltf_loader.Gltf()
+
+    out.root_nodes = list(gltf["scenes"][gltf.get("scene", 0)].get("nodes") or [])
+    gltf_loader._parse_nodes(gltf, out)
+    gltf_loader._flatten_transforms(out)
+
+    kinds = gltf_loader._texture_kinds(gltf)
+    image_wrap = gltf_loader._image_wrap_modes(gltf)
+    for i, image in enumerate(gltf.get("images", [])):
+        tex = gltf_loader.ntex_texture(
+            (resource_dir / image["uri"]).with_suffix(".ntex"),
+            kinds.get(i, TextureKind.LINEAR_COLOR), image_wrap.get(i, (0, 0)),
+            device, name=image["uri"])
+        registry.register_texture(tex)
+        out.textures.append(tex)
+
+    for mat in gltf.get("materials", []):
+        params = gltf_loader._material_params(gltf, mat, out.textures,
+                                              check_tex_coord=False)
+        out.materials.append(
+            registry.create_material(mat.get("name", "unnamed material"), params))
+
+    # proxy meshes from accessor metadata
+    accessors = gltf["accessors"]
+    for mi, mesh in enumerate(gltf.get("meshes", [])):
+        primitives = []
+        for pi, prim in enumerate(mesh.get("primitives", [])):
+            pos_acc = accessors[prim["attributes"]["POSITION"]]
+            idx_acc = accessors[prim["indices"]]
+            positions, uvs, normals, tangents, indices = _patch_geometry(
+                pos_acc["count"], idx_acc["count"],
+                pos_acc.get("min", [-1, -1, -1]), pos_acc.get("max", [1, 1, 1]),
+                seed=mi * 1000 + pi,
+            )
+            lib_mesh = builder.add_mesh(positions, uvs, normals, tangents, indices)
+            primitives.append((lib_mesh, out.materials[prim["material"]]))
+        out.meshes.append(primitives)
+    return out
 
 
 def make_stress_field(

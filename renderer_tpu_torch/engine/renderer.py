@@ -17,6 +17,7 @@ the work to the CPU quietly.
 
 from __future__ import annotations
 
+import os
 from dataclasses import replace
 
 import numpy as np
@@ -24,7 +25,12 @@ import torch
 
 from renderer_tpu_torch.core.config import RenderConfig
 from renderer_tpu_torch.engine.profiling import Profiler
+from renderer_tpu_torch.interop import resolve_device
 from renderer_tpu_torch.materials.atlas import build_atlas
+from renderer_tpu_torch.materials.atlas_device import (
+    build_atlas_plan_cached,
+    realize_atlas,
+)
 from renderer_tpu_torch.materials.registry import MaterialRegistry
 from renderer_tpu_torch.raster import layers, pipeline
 from renderer_tpu_torch.scene import draw_stream
@@ -52,16 +58,6 @@ _GEOM_KEYS = ("positions", "uvs", "normals", "tangents", "joints", "weights",
 
 def _next_pow2(n: int) -> int:
     return 1 << max(0, (max(n, 1) - 1).bit_length())
-
-
-def _resolve_device(device) -> torch.device:
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("Renderer: a CUDA device was requested but "
-                           "torch.cuda.is_available() is False")
-    if dev.type not in ("cuda", "cpu"):
-        raise ValueError(f"Renderer: unsupported device {dev}")
-    return dev
 
 
 class Renderer:
@@ -101,7 +97,7 @@ class Renderer:
         device — the torch device the frames run on: "cuda" (the default)
         or "cpu"."""
         assert overflow_policy in ("auto", "sync", "off")
-        self.device = _resolve_device(device)
+        self.device = resolve_device(device)
         self.config = (config or RenderConfig()).validate()
         self.registry = registry
         self.profiler = profiler or Profiler(enabled=False)
@@ -366,29 +362,58 @@ class Renderer:
             self._geom_cache.pop(next(iter(self._geom_cache)))
         return cached
 
+    def _use_device_atlas(self) -> bool:
+        """Decode BC7 on the device (upload blocks, not decoded texels —
+        materials/atlas_device.py) on the card; the host path is the CPU
+        default and the oracle. Override with RENDERER_TPU_ATLAS=device|host."""
+        mode = os.environ.get("RENDERER_TPU_ATLAS", "")
+        if mode in ("device", "host"):
+            return mode == "device"
+        return self.device.type == "cuda"
+
     def _materials(self):
         reg = self.registry
         if self._mat_cache is not None and self._mat_cache[0] == reg.version:
             return self._mat_cache[1]
-        at = build_atlas(reg)
 
         def up(a):
-            return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+            a = np.ascontiguousarray(a)
+            if not a.flags.writeable:  # a memory-mapped cache entry
+                a = a.copy()
+            return torch.from_numpy(a).to(self.device)
 
+        atlas = None
+        if self._use_device_atlas():
+            plan = build_atlas_plan_cached(reg)
+            decoded_bytes = plan.shape[0] * plan.shape[1] * 4
+            if plan.upload_bytes < decoded_bytes:
+                atlas = realize_atlas(plan, self.device)
+                table, srgb, wrap = plan.table, plan.srgb, plan.wrap
+            else:
+                # mostly non-BC7 textures: the compressed plan would ship
+                # more bytes than the decoded atlas, so the host path is
+                # the cheaper upload (a choice, not a fallback)
+                print(f"[renderer] device atlas plan ({plan.upload_bytes} B) "
+                      f"not smaller than the decoded atlas ({decoded_bytes} "
+                      "B); using the host path")
+        if atlas is None:
+            at = build_atlas(reg)
+            # RGBA8 packed in u32; torch keeps the bits as i32
+            atlas = up(at.data.view(np.int32))
+            table, srgb, wrap = at.table, at.srgb, at.wrap
         dev = {
             "base_color_factor": up(reg.base_color_factor),
             "emissive_occlusion": up(reg.emissive_occlusion),
             "alpha_rgh_mtl_normal": up(reg.alpha_rgh_mtl_normal),
             "tex_indices": up(reg.tex_indices),
-            # RGBA8 packed in u32; torch keeps the bits as i32
-            "atlas": up(at.data.view(np.int32)),
-            "atlas_table": up(at.table),
-            "atlas_srgb": up(at.srgb),
+            "atlas": atlas,
+            "atlas_table": up(table),
+            "atlas_srgb": up(srgb),
         }
-        if at.wrap.any():
+        if wrap.any():
             # per-texture sampler address modes, attached only when some
             # texture is non-repeat
-            dev["atlas_wrap"] = up(at.wrap)
+            dev["atlas_wrap"] = up(wrap)
         self._mat_cache = (reg.version, dev)
         return dev
 

@@ -23,7 +23,11 @@ under RenderConfig.fast_sampler() (raster/shade.py).
 
 from __future__ import annotations
 
+import hashlib
+import os
+import shutil
 from dataclasses import dataclass
+from pathlib import Path
 
 import numpy as np
 
@@ -64,12 +68,73 @@ def _with_mode_border(img: np.ndarray, wrap_s: int, wrap_t: int) -> np.ndarray:
     return np.pad(img, ((0, 0), (1, 1), (0, 0)), mode=_PAD_MODES[wrap_s])
 
 
+def _atlas_cache_file(registry: MaterialRegistry) -> Path:
+    """The bundle directory of this registry's atlas, keyed by every
+    texture's slot, kind, wrap modes and content fingerprint (under
+    $RENDERER_TPU_CACHE, else the repo's .cache/)."""
+    h = hashlib.sha1(f"port-atlas-v1|{ATLAS_WIDTH}|{MAX_MIPS}".encode())
+    for slot, tex in sorted(registry.textures.items()):
+        h.update(f"|{slot}|{tex.kind}|{tex.wrap_s}{tex.wrap_t}"
+                 f"|{tex.fingerprint}".encode())
+    root = os.environ.get("RENDERER_TPU_CACHE")
+    cdir = (Path(root) if root
+            else Path(__file__).resolve().parents[2] / ".cache") / "atlas"
+    return cdir / h.hexdigest()  # a DIRECTORY of raw .npy files
+
+
+def publish_dir(tmp: Path, cdir: Path) -> None:
+    """Move a finished cache directory into place; a stale directory of the
+    same name is evicted first (os.replace cannot overwrite a non-empty
+    one), and a lost race leaves the winner's copy."""
+    try:
+        os.replace(tmp, cdir)
+    except OSError:
+        shutil.rmtree(cdir, ignore_errors=True)
+        try:
+            os.replace(tmp, cdir)
+        except OSError:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+
+_BUNDLE = ("data", "table", "srgb", "flat", "wrap")
+
+
+def build_atlas(registry: MaterialRegistry) -> Atlas:
+    """Pack every registered texture's mips into the shared atlas. The
+    finished bundle is disk-cached by the textures' content fingerprints:
+    a warm start loads the arrays (data memory-mapped) and never decodes a
+    lazy texture at all — the preprocessed-bundle analog of the reference's
+    precompiled ntex assets (SURVEY §5.4)."""
+    cdir = _atlas_cache_file(registry)
+    if cdir.is_dir():
+        try:
+            return Atlas(**{
+                n: np.load(cdir / f"{n}.npy", allow_pickle=False,
+                           mmap_mode="r" if n == "data" else None)
+                for n in _BUNDLE})
+        except (OSError, ValueError):
+            pass  # corrupt/stale bundle → rebuild
+    atlas = _build_atlas_uncached(registry)
+    try:
+        cdir.parent.mkdir(parents=True, exist_ok=True)
+        # per-process staging name: concurrent cold starts must not
+        # truncate each other's half-written files
+        tmp = cdir.with_name(f"{cdir.name}.tmp{os.getpid()}")
+        tmp.mkdir(exist_ok=True)
+        for n in _BUNDLE:
+            np.save(tmp / f"{n}.npy", getattr(atlas, n), allow_pickle=False)
+        publish_dir(tmp, cdir)
+    except OSError:
+        pass  # the cache is an optimization only
+    return atlas
+
+
 def _plan_placements(shapes: dict[int, list[tuple[int, int]]]):
     """Shelf packing (tallest first, stable on registry slot/mip order) of
     bordered rects. `shapes[slot]` = [(h, w) per mip]. Returns
-    (placements {(slot, mip): (x, y)}, atlas height). The JAX package's
-    device-decode plan shares it, so every atlas of the same registry has
-    the same layout."""
+    (placements {(slot, mip): (x, y)}, atlas height). Shared by the host
+    atlas and the device-decode plan (materials/atlas_device.py), so both
+    produce the same layout."""
     rects = [
         (slot, mip, h + 2, w + 2)
         for slot, per in sorted(shapes.items())
@@ -105,10 +170,9 @@ def _blit_wrap(src: np.ndarray, atlas: np.ndarray, x: int, y: int) -> None:
     atlas[y - 1 : y + h + 1, x - 1 : x + w + 1] = bordered
 
 
-def build_atlas(registry: MaterialRegistry) -> Atlas:
-    """Pack every registered texture's mips into the shared atlas (host
-    numpy; the renderer uploads the finished arrays once per registry
-    version)."""
+def _build_atlas_uncached(registry: MaterialRegistry) -> Atlas:
+    """The host atlas: decoded mips blitted with their borders (the
+    renderer uploads the finished arrays once per registry version)."""
     from renderer_tpu_torch.raster.post import srgb_decode_np
 
     shapes = {

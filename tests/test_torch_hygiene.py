@@ -1,7 +1,7 @@
 """The port imports torch and numpy only: every module of renderer_tpu_torch
-(ui/ and overlay/ included) imports with jax, the JAX package and Pillow
-unavailable — the card's machine has none of them — and no source file
-names jax or the JAX package."""
+(ui/, overlay/, the asset loaders and apps/ included) imports with jax, the
+JAX package and Pillow unavailable — the card's machine has none of them —
+and no source file names jax or the JAX package."""
 
 import subprocess
 import sys
@@ -21,7 +21,10 @@ def test_every_module_imports_without_jax():
     mods = list(_modules())
     assert len(mods) > 20
     assert {"renderer_tpu_torch.ui.widgets", "renderer_tpu_torch.overlay.hud",
-            "renderer_tpu_torch.raster.ui_stage"} <= set(mods)
+            "renderer_tpu_torch.raster.ui_stage", "renderer_tpu_torch.apps.sandbox",
+            "renderer_tpu_torch.assets.ntex", "renderer_tpu_torch.assets.png",
+            "renderer_tpu_torch.materials.bc7",
+            "renderer_tpu_torch.materials.atlas_device"} <= set(mods)
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"
