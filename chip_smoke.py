@@ -52,6 +52,22 @@ load, and run_loop's frames (its first frame, which uploads the atlas and
 the geometry, apart from the later ones). These are smoke figures of a small
 fixture, not the startup or frame rate of a real scene.
 
+Phase 8 ("frames") runs the multi-frame path on the card: the sandbox
+app's flythrough over the mini-sandbox without its UI (demo_scenes.MiniSandbox
+as the scene source, the orbit camera, game time advancing 1/60 s a frame
+so the character re-skins) at 1920×1080, 4×MSAA, overflow policy "sync",
+K = FLY_FRAMES frames through Renderer.render_frames_device — one CUDA graph
+of the frame, captured once and replayed once a frame. Each frame's image
+and stats row must be bit-equal to render_frame_device of the same scene on
+the same renderer (the eager path), with no overflow, and K1 and K2 in both
+scene modes launched at least K times. It prints the graph's capture and
+instantiation seconds, the median CUDA-event ms of a replayed frame against
+the eager frame's (with the eager frame's host prologue and queueing time,
+from the renderer's profiler spans), and the per-stage table of
+engine.stats.device_stage_timings on scene B at both of its paces: device
+time (each stage a captured graph, replays queued behind a spin kernel) and
+host-paced (eager runs as the host issues them).
+
 Each phase prints one line; any failure raises (exit code ≠ 0). The line
 before the last is a JSON object with one entry per kernel; the last line is
 {"ok": true, "device": {...}}. Without CUDA the script fails before printing
@@ -64,7 +80,6 @@ import json
 import os
 import statistics
 import struct
-import subprocess
 import sys
 import tempfile
 import time
@@ -75,10 +90,13 @@ import torch
 
 import renderer_tpu_torch as trt
 from renderer_tpu_torch import kernels
-from renderer_tpu_torch.apps.sandbox import run_loop
+from renderer_tpu_torch.apps.sandbox import flythrough, run_loop
 from renderer_tpu_torch.assets import demo_scenes, ntex
 from renderer_tpu_torch.assets.gltf_loader import load_gltf, ntex_texture
 from renderer_tpu_torch.core import math3d
+from renderer_tpu_torch.engine import stats as engine_stats
+from renderer_tpu_torch.engine.profiling import Profiler
+from renderer_tpu_torch.engine.stats import card_line
 from renderer_tpu_torch.interop import from_numpy_arrays
 from renderer_tpu_torch.materials import atlas_device, bc7
 from renderer_tpu_torch.materials.atlas import build_atlas
@@ -90,7 +108,7 @@ from renderer_tpu_torch.raster import (
     ui_stage,
     vertex_stage,
 )
-from renderer_tpu_torch.raster.pipeline import STANDARD_SAMPLE_POSITIONS
+from renderer_tpu_torch.raster.pipeline import STANDARD_SAMPLE_POSITIONS, STAT_NAMES
 from renderer_tpu_torch.scene import draw_stream
 
 W, H = 1920, 1080
@@ -102,18 +120,15 @@ CHAIN_W, CHAIN_H, CHAIN_MIPS = 37, 29, 5  # the vectors' mip chain
 FIXTURE = Path("tests/fixtures/strided.gltf")
 FIXTURE_GOLDEN = "tests/golden/loader-fixture-golden.npz"
 RUN_LOOP_FRAMES = 4
+FLY_FRAMES = 4  # phase 8's batch
+STAGE_ITERS = 3  # phase 8's runs a stage (and replays of the fused frame)
+# Renderer._dispatch's spans before the frame is queued: the host prologue
+HOST_PROLOGUE = ("sort draws + pack", "geometry arrays", "frame arrays", "materials")
 TIMED_TEXTURES, TIMED_SIDE = 24, 1024  # the registry that times the decode
 BYTES_PER_S = 3.35e12  # H100 SXM HBM3 data sheet
 SPIN_CYCLES = 40_000_000  # ~20 ms at the H100's 1.98 GHz boost clock
 OVERFLOW_STATS = ("overflow_opaque", "overflow_masked", "overflow_blended",
                   "overflow_ui", "row_overflow")
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True)
-    return out.stdout.strip().splitlines()[0]
 
 
 def scene_a():
@@ -563,6 +578,110 @@ def _asset_checks_in(tmp: Path, dev, z, chain, shapes, registries) -> dict:
     }
 
 
+def frames_checks(dev, rb, sc_b, card) -> dict:
+    """Phase 8: the flythrough through render_frames_device on the card
+    against the eager path, then the per-stage timings of scene B (module
+    docstring). Returns the numbers of the frames line."""
+    with tempfile.TemporaryDirectory() as tmp:
+        reset_counters()
+        t0 = time.perf_counter()
+        fly = flythrough(frames=FLY_FRAMES, out_dir=tmp, width=W, height=H, msaa=4,
+                         sandbox=demo_scenes.MiniSandbox(), device=dev)
+        torch.cuda.synchronize()
+        fly_s = time.perf_counter() - t0
+        launches = counters()
+        written = sorted(os.listdir(tmp))
+    r, scenes, imgs = fly["renderer"], fly["scenes"], fly["images"]
+    stats = fly["stats"].cpu().numpy()
+    graph = r.frame_graphs.graph
+    replay_ms, cap = graph.replay_ms(), graph.captured
+    if len(written) != FLY_FRAMES or imgs.shape != (FLY_FRAMES, H, W, 3):
+        raise RuntimeError(f"frames: flythrough wrote {written}, images {imgs.shape}")
+    missing = {k: launches[k] for k in ("k1", "k2_masked", "k2_blended")
+               if launches[k] < FLY_FRAMES}
+    if missing or min(cap.launches[m] for m in ("k1", "masked", "blended")) < 1:
+        raise RuntimeError(f"frames: launches {launches}, a graph replay "
+                           f"{cap.launches}")
+    bad = {k: stats[:, STAT_NAMES.index(k)].tolist() for k in OVERFLOW_STATS
+           if stats[:, STAT_NAMES.index(k)].any()}
+    if bad:
+        raise RuntimeError(f"frames: overflow stats {bad}")
+
+    # the eager path: the same scenes on the same renderer, at the config
+    # the batch settled on
+    config = r.config
+    eager_ms, mismatched, prologue_ms, queue_ms = [], [], [], []
+    r.profiler = Profiler(enabled=True)  # the host prologue's spans
+    for k, sc in enumerate(scenes):
+        r.profiler.reset()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        img = r.render_frame_device(sc)
+        e1.record()
+        torch.cuda.synchronize()
+        eager_ms.append(e0.elapsed_time(e1))
+        spans = {s.name: s.total_s * 1e3 for s in r.profiler.report()}
+        prologue_ms.append(sum(spans[n] for n in HOST_PROLOGUE))
+        queue_ms.append(spans["queue frame"])
+        row = r._last_stats.cpu().numpy()
+        if not (np.array_equal(img.cpu().numpy(), imgs[k]) and np.array_equal(row, stats[k])):
+            mismatched.append(k)
+    if r.config != config:
+        raise RuntimeError("frames: the eager frames grew the renderer's config")
+    eager_reproducible = None
+    if mismatched:
+        # the graph is held to the golden tolerance only when the eager
+        # path itself differs between two frames of one scene
+        first = r.render_frame(scenes[mismatched[0]])
+        again = r.render_frame(scenes[mismatched[0]])
+        eager_reproducible = bool(np.array_equal(first, again))
+        if eager_reproducible:
+            raise RuntimeError(f"frames: graph frames {mismatched} differ from the "
+                               "eager path, which is reproducible")
+        for k in mismatched:
+            check_golden(f"flythrough frame {k} (graph vs eager)", imgs[k],
+                         r.render_frame(scenes[k]))
+    out = {
+        "frames": FLY_FRAMES, "flythrough_s": fly_s,
+        "capture_s": cap.capture_s, "instantiate_s": cap.instantiate_s,
+        "replay_ms": replay_ms, "replay_median_ms": statistics.median(replay_ms),
+        "eager_ms": eager_ms, "eager_median_ms": statistics.median(eager_ms),
+        "host_prologue_ms": prologue_ms, "host_queue_frame_ms": queue_ms,
+        "bit_equal_to_eager": not mismatched, "mismatched_frames": mismatched,
+        "eager_reproducible": eager_reproducible, "launches": launches,
+        "graph_launches_a_replay": cap.launches,
+        "mask_layers": config.mask_layers, "blend_layers": config.blend_layers,
+        "msaa_shade_candidates": config.msaa_shade_candidates,
+    }
+    print(f"frames: flythrough {FLY_FRAMES} frames 1920x1080 msaa4 'sync' in "
+          f"{fly_s:.1f} s | graph capture {cap.capture_s:.2f} s, instantiate "
+          f"{cap.instantiate_s:.2f} s | replayed frame median "
+          f"{out['replay_median_ms']:.2f} ms {[round(t, 2) for t in replay_ms]} vs "
+          f"eager render_frame_device median {out['eager_median_ms']:.2f} ms "
+          f"{[round(t, 2) for t in eager_ms]} (CUDA events; host prologue median "
+          f"{statistics.median(prologue_ms):.2f} ms, queueing the eager frame "
+          f"{statistics.median(queue_ms):.1f} ms) | bit-equal to eager "
+          f"{not mismatched} (eager reproducible {eager_reproducible}) | launches "
+          f"{launches} | {card}", flush=True)
+    del fly, r, graph, cap
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    stages = {paced: engine_stats.device_stage_timings(rb, sc_b, iters=STAGE_ITERS,
+                                                        paced=paced)
+              for paced in ("device", "host")}
+    out["stage_timings_ms"] = stages["device"]
+    out["stage_timings_host_paced_ms"] = stages["host"]
+    out["stage_timings_s"] = time.perf_counter() - t0
+    print(f"frames: per-stage timings of scene B (engine.stats.device_stage_timings, "
+          f"median of {STAGE_ITERS} runs, CUDA events; device: graph replays queued "
+          f"behind a spin, host-paced: eager runs) | {card}", flush=True)
+    print("frames: | stage | device ms | host-paced ms |", flush=True)
+    for name, ms in stages["device"].items():
+        print(f"frames: | {name} | {ms:.3f} | {stages['host'][name]:.3f} |", flush=True)
+    return out
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean device milliseconds of fn() over `reps` back-to-back calls as
     the host issues them (CUDA events; the host's launch gaps included)."""
@@ -586,16 +705,11 @@ def queued_ms(fn, reps: int) -> float:
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    spun = torch.cuda.Event()
-    torch.cuda._sleep(SPIN_CYCLES)
-    spun.record()
-    start.record()
-    for _ in range(reps):
-        fn()
-    end.record()
-    if spun.query():
-        raise RuntimeError("queued_ms: the spin kernel ended before the calls "
-                           "were enqueued")
+    with engine_stats.held_stream(SPIN_CYCLES):
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
 
@@ -722,11 +836,15 @@ def main() -> int:
     # -- 7. the asset path: BC7, ntex, the device atlas, the loader, run_loop
     assets = asset_checks(dev, registries, card)
 
+    # -- 8. the multi-frame path: flythrough through one CUDA graph --------
+    frames = frames_checks(dev, rb, sc_b, card)
+
     for row in results:
         row["launches_per_frame"] = per_frame[row.pop("scene")][row.pop("counter")]
         del row["pairs"], row["n_s"], row["dense_ms"]
     print(json.dumps({"frame_ms": frame_ms, "card": card}))
     print(json.dumps({"assets": assets, "card": card}))
+    print(json.dumps({"frames": frames, "card": card}))
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -9,12 +9,15 @@ repository root). Frames and BC7 decodes run on the card unless
 `device="cpu"` is passed.
 
     python -m renderer_tpu_torch.apps.sandbox [out.png] [debug_mode] [time]
+    python -m renderer_tpu_torch.apps.sandbox flythrough [frames] [out_dir] \
+        [width] [height] [msaa] [debug_mode]
 """
 
 from __future__ import annotations
 
 import os
 import sys
+import tempfile
 import time
 from copy import copy
 from pathlib import Path
@@ -374,6 +377,56 @@ def run_loop(
     return stats
 
 
+def flythrough(
+    frames: int = 16,
+    out_dir: str | None = None,
+    width: int = 1280,
+    height: int = 720,
+    msaa: int = 4,
+    debug_mode: int = 0,
+    sandbox=None,
+    device="cuda",
+):
+    """Offline flythrough: render `frames` camera-path frames in ONE
+    Renderer.render_frames_device call (on the card one CUDA graph of the
+    frame, replayed once a frame) and write numbered PNGs to `out_dir`
+    (default: flythrough/ under the system's temporary directory). The
+    offline counterpart of run_loop (no UI pass; the HUD rides the
+    interactive path). Overflow policy "sync": the returned batch is always
+    complete — any dropped work re-renders at grown capacity. Frame i looks
+    from the orbit camera at angle 2πi/frames, at game time i/60 s.
+
+    `sandbox` is any scene source with `.registry` and `.build_scene(t)`
+    (default: the demo assets, loaded on `device`). Returns a dict: the
+    frames read back in one copy ("images", u8 [K, H, W, 3]), their stats
+    rows ("stats", on the device), the scenes and the renderer.
+
+    Run: python -m renderer_tpu_torch.apps.sandbox flythrough [frames] [out_dir] ..."""
+    if sandbox is None:
+        sandbox = Sandbox(device=device)
+    config = rt.RenderConfig(width=int(width), height=int(height),
+                             msaa_samples=int(msaa))
+    renderer = rt.Renderer(sandbox.registry, config, overflow_policy="sync",
+                           device=device)
+    frames = int(frames)
+    scenes = []
+    for i in range(frames):
+        pos, orient = orbit_camera(2.0 * np.pi * (i / max(frames, 1)))
+        scene = sandbox.build_scene(i / 60.0)
+        scene.camera.position = pos
+        scene.camera.orientation = orient
+        scenes.append(scene)
+    imgs, stats = renderer.render_frames_device(scenes, debug_mode=int(debug_mode))
+    out = imgs.cpu().numpy()  # ONE readback for the whole batch
+    out_dir = Path(out_dir or Path(tempfile.gettempdir()) / "flythrough")
+    out_dir.mkdir(parents=True, exist_ok=True)
+    for i in range(frames):
+        png.write_png(out_dir / f"{i:04d}.png", out[i])
+    print(f"wrote {frames} frames to {out_dir} "
+          f"({out.shape[2]}x{out.shape[1]}, one render_frames_device call)")
+    return {"images": out, "stats": stats, "scenes": scenes, "renderer": renderer}
+
+
 def main(out_path: str = "sandbox.png", debug_mode: int = 0,
          game_time: float = 1.0, device="cuda"):
     sandbox = Sandbox(device=device)
@@ -388,4 +441,7 @@ def main(out_path: str = "sandbox.png", debug_mode: int = 0,
 
 
 if __name__ == "__main__":
-    main(*sys.argv[1:])
+    if len(sys.argv) > 1 and sys.argv[1] == "flythrough":
+        flythrough(*sys.argv[2:])
+    else:
+        main(*sys.argv[1:])

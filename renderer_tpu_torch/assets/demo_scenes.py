@@ -185,7 +185,9 @@ class MiniSandbox:
     six-patch ring of `patch_ring_scene` and the procedural skinned
     character (proxy.make_skinned_character) at the origin. `queue(t)`
     re-queues the scene with the character playing both its animations at
-    game time t, so each call evaluates the animation and skins anew."""
+    game time t, so each call evaluates the animation and skins anew;
+    `build_scene(t)` queues them into a new Scene (the apps' scene-source
+    interface, with `.registry`)."""
 
     def __init__(self) -> None:
         self.registry = MaterialRegistry()
@@ -198,8 +200,18 @@ class MiniSandbox:
         _sandbox_camera(self.scene)
 
     def queue(self, game_time: float) -> Scene:
-        scene = self.scene
-        scene.clear()
+        return self.build_scene(game_time, self.scene)
+
+    def build_scene(self, game_time: float = 0.0,
+                    scene: Scene | None = None) -> Scene:
+        """The scene-source interface of apps/sandbox.py (`run_loop`,
+        `flythrough`): the draws queued at `game_time` into `scene`
+        (cleared first) or into a new Scene at the golden's camera."""
+        if scene is None:
+            scene = Scene(world_space=camera_mod.GLTF)
+            _sandbox_camera(scene)
+        else:
+            scene.clear()
         for i, mesh in enumerate(self._meshes):
             ang = 2 * np.pi * i / len(self._meshes)
             tr = math3d.trs(

@@ -27,6 +27,9 @@ VK_FORMAT_R8G8B8A8_SRGB = 43
 VK_FORMAT_BC7_UNORM = 145
 VK_FORMAT_BC7_SRGB = 146
 
+# a texel of opaque black as the packed RGBA8 bits in int32 (a = 0xFF)
+OPAQUE_BLACK = -(1 << 24)
+
 
 class NtexDecodeError(Exception):
     pass
@@ -75,8 +78,13 @@ def _decode_bc7(block_data: bytes, width: int, height: int,
                 device="cuda") -> np.ndarray:
     """One BC7 mip → [height, width, 4] u8: the blocks of the padded
     (≥ 4×4) image decode on `device`, then the edge blocks are cropped.
-    Raises ValueError when the payload holds fewer blocks than the padded
-    image needs (as Pillow's bcn decoder does)."""
+    Reserved blocks (byte 0 zero) give opaque black, as Pillow's bcn
+    decoder (the JAX package's ntex) does; bc7.decode_blocks itself gives
+    them transparent black, as bc7_jax does. Raises ValueError when the
+    payload holds fewer blocks than the padded image needs (as Pillow's
+    bcn decoder does)."""
+    import torch
+
     from renderer_tpu_torch.materials import bc7
 
     pw = max(4, (width + 3) // 4 * 4)
@@ -86,6 +94,9 @@ def _decode_bc7(block_data: bytes, width: int, height: int,
         raise ValueError("not enough image data")
     blocks = np.frombuffer(block_data, np.uint8, count=n * 16).reshape(n, 16)
     texels = bc7.decode_blocks(blocks, device=device)
+    reserved = torch.from_numpy(blocks[:, 0] == 0).to(texels.device)
+    texels = torch.where(reserved[:, None], torch.full_like(texels, OPAQUE_BLACK),
+                         texels)
     return bc7.blocks_to_image(texels, pw, ph)[:height, :width].cpu().numpy()
 
 
@@ -180,7 +191,7 @@ def decode_file(path, device="cuda") -> tuple[NtexHeader, list[np.ndarray]]:
     (the decode, on a miss, runs on `device`)."""
     path = Path(path)
     cfile = _cache_dir() / (hashlib.sha1(
-        f"{file_fingerprint(path)}|port-v1".encode()).hexdigest() + ".npz")
+        f"{file_fingerprint(path)}|port-v2".encode()).hexdigest() + ".npz")
     if cfile.exists():
         try:
             with np.load(cfile, allow_pickle=False) as z:

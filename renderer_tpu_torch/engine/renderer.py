@@ -120,6 +120,8 @@ class Renderer:
         self._geom_cache: dict = {}
         self._mat_cache: tuple[int, dict] | None = None
         self._last_stats = None  # device i32[N_STATS] of the last frame
+        # the captured frame of render_frames_device on the card (one graph)
+        self.frame_graphs = pipeline.GraphCache()
 
     # -- frame stats / overflow recovery --------------------------------------
 
@@ -385,8 +387,13 @@ class Renderer:
         atlas = None
         if self._use_device_atlas():
             plan = build_atlas_plan_cached(reg)
-            decoded_bytes = plan.shape[0] * plan.shape[1] * 4
-            if plan.upload_bytes < decoded_bytes:
+            decoded_bytes = 0 if plan is None else plan.shape[0] * plan.shape[1] * 4
+            if plan is None:
+                # a reserved BC7 block: only the host decode gives it the
+                # reference's opaque black (a choice, not a fallback)
+                print("[renderer] reserved BC7 block in a texture; using "
+                      "the host atlas path")
+            elif plan.upload_bytes < decoded_bytes:
                 atlas = realize_atlas(plan, self.device)
                 table, srgb, wrap = plan.table, plan.srgb, plan.wrap
             else:
@@ -499,6 +506,68 @@ class Renderer:
                     else:
                         self._maybe_shrink_capacities(host)
         return img
+
+    def render_frames_device(self, scenes, debug_mode: int = 0):
+        """Multi-frame rendering: all `scenes` (a camera path / animation
+        timeline sharing one draw list) in one pipeline.render_frames_scan
+        call — on the card one CUDA graph of the frame, replayed once a
+        scene — returning (u8 device images [K, H, W, 3], stats [K,
+        N_STATS]). The offline/flythrough throughput mode (no UI pass).
+
+        The overflow policy applies to the MAX over all K frames' stats rows
+        (no frame's dropped work can hide behind a clean final frame), read
+        in one host read: "sync" re-renders the whole batch at grown
+        capacity until clean, "auto" grows for the next call, "off" reads
+        nothing and leaves verification to the caller via the returned
+        stats."""
+        if not scenes:
+            raise ValueError("render_frames_device: need at least one scene")
+        fvs = [draw_stream.frame_view(s) for s in scenes]
+        if any(fv.geom_key != fvs[0].geom_key for fv in fvs[1:]):
+            raise ValueError(
+                "render_frames_device: all scenes must queue the same draw "
+                "list (geometry stream is shared across the batch)")
+        gs, geom_dev = self._geometry(scenes[0], fvs[0].order, fvs[0].geom_key)
+        # one blob layout for the whole batch: the widest scene's bucket
+        joint_cap = max(self._joint_cap(s) for s in scenes)
+        blobs = self._upload(np.stack([
+            draw_stream.pack_frame_blob(
+                fv, scene.joint_palette, self._proj_view(scene),
+                (gs.num_tris, gs.num_opaque_tris, gs.num_masked_tris,
+                 debug_mode),
+                morph_k=gs.morph_k, joint_cap=joint_cap,
+            )
+            for fv, scene in zip(fvs, scenes)
+        ]))
+        mats = self._materials()
+
+        def dispatch():
+            return pipeline.render_frames_scan(
+                geom_dev, blobs, mats,
+                config=self.config, skin_start=gs.skin_start,
+                has_masked=gs.num_masked_tris > 0,
+                has_blended=gs.num_tris > gs.num_opaque_tris + gs.num_masked_tris,
+                morph_k=gs.morph_k, joint_cap=joint_cap,
+                graphs=self.frame_graphs,
+            )
+
+        imgs, stats = dispatch()
+        if self.overflow_policy != "off":
+            for _ in range(8):
+                host = torch.amax(stats, dim=0).cpu().numpy()
+                if not self._grow_capacities(host):
+                    self._maybe_shrink_capacities(host)
+                    break
+                if self.overflow_policy != "sync":
+                    # grown for the next call; this batch stays as it is,
+                    # and its stats rows still report the OLD capacity's
+                    # overflow, so the next render_frame_device's delayed
+                    # check must not grow AGAIN from the same event
+                    self._skip_stat_checks = 1
+                    break
+                imgs, stats = dispatch()
+        self._last_stats = stats[-1]
+        return imgs, stats
 
     def _proj_view(self, scene: Scene) -> np.ndarray:
         proj, view = scene.camera.proj_view(

@@ -126,6 +126,17 @@ def _border_indices(x0, y0, w, h, wrap_s, wrap_t, aw):
     return src1, dst1, src2, dst2
 
 
+def reserved_block(registry: MaterialRegistry) -> str | None:
+    """Where the first reserved BC7 block (byte 0 zero: no mode bit) of the
+    registry's block streams lies, as "texture 'name' mip m"; None if there
+    is none."""
+    for _, tex in sorted(registry.textures.items()):
+        for mip, blocks in enumerate((tex.bc7_mips or [])[:MAX_MIPS]):
+            if not np.asarray(blocks)[:, 0].all():
+                return f"texture {tex.name!r} mip {mip}"
+    return None
+
+
 def build_atlas_plan(registry: MaterialRegistry) -> AtlasPlan:
     """Host phase: shelf-pack (the host atlas's layout, through the shared
     _plan_placements), gather block streams + placement meta + border
@@ -133,6 +144,11 @@ def build_atlas_plan(registry: MaterialRegistry) -> AtlasPlan:
     for the `flat` mean-color fallback."""
     from renderer_tpu_torch.raster.post import srgb_decode_np
 
+    where = reserved_block(registry)
+    if where is not None:
+        # the host decode gives these Pillow's opaque black, which the
+        # device decode does not reproduce: refuse them, as the JAX plan does
+        raise ValueError(f"{where}: reserved BC7 block (no mode bit) in stream")
     texs = dict(sorted(registry.textures.items()))
     blocks_of = {slot: tex.bc7_mips for slot, tex in texs.items()}
     shapes = {}
@@ -205,14 +221,11 @@ def build_atlas_plan(registry: MaterialRegistry) -> AtlasPlan:
 
     blocks_cat = (np.concatenate(all_blocks) if all_blocks
                   else np.zeros((0, 4), np.uint32))
-    # per-mode group sizes (the grouping itself happens on the device);
-    # reserved blocks (mode 8) sort last and are never decoded: their
-    # texels keep the atlas's zeros, the transparent black bc7 decodes
-    # them to
+    # per-mode group sizes (the grouping itself happens on the device)
     modes = bc7.block_modes(torch.from_numpy(
         blocks_cat.view(np.uint8).reshape(-1, 16)[:, 0].copy())).numpy()
     mode_counts = {int(m): int(c)
-                   for m, c in zip(*np.unique(modes, return_counts=True)) if m < 8}
+                   for m, c in zip(*np.unique(modes, return_counts=True))}
 
     def cat(parts, dtype):
         return np.concatenate(parts).astype(dtype) if parts else np.zeros(0, dtype)
@@ -308,10 +321,11 @@ def _plan_cache_dir(registry: MaterialRegistry):
     return base.with_name(base.name + "-plan")
 
 
-def build_atlas_plan_cached(registry: MaterialRegistry) -> AtlasPlan:
+def build_atlas_plan_cached(registry: MaterialRegistry) -> AtlasPlan | None:
     """Disk-cached plan (keyed by texture content fingerprints like the
     host atlas bundle): a warm start reads raw arrays — no ntex parsing, no
-    packing."""
+    packing. None when a block stream holds a reserved block, which the plan
+    refuses (so a cached plan never holds one)."""
     cdir = _plan_cache_dir(registry)
     if cdir.is_dir():
         try:
@@ -328,6 +342,8 @@ def build_atlas_plan_cached(registry: MaterialRegistry) -> AtlasPlan:
         except (OSError, ValueError, KeyError):
             pass  # corrupt/stale/old-format → rebuild
 
+    if reserved_block(registry) is not None:
+        return None
     plan = build_atlas_plan(registry)
     try:
         cdir.parent.mkdir(parents=True, exist_ok=True)

@@ -69,8 +69,7 @@ def _ragged_repeat(n: int, reps: torch.Tensor, capacity: int) -> torch.Tensor:
     ends = torch.clamp(torch.cumsum(reps.long(), 0), max=capacity)
     clipped = ends - torch.cat([ends.new_zeros(1), ends[:-1]])
     tail = capacity - ends[-1:]
-    idx = torch.arange(n + 1, dtype=torch.int32, device=dev)
-    idx[n] = n - 1
+    idx = torch.clamp(torch.arange(n + 1, dtype=torch.int32, device=dev), max=n - 1)
     return torch.repeat_interleave(idx, torch.cat([clipped, tail]),
                                    output_size=capacity)
 
@@ -317,8 +316,8 @@ def bin_triangle_classes(
         torch.full_like(rank, p_total - 1),  # dead pairs: last (padding) column
     )
 
-    keep = torch.tensor(KEEP_ROWS, device=dev)
-    rows = tri_data[keep][:, tri_sorted.long()]  # [B_ROWS, P]
+    # KEEP_ROWS: rows 0-14 gathered, the triangle id written from the sort
+    rows = tri_data[:B_ROWS][:, tri_sorted.long()]  # [B_ROWS, P]
     rows[B_TID] = tri_sorted.to(torch.float32)
     # dead rows must not rasterize even via the dump column
     rows = torch.where(live_sorted[None, :], rows, torch.zeros_like(rows))

@@ -32,6 +32,8 @@ per-sample coverage thresholds a·S > s+0.5.
 
 from __future__ import annotations
 
+import time
+
 import torch
 
 from renderer_tpu_torch.core import constants
@@ -425,3 +427,156 @@ def render_frame(
         tile_row_offset=0,
         out_rows=config.height,
     )
+
+
+def render_frames_scan(
+    geom: dict,
+    blobs: torch.Tensor,  # [K, blob_len] i32 — K packed frame blobs
+    materials: dict,
+    *,
+    graphs: GraphCache,
+    config: RenderConfig,
+    skin_start: int,
+    has_masked: bool = True,
+    has_blended: bool = True,
+    morph_k: int = 0,
+    joint_cap: int = constants.MAX_JOINT_COUNT,
+):
+    """Multi-frame rendering: K frames (camera path + animation states
+    packed host-side into stacked frame blobs) through the single-frame
+    path. Returns (u8 [K, H, W, 3], stats i32 [K, N_STATS]).
+
+    On the card the frame is captured once into a CUDA graph (FrameGraph)
+    and replayed K times, one blob after the other, with no host read in
+    between: one launch a frame instead of the eager frame's many. `graphs`
+    (a Renderer's) keeps the graph across calls. On the CPU each blob goes
+    through render_frame."""
+    kwargs = dict(config=config, skin_start=skin_start, has_masked=has_masked,
+                  has_blended=has_blended, morph_k=morph_k, joint_cap=joint_cap)
+    if blobs.device.type == "cpu":
+        frames = [render_frame(geom, {"blob": blob}, materials, **kwargs)
+                  for blob in blobs]
+        return (torch.stack([img for img, _ in frames]),
+                torch.stack([stats for _, stats in frames]))
+    if blobs.device.type != "cuda":
+        raise ValueError(f"render_frames_scan: unsupported device {blobs.device}")
+    key = (blobs.device, blobs.shape[1], tuple(sorted(kwargs.items())),
+           _identity(geom), _identity(materials))
+    graph = graphs.get(key, lambda: FrameGraph(geom, materials, blobs[0], kwargs))
+    return graph.run(blobs)
+
+
+def _identity(tensors: dict) -> tuple:
+    """(name, id) of each tensor of a dict: a graph reads its inputs at the
+    addresses it was captured with, so another tensor is another graph (the
+    graph holds the originals, so their ids cannot be reused meanwhile)."""
+    return tuple(sorted((k, id(v)) for k, v in tensors.items()))
+
+
+def launch_counts() -> dict:
+    """The hand-written kernels' launch counters: K1's and K2's per mode."""
+    return {"k1": raster_kernel.launches, **layers.launches}
+
+
+def add_launches(delta: dict) -> None:
+    raster_kernel.launches += delta["k1"]
+    for mode in layers.launches:
+        layers.launches[mode] += delta[mode]
+
+
+class CapturedGraph:
+    """fn() captured into one CUDA graph, following torch.cuda.graphs: one
+    eager run on a side stream first, then the capture on that stream, then
+    instantiation. A capture that fails raises; there is no eager fallback.
+    `out` is what fn returned at capture: the tensors each replay rewrites.
+    The kernel wrappers' launch counters move during capture, where nothing
+    launches: the capture's counts (`launches`) are taken back and added
+    again on every replay. `capture_s` and `instantiate_s` are the host
+    seconds of the two steps."""
+
+    def __init__(self, fn, device: torch.device):
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream(device).wait_stream(side)
+        before = launch_counts()
+        self.graph = torch.cuda.CUDAGraph(keep_graph=True)
+        t0 = time.perf_counter()
+        with torch.cuda.graph(self.graph, stream=side):
+            self.out = fn()
+        t1 = time.perf_counter()
+        self.graph.instantiate()
+        self.capture_s, self.instantiate_s = t1 - t0, time.perf_counter() - t1
+        after = launch_counts()
+        self.launches = {k: after[k] - before[k] for k in after}
+        add_launches({k: -v for k, v in self.launches.items()})
+
+    def replay(self) -> None:
+        self.graph.replay()
+        add_launches(self.launches)
+
+
+class FrameGraph:
+    """render_frame captured into one CUDA graph (CapturedGraph) that reads
+    its frame blob from a static buffer; `run` replays it for each blob of
+    a batch, each replay timed by CUDA events (`replay_ms`)."""
+
+    def __init__(self, geom: dict, materials: dict, first_blob: torch.Tensor,
+                 kwargs: dict):
+        # the graph reads these tensors at their captured addresses: hold them
+        self.geom, self.materials = dict(geom), dict(materials)
+        self.blob = first_blob.clone()
+        self.events: list = []
+        self.captured = CapturedGraph(
+            lambda: render_frame(self.geom, {"blob": self.blob}, self.materials,
+                                 **kwargs),
+            first_blob.device)
+        self.img, self.stats = self.captured.out
+
+    def run(self, blobs: torch.Tensor):
+        """(u8 [K, H, W, 3], stats i32 [K, N_STATS]) of the K blobs, all
+        queued on the current stream; nothing waits for the device."""
+        k = blobs.shape[0]
+        imgs = torch.empty((k, *self.img.shape), dtype=self.img.dtype,
+                           device=self.img.device)
+        stats = torch.empty((k, *self.stats.shape), dtype=self.stats.dtype,
+                            device=self.stats.device)
+        self.events = []
+        for i in range(k):
+            self.blob.copy_(blobs[i])
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            self.captured.replay()
+            end.record()
+            imgs[i].copy_(self.img)
+            stats[i].copy_(self.stats)
+            self.events.append((start, end))
+        return imgs, stats
+
+    def replay_ms(self) -> list:
+        """CUDA-event ms of each replay of the last `run` (waits for them)."""
+        for _, end in self.events:
+            end.synchronize()
+        return [start.elapsed_time(end) for start, end in self.events]
+
+
+class GraphCache:
+    """At most one FrameGraph, the one of the last key: a graph's private
+    memory pool holds a whole frame's intermediates, so a new key (another
+    config after a capacity grew, other geometry) drops the old graph before
+    the new one is captured."""
+
+    def __init__(self) -> None:
+        self.key = None
+        self.graph: FrameGraph | None = None
+
+    def get(self, key, make) -> FrameGraph:
+        if self.graph is None or self.key != key:
+            if self.graph is not None:
+                self.key = self.graph = None
+                torch.cuda.empty_cache()
+            self.graph = make()
+            self.key = key
+        return self.graph

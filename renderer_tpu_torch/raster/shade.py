@@ -82,11 +82,13 @@ def make_sampler(materials: dict, uv, lod_base, trilinear: bool = True,
     aw = atlas.shape[1]
     atlas_flat = atlas.reshape(-1)
     table_flat = table.reshape(-1, 4)
-    inv255 = torch.tensor(1.0 / 255.0, dtype=compute_dtype, device=atlas.device)
+    # constants are made on the device (fills, arange), never copied from
+    # the host: a CUDA graph capture of the frame allows no such copy
+    inv255 = torch.full((), 1.0 / 255.0, dtype=compute_dtype, device=atlas.device)
     # byte shifts of R, G, B, A in a packed texel, and the channels the sRGB
     # decode applies to (alpha is stored linear)
-    shifts = torch.tensor([0, 8, 16, 24], dtype=torch.int32, device=atlas.device)
-    rgb_lanes = torch.tensor([True, True, True, False], device=atlas.device)
+    shifts = torch.arange(0, 32, 8, dtype=torch.int32, device=atlas.device)
+    rgb_lanes = torch.arange(4, device=atlas.device) < 3
 
     def apply_wrap(uvq, wm):  # uvq [...,2] f32; wm [...,2] i32 or None
         rep = uvq - torch.floor(uvq)  # REPEAT
@@ -181,7 +183,7 @@ def make_sampler(materials: dict, uv, lod_base, trilinear: bool = True,
             t = (i + 0.5) / aniso - 0.5
             s = sample_filtered(slot, lodf, uv + major * t, wm)
             acc = s if acc is None else acc + s
-        return acc * torch.tensor(1.0 / aniso, dtype=compute_dtype, device=acc.device)
+        return acc * torch.full((), 1.0 / aniso, dtype=compute_dtype, device=acc.device)
 
     return sample
 
@@ -369,8 +371,11 @@ def shade_interpolated(it: dict, vstage: dict, frame: dict, materials: dict,
     )
 
     # Lit mode (main.frag:78-88).
-    sun_dir = (torch.tensor([-1.0, 1.0, 1.0], device=normal.device)
-               / torch.sqrt(torch.tensor(3.0))).to(dt)
+    # (-1, 1, 1) filled on the device, not copied from the host (see
+    # make_sampler); sqrt(3) is a CPU scalar
+    sun_dir = torch.cat([torch.full((1,), -1.0, device=normal.device),
+                         torch.ones(2, device=normal.device)])
+    sun_dir = (sun_dir / torch.sqrt(torch.tensor(3.0))).to(dt)
     sun_dot = torch.clamp(torch.sum(shading_normal * sun_dir, dim=-1), min=0.0)
     brightness = 0.3 * occlusion + sun_dot * 2.0
     emissive_len = torch.sqrt(torch.sum(emissive * emissive, dim=-1))
@@ -405,3 +410,25 @@ def shade_interpolated(it: dict, vstage: dict, frame: dict, materials: dict,
 
     color = torch.where(covered[..., None], color, torch.zeros_like(color))
     return color.to(torch.float32)
+
+
+def shade(
+    trid: torch.Tensor,  # [H,W] i32, -1 = background
+    geom: dict,
+    vstage: dict,
+    frame: dict,
+    materials: dict,
+    *,
+    width: int,
+    height: int,
+    row0=0,
+    trilinear: bool = True,
+    aniso: int = 1,
+    srgb_per_tap: bool = False,
+    compute_dtype=torch.float32,
+) -> torch.Tensor:
+    """Returns linear HDR [H,W,4] f32. Background pixels are the clear color
+    (0,0,0,0) (render_passes.rs:192-197)."""
+    it = interpolants(trid, geom, vstage, width=width, height=height, row0=row0)
+    return shade_interpolated(it, vstage, frame, materials, trilinear, aniso,
+                              srgb_per_tap, compute_dtype)

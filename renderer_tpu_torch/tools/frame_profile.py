@@ -17,13 +17,13 @@ exits with an error.
 from __future__ import annotations
 
 import json
-import subprocess
 import sys
 
 import torch
 
 import renderer_tpu_torch as trt
 from renderer_tpu_torch.assets import demo_scenes
+from renderer_tpu_torch.engine.stats import card_line
 from renderer_tpu_torch.interop import from_numpy_arrays
 from renderer_tpu_torch.raster import ui_stage
 from renderer_tpu_torch.raster.pipeline import STANDARD_SAMPLE_POSITIONS
@@ -47,9 +47,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("frame_profile: torch.cuda.is_available() is False")
     dev = torch.device("cuda")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60, check=True).stdout.strip()
+    card = card_line()
     frames = demo_scenes.SandboxFrames()
     r = trt.Renderer(frames.registry, trt.RenderConfig(width=W, height=H, msaa_samples=4),
                      profiler=frames.profiler, overflow_policy="sync", device=dev)

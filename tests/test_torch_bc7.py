@@ -217,24 +217,24 @@ def test_ntex_container_parses_like_jax(case):
             np.testing.assert_array_equal(a, b)
 
 
-def test_ntex_reserved_blocks_decode_transparent_unlike_pillow():
-    """The one known difference between the two packages' ntex decoders: a
-    reserved block (byte 0 zero) decodes to transparent black in the port
-    (bc7.decode_blocks, as bc7_jax and both packages' device atlases give
-    it) and to opaque black in the JAX package (Pillow's bcn decoder)."""
+def test_ntex_reserved_blocks_decode_opaque_like_pillow():
+    """A reserved block (byte 0 zero) decodes to opaque black in both
+    packages' ntex decoders (Pillow's bcn decoder in the JAX package), on
+    every texel; bc7.decode_blocks keeps bc7_jax's transparent black."""
     from renderer_tpu.assets import ntex as jn
     from renderer_tpu_torch.assets import ntex as pn
+    from renderer_tpu_torch.materials import bc7
 
     rng = np.random.default_rng(6)
     blocks = mixed_blocks(rng, 4)  # 8×8: 2×2 blocks, two of them reserved
     blocks[[0, 3], 0] = 0
     data = ntex_bytes(8, 8, pn.VK_FORMAT_BC7_SRGB, [blocks])
     want, got = jn.decode(data)[1][0], pn.decode(data, device="cpu")[1][0]
-    reserved = np.zeros((8, 8), bool)
-    reserved[:4, :4] = reserved[4:, 4:] = True
-    np.testing.assert_array_equal(got[~reserved], want[~reserved])
-    assert (got[reserved] == [0, 0, 0, 0]).all()
-    assert (want[reserved] == [0, 0, 0, 255]).all()
+    np.testing.assert_array_equal(got, want)
+    assert (got[:4, :4] == [0, 0, 0, 255]).all()
+    assert (got[4:, 4:] == [0, 0, 0, 255]).all()
+    texels = bc7.decode_blocks(blocks, device="cpu").numpy()
+    assert (texels[[0, 3]] == 0).all()
 
 
 def test_ntex_decode_file_and_its_cache(tmp_path, monkeypatch):
@@ -344,60 +344,94 @@ def test_device_atlas_equals_the_host_atlases(tmp_path, monkeypatch):
     assert again.mode_counts == cached.mode_counts == plan.mode_counts
 
 
-def test_device_atlas_keeps_reserved_blocks_transparent(tmp_path, monkeypatch):
-    """Reserved blocks (byte 0 zero) in a texture's stream: the device
-    atlas leaves them transparent black, as the port's host decode gives
-    them (Pillow, and so the JAX host atlas, decodes them opaque)."""
+def _reserved_registry():
+    """A registry of one 16×8 BC7 texture "r" whose mips 0 and 2 hold
+    reserved blocks (byte 0 zero); its loader decodes like Pillow."""
     import renderer_tpu_torch as pt
     from renderer_tpu_torch.assets import ntex as pn
-    from renderer_tpu_torch.materials import atlas, atlas_device
 
-    monkeypatch.setenv("RENDERER_TPU_CACHE", str(tmp_path))
     rng = np.random.default_rng(4)
     chain = [mixed_blocks(rng, n) for n in (8, 2, 1, 1)]  # 16×8 down to 1×1
     chain[0][::3, 0] = 0
     chain[2][:, 0] = 0
     shapes = [(8, 16), (4, 8), (2, 4), (1, 2)]
     reg = pt.MaterialRegistry()
-    reg.register_texture(pt.Texture(
+    slot = reg.register_texture(pt.Texture(
         None, pt.TextureKind.SRGB_COLOR, name="r", shape=(8, 16), fingerprint="test:r",
         loader=lambda: [pn._decode_bc7(b.tobytes(), w, h, "cpu")
                         for b, (h, w) in zip(chain, shapes)],
         blocks_loader=lambda: chain))
-    plan = atlas_device.build_atlas_plan(reg)
-    assert 8 not in plan.mode_counts
-    assert sum(plan.mode_counts.values()) == len(plan.blocks) - 4
-    dev = atlas_device.realize_atlas(plan, device="cpu").numpy().view(np.uint32)
-    np.testing.assert_array_equal(dev, atlas.build_atlas(reg).data)
+    return reg, slot
+
+
+def test_device_atlas_plan_refuses_reserved_blocks(tmp_path, monkeypatch):
+    """Reserved blocks (byte 0 zero) in a texture's stream: the device plan
+    raises, naming the texture, as the JAX plan asserts; the cached plan is
+    None; the host atlas decodes them to Pillow's opaque black."""
+    from renderer_tpu_torch.materials import atlas, atlas_device
+
+    monkeypatch.setenv("RENDERER_TPU_CACHE", str(tmp_path))
+    reg, slot = _reserved_registry()
+    assert atlas_device.reserved_block(reg) == "texture 'r' mip 0"
+    with pytest.raises(ValueError, match="texture 'r' mip 0: reserved BC7 block"):
+        atlas_device.build_atlas_plan(reg)
+    assert atlas_device.build_atlas_plan_cached(reg) is None
+    host = atlas.build_atlas(reg)
+    x, y = host.table[slot, 0, :2]
+    block0 = host.data[y:y + 4, x:x + 4].view(np.uint8).reshape(4, 4, 4)
+    assert (block0 == [0, 0, 0, 255]).all()
+
+
+def _render_textured_quad(reg, tex, mode, monkeypatch):
+    """debug_mode 1 (base color) of a screen-filling quad textured with
+    `tex`, atlas path forced to `mode`: (image, whether the renderer was
+    on its device-atlas branch)."""
+    import renderer_tpu_torch as pt
+    from renderer_tpu_torch.core import math3d
+
+    monkeypatch.setenv("RENDERER_TPU_ATLAS", mode)
+    builder = pt.VertexLibraryBuilder()
+    p = np.array([[-0.8, 0.8, 1.2], [0.8, 0.8, 1.2], [-0.8, -0.8, 1.2],
+                  [0.8, -0.8, 1.2]], np.float32)
+    uv = np.array([[0, 1], [1, 1], [0, 0], [1, 0]], np.float32)
+    nrm = np.tile([0, 0, -1.0], (4, 1)).astype(np.float32)
+    t4 = np.tile([1, 0, 0, 1.0], (4, 1)).astype(np.float32)
+    mesh = builder.add_mesh(p, uv, nrm, t4, np.array([0, 1, 2, 2, 1, 3], np.uint32))
+    builder.build()
+    mat = reg.create_material("m", pt.PbrMaterialParameters(base_color=tex))
+    scene = pt.Scene()
+    scene.queue_mesh(mesh, mat, None, math3d.IDENTITY)
+    r = pt.Renderer(reg, pt.RenderConfig(width=128, height=64, tile_h=16),
+                    device="cpu")
+    img = r.render_frame(scene, debug_mode=1)
+    return img, r._use_device_atlas()
+
+
+def test_renderer_takes_the_host_atlas_for_reserved_blocks(tmp_path, monkeypatch, capsys):
+    """RENDERER_TPU_ATLAS=device with a reserved block in a stream: the
+    renderer chooses the host atlas (as the JAX renderer does after its
+    plan's assert) and renders the same frame as the host path, the
+    reserved blocks opaque black."""
+    monkeypatch.setenv("RENDERER_TPU_CACHE", str(tmp_path))
+    reg, slot = _reserved_registry()
+    host, used_host = _render_textured_quad(reg, reg.textures[slot], "host", monkeypatch)
+    reg, slot = _reserved_registry()
+    dev, used_dev = _render_textured_quad(reg, reg.textures[slot], "device", monkeypatch)
+    assert (used_host, used_dev) == (False, True)
+    assert "reserved BC7 block in a texture; using the host atlas path" in capsys.readouterr().out
+    np.testing.assert_array_equal(host, dev)
+    assert host.std() > 5 and (host == 0).all(axis=-1).any()
 
 
 def test_renderer_device_atlas_renders_like_the_host_path(tmp_path, monkeypatch):
     """RENDERER_TPU_ATLAS=device renders the same frame as the host path
     (the sampler reading the device-realized atlas)."""
-    import renderer_tpu_torch as pt
-    from renderer_tpu_torch.core import math3d
-
     monkeypatch.setenv("RENDERER_TPU_CACHE", str(tmp_path))
 
     def render(mode):
-        monkeypatch.setenv("RENDERER_TPU_ATLAS", mode)
         reg = _registries()[1]
         tex = next(t for t in reg.textures.values() if t.name == "a")
-        builder = pt.VertexLibraryBuilder()
-        p = np.array([[-0.8, 0.8, 1.2], [0.8, 0.8, 1.2], [-0.8, -0.8, 1.2],
-                      [0.8, -0.8, 1.2]], np.float32)
-        uv = np.array([[0, 1], [1, 1], [0, 0], [1, 0]], np.float32)
-        nrm = np.tile([0, 0, -1.0], (4, 1)).astype(np.float32)
-        t4 = np.tile([1, 0, 0, 1.0], (4, 1)).astype(np.float32)
-        mesh = builder.add_mesh(p, uv, nrm, t4, np.array([0, 1, 2, 2, 1, 3], np.uint32))
-        builder.build()
-        mat = reg.create_material("m", pt.PbrMaterialParameters(base_color=tex))
-        scene = pt.Scene()
-        scene.queue_mesh(mesh, mat, None, math3d.IDENTITY)
-        r = pt.Renderer(reg, pt.RenderConfig(width=128, height=64, tile_h=16),
-                        device="cpu")
-        img = r.render_frame(scene, debug_mode=1)
-        return img, r._use_device_atlas()
+        return _render_textured_quad(reg, tex, mode, monkeypatch)
 
     host, used_host = render("host")
     dev, used_dev = render("device")

@@ -215,3 +215,73 @@ def test_renderer_on_card_matches_goldens(cuda, case):
     expected = np.load(GOLDEN)[case]
     diff = np.abs(img.astype(int) - expected.astype(int)).max(axis=-1)
     assert (diff > 2).mean() < 0.005
+
+
+# -- the multi-frame path: the frame captured as one CUDA graph ------------
+
+def _sandbox_batch(cuda, times=(0.1, 0.4, 0.7)):
+    """A "sync" renderer on the card over the mini-sandbox (three alpha
+    classes, the skinned character re-skinned at each game time) at
+    160×96, 4×MSAA, and one scene a time."""
+    sandbox = demo_scenes.MiniSandbox()
+    r = trt.Renderer(sandbox.registry, trt.RenderConfig(width=160, height=96,
+                                                         msaa_samples=4),
+                     overflow_policy="sync", device=cuda)
+    return r, [sandbox.build_scene(t) for t in times]
+
+
+def test_eager_frame_syncs_nowhere(cuda):
+    """No host sync inside a frame (the condition of its graph capture): one
+    eager frame under torch.cuda.set_sync_debug_mode("error"), after a
+    first frame has uploaded the geometry and the materials."""
+    r, (scene, *_) = _sandbox_batch(cuda)
+    r.render_frame(scene)
+    r.overflow_policy = "off"  # "auto" and "sync" read stats on the host
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        img = r.render_frame_device(scene)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert img.shape == (96, 160, 3) and img.device.type == "cuda"
+
+
+def test_graph_replays_equal_eager_frames(cuda):
+    r, scenes = _sandbox_batch(cuda)
+    imgs, stats = r.render_frames_device(scenes)
+    assert r.frame_graphs.graph is not None
+    imgs, stats = imgs.cpu().numpy(), stats.cpu().numpy()
+    assert len({im.tobytes() for im in imgs}) == len(scenes)  # re-skinned
+    for k, scene in enumerate(scenes):
+        np.testing.assert_array_equal(imgs[k], r.render_frame(scene))
+        assert list(r.frame_stats().values()) == stats[k].tolist()
+
+
+def test_replays_add_the_capture_launch_counts(cuda):
+    """Each replay adds the launches its capture counted (K1 and both K2
+    scene modes once a frame); a second batch of the same key replays the
+    graph without capturing again."""
+    from renderer_tpu_torch.raster import pipeline
+
+    r, scenes = _sandbox_batch(cuda)
+    r.render_frames_device(scenes)
+    graph = r.frame_graphs.graph
+    assert graph.captured.launches == {"k1": 1, "masked": 1, "blended": 1, "ui": 0}
+    before = pipeline.launch_counts()
+    r.render_frames_device(scenes + scenes[:1])
+    assert r.frame_graphs.graph is graph
+    after = pipeline.launch_counts()
+    assert {k: after[k] - before[k] for k in after} == {
+        k: 4 * v for k, v in graph.captured.launches.items()}
+    assert len(graph.replay_ms()) == 4 and min(graph.replay_ms()) > 0.0
+
+
+@pytest.mark.parametrize("paced", ["device", "host"])
+def test_stage_timings_on_the_card(cuda, paced):
+    from renderer_tpu_torch.engine import stats
+
+    r, (scene, *_) = _sandbox_batch(cuda)
+    r.render_frame(scene)
+    timings = stats.device_stage_timings(r, scene, iters=2, paced=paced)
+    assert len(timings) == 10 and "FULL FRAME (fused, msaa4)" in timings
+    assert all(v > 0.0 for v in timings.values()), timings
