@@ -68,10 +68,23 @@ engine.stats.device_stage_timings on scene B at both of its paces: device
 time (each stage a captured graph, replays queued behind a spin kernel) and
 host-paced (eager runs as the host issues them).
 
+Phase 9 ("tools") runs the configuration matrix and the frame tools on the
+card: apps.configs.run_all (rows 1, 7, 8 and 9; the rows that need the
+sandbox assets or testbox.glb, absent from the repository, print their skip
+line), every row's ms a frame, fps, pair and tile-row demand, with no
+dropped work; K1 on row 8's own bins (the stress field under an 8000-layer
+overdraw stack), bit-equal to its plain version, with its times, bound and
+tests_kept; tools.frame_capture of the mini-sandbox at 1280×720, every dump
+decoded back equal to the array written and the capture's direct K1 and K2
+launches bit-equal to their plain versions; tools.binning_scaling at pair
+capacities 1M-8M; tools.prologue_probe, and tools.startup_probe run twice as
+a process of its own, cold (the kernels built into an empty directory) and
+warm.
+
 Each phase prints one line; any failure raises (exit code ≠ 0). The line
-before the last is a JSON object with one entry per kernel; the last line is
-{"ok": true, "device": {...}}. Without CUDA the script fails before printing
-either.
+before the last is a JSON object with one entry per kernel (with its
+launches in each phase); the last line is {"ok": true, "device": {...}}.
+Without CUDA the script fails before printing either.
 """
 
 from __future__ import annotations
@@ -80,6 +93,7 @@ import json
 import os
 import statistics
 import struct
+import subprocess
 import sys
 import tempfile
 import time
@@ -90,8 +104,9 @@ import torch
 
 import renderer_tpu_torch as trt
 from renderer_tpu_torch import kernels
+from renderer_tpu_torch.apps import configs
 from renderer_tpu_torch.apps.sandbox import flythrough, run_loop
-from renderer_tpu_torch.assets import demo_scenes, ntex
+from renderer_tpu_torch.assets import demo_scenes, ntex, png
 from renderer_tpu_torch.assets.gltf_loader import load_gltf, ntex_texture
 from renderer_tpu_torch.core import math3d
 from renderer_tpu_torch.engine import stats as engine_stats
@@ -110,6 +125,7 @@ from renderer_tpu_torch.raster import (
 )
 from renderer_tpu_torch.raster.pipeline import STANDARD_SAMPLE_POSITIONS, STAT_NAMES
 from renderer_tpu_torch.scene import draw_stream
+from renderer_tpu_torch.tools import binning_scaling, frame_capture, prologue_probe
 
 W, H = 1920, 1080
 FRAMES = {"A": 20, "B": 10, "C": 10}
@@ -129,6 +145,15 @@ BYTES_PER_S = 3.35e12  # H100 SXM HBM3 data sheet
 SPIN_CYCLES = 40_000_000  # ~20 ms at the H100's 1.98 GHz boost clock
 OVERFLOW_STATS = ("overflow_opaque", "overflow_masked", "overflow_blended",
                   "overflow_ui", "row_overflow")
+CONFIG_FRAMES = 3  # phase 9's run_all frames (rows 7-9 time 3, 2 and 3)
+CONFIG_ROWS = ("triangle-800x600-flat", "stress-1M-tris-1080p",
+               "stress-4Mpairs-1080p", "morph-sheet-480p-normals")
+# the demand the JAX package's apps/configs.py comments give for rows 7 and 8
+# (apps/configs.py:158-160,189-193): (pairs, tile-rows)
+JAX_DEMAND = {"stress-1M-tris-1080p": (607_000, 604_000),
+              "stress-4Mpairs-1080p": (1_750_000, 759_000)}
+CAPTURE_W, CAPTURE_H = 1280, 720
+BINNING_REPS = 5
 
 
 def scene_a():
@@ -682,6 +707,184 @@ def frames_checks(dev, rb, sc_b, card) -> dict:
     return out
 
 
+def print_kernel_row(row, card) -> None:
+    dense = row["pairs"] * 32 * 128 * row["n_s"]  # (pair, sample) tests of 32×128 tiles
+    print(f"kernel: {row['name']}: exact vs plain (max_abs_err {row['max_abs_err']}) "
+          f"| {row['ms']:.3f} ms (queued {row['ms_queued']:.3f}) vs plain "
+          f"{row['plain_ms']:.1f} ms | bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']}; dense tests "
+          f"{row['dense_ms']:.3f} ms), tests_kept {row['tests_kept']:.4f}, share "
+          f"{row['bound_ms'] / row['ms']:.1%} ({row['bound_ms'] / row['ms_queued']:.1%} "
+          f"queued) | "
+          f"{row['pairs']} bin pairs, {dense / row['ms'] / 1e6:.1f} G dense "
+          f"(pair, sample) tests/s | {card}", flush=True)
+
+
+def config_matrix(dev, tmp: Path, card) -> tuple[list, dict]:
+    """Phase 9a: apps.configs.run_all on the card (module docstring).
+    Returns its results and the kernel launches of the run."""
+    reset_counters()
+    results = configs.run_all(str(tmp), frames=CONFIG_FRAMES, device=dev)
+    torch.cuda.synchronize()
+    launches = counters()
+    names = [r["config"] for r in results]
+    if names != list(CONFIG_ROWS):
+        raise RuntimeError(f"tools: run_all rendered {names}, not {CONFIG_ROWS}")
+    if launches["k1"] < 1:
+        raise RuntimeError(f"tools: run_all launched no K1: {launches}")
+    saved = json.loads((tmp / "results.json").read_text())
+    if [r["config"] for r in saved] != names:
+        raise RuntimeError("tools: results.json differs from run_all's rows")
+    for r in results:
+        fs = r["frame_stats"]
+        if r["dropped_pairs"] or r["dropped_rows"] or any(fs[k] for k in OVERFLOW_STATS):
+            raise RuntimeError(f"tools: {r['config']} dropped work: {fs}")
+        img = png.decode_png((tmp / f"{r['config']}.png").read_bytes())
+        if img[..., :3].std() < 1.0:
+            raise RuntimeError(f"tools: {r['config']}'s PNG is blank")
+        jax = JAX_DEMAND.get(r["config"])
+        print(f"tools: configs {r['config']}: {r['ms_per_frame']:.2f} ms/frame, "
+              f"{r['fps']:.2f} fps | total_pairs {fs['total_pairs']} total_rows "
+              f"{fs['total_rows']}" + (f" (the JAX package's comments: about "
+              f"{jax[0]} pairs, {jax[1]} tile-rows)" if jax else "")
+              + f" | {card}", flush=True)
+    return results, launches
+
+
+def overdraw_k1_row(dev, launches, card) -> tuple[dict, dict]:
+    """Phase 9b: K1 on row 8's own bins against its plain version, timed
+    and bounded as phase 4's rows. Returns the row and the launches of one
+    row-8 frame."""
+    renderer, scene = configs.overdraw_row(dev)
+    reset_counters()
+    renderer.render_frame_device(scene)
+    torch.cuda.synchronize()
+    per_frame = counters()
+    cfg = renderer.config
+    b, s, c = scene_bins(renderer, scene, "8")
+    kw = dict(padded_height=cfg.padded_height, padded_width=cfg.padded_width,
+              tile_h=cfg.tile_h, tile_w=cfg.tile_w)
+    pairs = int(c[0].sum())
+    keep = raster_kernel.footprint_keep(b, s[0], c[0], None, fp_w=8, fp_h=4,
+                                        samples_per_block=1, **kw)
+    row = kernel_row(
+        "K1 rasterize_binned (opaque visibility, configs row 8 "
+        "stress-4Mpairs-1080p, S=1)",
+        "renderer_tpu_torch/csrc/raster_kernel.cu",
+        "renderer_tpu/raster/raster_kernel.py:300", "k1", launches,
+        lambda: raster_kernel.rasterize_binned(b, s[0], c[0], **kw),
+        lambda: raster_kernel.rasterize_binned_plain(b, s[0], c[0], **kw),
+        keep, pairs, 1, cfg, pairs * binning.B_ROWS * 4 + cfg.padded_height
+        * cfg.padded_width * 8, "8")
+    counts = c[0].cpu().float()
+    row["bin_pairs_max"], row["bin_pairs_median"] = int(counts.max()), float(counts.median())
+    del keep
+    print_kernel_row(row, card)
+    return row, per_frame
+
+
+def capture_checks(dev, tmp: Path, card) -> tuple[dict, dict]:
+    """Phase 9c: tools.frame_capture of the mini-sandbox at 1280×720.
+    Returns the summary line's numbers and the capture's launches."""
+    cfg = trt.RenderConfig(width=CAPTURE_W, height=CAPTURE_H)
+    reset_counters()
+    summary = frame_capture.capture(tmp, "sandbox", 1.0, config=cfg,
+                                    sandbox=demo_scenes.MiniSandbox(), device=dev)
+    torch.cuda.synchronize()
+    launches = counters()
+    missing = [k for k in ("k1", "k2_masked", "k2_blended") if launches[k] < 1]
+    if missing:
+        raise RuntimeError(f"tools: capture launched no {missing}: {launches}")
+    dumps, buffers = summary.pop("dumps"), summary.pop("buffers")
+    if sorted(dumps) != list(frame_capture.DUMPS):
+        raise RuntimeError(f"tools: capture wrote {sorted(dumps)}")
+    for name, arr in dumps.items():
+        decoded = png.decode_png((tmp / name).read_bytes())
+        back = decoded[..., 0] if arr.ndim == 2 else decoded[..., :3]
+        if not np.array_equal(back, arr):
+            raise RuntimeError(f"tools: capture's {name} does not decode to its array")
+    written = json.loads((tmp / "capture.json").read_text())
+    # the frame's total_pairs is the re-run's ragged pair demand; the
+    # binned pairs are that demand less the pairs binning's per-pair tile
+    # extent test drops (the same in the JAX package)
+    stats, demand = written["stats"], [int(d) for d in buffers["demand"]]
+    binned = sum(written["pairs_per_class"])
+    if (written != summary or [stats["total_pairs"], stats["total_rows"]] != demand
+            or not 0 < binned <= demand[0]):
+        raise RuntimeError(f"tools: capture.json {written}, re-run demand {demand}")
+    cfg_kw = dict(padded_height=cfg.padded_height, padded_width=cfg.padded_width,
+                  tile_h=cfg.tile_h, tile_w=cfg.tile_w)
+    b, s, c = buffers["bins"]
+    max_abs_err(buffers["k1"], raster_kernel.rasterize_binned_plain(b, s[0], c[0], **cfg_kw))
+    zs = buffers["k1"][0]
+    for mode in ("masked", "blended"):
+        cls, n_layers, got = buffers[mode]
+        max_abs_err(got, layers.rasterize_layers_plain(
+            b, s[cls], c[cls], zs, mode=mode, n_layers=n_layers, **cfg_kw))
+    print(f"tools: frame_capture mini-sandbox {CAPTURE_W}x{CAPTURE_H}: 6 dumps decode to "
+          f"their arrays; direct K1 and K2 (masked, blended) launches bit-equal to their "
+          f"plain versions | total_pairs {stats['total_pairs']} = the re-run's demand, "
+          f"binned {binned} after {demand[0] - binned} pairs the extent test dropped "
+          f"| pairs_per_class {written['pairs_per_class']} busiest tile "
+          f"{written['busiest_tile']} ({written['busiest_tile_pairs']} pairs) | launches "
+          f"{launches} | {card}", flush=True)
+    return written, launches
+
+
+def startup(mode: str) -> dict:
+    """tools.startup_probe in a process of its own; its JSON line."""
+    out = subprocess.run([sys.executable, "-m", "renderer_tpu_torch.tools.startup_probe",
+                          mode], capture_output=True, text=True, timeout=600,
+                         cwd=Path(__file__).resolve().parent)
+    if out.returncode != 0:
+        raise RuntimeError(f"tools: startup_probe {mode} failed:\n{out.stderr[-3000:]}")
+    return json.loads(out.stdout.strip().splitlines()[-1])
+
+
+def tools_checks(dev, card) -> tuple[dict, dict, dict]:
+    """Phase 9 (module docstring). Returns the tools line's numbers, the
+    row-8 K1 kernel row and the launches of each phase-9 path."""
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "configs").mkdir()
+        (tmp / "capture").mkdir()
+        results, config_launches = config_matrix(dev, tmp / "configs", card)
+        k1_row, row8_frame = overdraw_k1_row(dev, config_launches, card)
+        torch.cuda.empty_cache()
+        capture, capture_launches = capture_checks(dev, tmp / "capture", card)
+    torch.cuda.empty_cache()
+
+    curve = binning_scaling.scaling(BINNING_REPS, dev)
+    for r in curve:
+        fill = r["actual_pairs"] / (binning_scaling.FILL * r["pair_capacity"])
+        if r["overflow"] or abs(fill - 1.0) > 0.25:
+            raise RuntimeError(f"tools: binning_scaling row off its 60% target: {r}")
+        print(f"tools: binning_scaling capacity {r['pair_capacity']}: {r['actual_pairs']} "
+              f"pairs ({r['triangles']} triangles) | binning {r['binning_ms']:.3f} ms device, "
+              f"{r['binning_host_paced_ms']:.3f} ms host-paced | sort alone "
+              f"{r['sort_ms']:.3f} ms ({r['sort_share']:.1%}) | {card}", flush=True)
+    torch.cuda.empty_cache()
+
+    prologue = prologue_probe.main(reps=200, sandbox=demo_scenes.MiniSandbox(), device=dev)
+    starts = {mode: startup(mode) for mode in ("cold", "warm")}
+    if not starts["cold"]["nvcc_s"] or starts["warm"]["nvcc_s"] != 0.0:
+        raise RuntimeError(f"tools: startup cold/warm builds {starts}")
+    for mode, st in starts.items():
+        print(f"tools: startup {mode}: " + ", ".join(
+            f"{k} {v:.3f}" for k, v in st.items() if k.endswith("_s")) + f" | {card}",
+            flush=True)
+    print(f"tools: prologue_probe (the mini-sandbox's {prologue['draws']} draws, median of "
+          f"200): full prologue {prologue['full_prologue_us']:.1f} us, build_scene "
+          f"{prologue['build_scene_us']:.1f} us | {card}", flush=True)
+    seconds = time.perf_counter() - t0
+    print(f"tools: phase 9 took {seconds:.1f} s", flush=True)
+    out = {"configs": results, "capture": capture, "binning_scaling": curve,
+           "prologue": prologue, "startup": starts, "seconds": seconds}
+    return out, k1_row, {"9 configs": config_launches, "9 configs row 8 frame": row8_frame,
+                         "9 capture": capture_launches}
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean device milliseconds of fn() over `reps` back-to-back calls as
     the host issues them (CUDA events; the host's launch gaps included)."""
@@ -790,14 +993,7 @@ def main() -> int:
                           main_launches)
     results += ui_rows(rc, ui_c, main_launches)
     for row in results:
-        dense = row["pairs"] * cfg_b.tile_h * cfg_b.tile_w * row["n_s"]
-        print(f"kernel: {row['name']}: exact vs plain (max_abs_err {row['max_abs_err']}) "
-              f"| {row['ms']:.3f} ms (queued {row['ms_queued']:.3f}) vs plain "
-              f"{row['plain_ms']:.1f} ms | bound "
-              f"{row['bound_ms']:.4f} ms ({row['bound_by']}; dense tests "
-              f"{row['dense_ms']:.3f} ms), tests_kept {row['tests_kept']:.4f} | "
-              f"{row['pairs']} bin pairs, {dense / row['ms'] / 1e6:.1f} G dense "
-              f"(pair, sample) tests/s | {card}", flush=True)
+        print_kernel_row(row, card)
 
     # -- 5. goldens on the card -------------------------------------------
     golden_checks(dev)
@@ -838,13 +1034,25 @@ def main() -> int:
 
     # -- 8. the multi-frame path: flythrough through one CUDA graph --------
     frames = frames_checks(dev, rb, sc_b, card)
+    del ra, rb, rc
+    torch.cuda.empty_cache()
 
+    # -- 9. the config matrix and the frame tools -------------------------
+    tools, k1_row8, tool_launches = tools_checks(dev, card)
+    results.append(k1_row8)
+    per_frame["8"] = tool_launches.pop("9 configs row 8 frame")
+
+    phases = {"3 main path": main_launches, "7 run_loop": assets["run_loop_launches"],
+              "8 flythrough": frames["launches"], **tool_launches}
     for row in results:
-        row["launches_per_frame"] = per_frame[row.pop("scene")][row.pop("counter")]
+        counter = row.pop("counter")
+        row["launches_per_frame"] = per_frame[row.pop("scene")][counter]
+        row["launches_by_phase"] = {name: n[counter] for name, n in phases.items()}
         del row["pairs"], row["n_s"], row["dense_ms"]
     print(json.dumps({"frame_ms": frame_ms, "card": card}))
     print(json.dumps({"assets": assets, "card": card}))
     print(json.dumps({"frames": frames, "card": card}))
+    print(json.dumps({"tools": tools, "card": card}))
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -34,7 +34,7 @@ from renderer_tpu_torch.materials.registry import (
     TextureKind,
     TextureWrap,
 )
-from renderer_tpu_torch.assets.gltf_loader import Gltf
+from renderer_tpu_torch.assets.gltf_loader import Gltf, load_gltf
 from renderer_tpu_torch.scene.scene import Scene
 
 __all__ = [
@@ -43,8 +43,10 @@ __all__ = [
     "Profiler", "Renderer", "Mesh", "VertexLibrary", "VertexLibraryBuilder",
     "VertexLibraryMeasurer", "AlphaMode", "Material", "MaterialRegistry",
     "PbrMaterialParameters", "Texture", "TextureKind", "TextureWrap", "Scene",
-    "Gltf",
+    "Gltf", "load_gltf",
     # device memory accounting — the reference's Bytes printer + vram
     # getters (lib.rs:75-95,103-128)
     "format_bytes", "memory_usage", "log_memory_usage",
 ]
+
+__version__ = "0.1.0"

@@ -355,14 +355,13 @@ def patch_wall_scene(n_patches: int = 48, grid: int = 56):
     return registry, scene
 
 
-def stress_scene(n_meshes: int = 32, tris_per_mesh: int = 32768):
-    """The stress field (proxy.make_stress_field) seen from above at an
-    angle, as the JAX package's stress-1M-tris-1080p row frames it."""
-    registry = MaterialRegistry()
-    builder = VertexLibraryBuilder()
+def stress_field_scene(builder, registry, n_meshes: int = 32,
+                       tris_per_mesh: int = 32768) -> Scene:
+    """The stress field (proxy.make_stress_field, added to `builder`) in a
+    new Scene, seen from above at an angle, as the JAX package's
+    stress-1M-tris-1080p and stress-4Mpairs-1080p rows frame it."""
     meshes, material = proxy.make_stress_field(
         builder, registry, n_meshes=n_meshes, tris_per_mesh=tris_per_mesh)
-    builder.build()
     scene = Scene(world_space=camera_mod.GLTF)
     eye = np.array([0.0, 14.0, 26.0], np.float32)
     pos, orient = math3d.look_at(eye, np.array([0.0, 0.0, 0.0], np.float32),
@@ -370,4 +369,13 @@ def stress_scene(n_meshes: int = 32, tris_per_mesh: int = 32768):
     scene.camera.position, scene.camera.orientation = pos, orient
     for m in meshes:
         scene.queue_mesh(m, material, None, math3d.IDENTITY)
+    return scene
+
+
+def stress_scene(n_meshes: int = 32, tris_per_mesh: int = 32768):
+    """The stress field of stress_field_scene on a library of its own."""
+    registry = MaterialRegistry()
+    builder = VertexLibraryBuilder()
+    scene = stress_field_scene(builder, registry, n_meshes, tris_per_mesh)
+    builder.build()
     return registry, scene

@@ -1,17 +1,17 @@
 """PNG decode and encode on zlib + numpy (no Pillow: the card's machine has
 none).
 
-The decoder takes what glTF files embed and what the apps write: colour
-types 0 (grey), 2 (RGB), 3 (palette, with tRNS), 4 (grey + alpha) and 6
-(RGBA) at bit depth 8, and 16-bit samples by their high byte. Its output is
-what Pillow's `Image.open(...).convert("RGBA")` gives (tests/
-test_torch_sandbox.py holds the two equal over every colour type, depth and
-filter), Pillow's quirks included: 16-bit grey is clipped to 255 rather
-than taking its high byte, and a tRNS colour key of a 16-bit image applies
-as Pillow applies it (see decode_png).
-Interlaced images and bit depths below 8 raise GltfLoadingError.
+The decoder takes every image the PNG specification allows: colour types 0
+(grey), 2 (RGB), 3 (palette, with tRNS), 4 (grey + alpha) and 6 (RGBA), bit
+depths 1, 2 and 4 (grey and palette), 8 and 16 (16-bit samples by their
+high byte), plain or Adam7-interlaced. Its output is what Pillow's
+`Image.open(...).convert("RGBA")` gives (tests/test_torch_sandbox.py holds
+the two equal over every colour type, depth, filter and interlace choice),
+Pillow's quirks included: 16-bit grey is clipped to 255 rather than taking
+its high byte, and a tRNS colour key applies as Pillow applies it (see
+decode_png).
 
-The encoder writes RGB or RGBA u8 images.
+The encoder writes grey, RGB or RGBA u8 images.
 """
 
 from __future__ import annotations
@@ -47,8 +47,9 @@ def _chunks(data: bytes):
     _fail("PNG truncated: no IEND chunk")
 
 
-def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
-    """Undo the per-row filters (PNG spec §9.2) → [height, stride] u8.
+def _unfilter(raw, height: int, stride: int, bpp: int) -> np.ndarray:
+    """Undo the per-row filters (PNG spec §9.2) of the first `height` rows
+    of `raw` → [height, stride] u8.
     None and Up are row-wide; Sub is a running sum; Average and Paeth
     depend on the texel just decoded and run byte by byte."""
     if len(raw) < height * (stride + 1):
@@ -88,6 +89,46 @@ def _unfilter(raw: bytes, height: int, stride: int, bpp: int) -> np.ndarray:
     return out
 
 
+# Adam7's seven passes: (x0, y0, dx, dy) of the pixels each one carries
+_ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+          (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _samples(raw, width: int, height: int, nch: int, depth: int) -> np.ndarray:
+    """Unfilter and unpack one (sub-)image at the start of `raw` →
+    [height, width, nch] samples (u8, or >u2 at depth 16)."""
+    stride = (width * nch * depth + 7) // 8
+    rows = _unfilter(raw, height, stride, max(1, nch * depth // 8))
+    if depth == 16:
+        return rows.view(">u2").reshape(height, width, nch)
+    if depth == 8:
+        return rows.reshape(height, width, nch)
+    # 1, 2 or 4 bits a sample (one channel), the leftmost in the high bits
+    per = 8 // depth
+    shifts = depth * np.arange(per - 1, -1, -1, dtype=np.uint8)
+    vals = (rows[:, :, None] >> shifts) & np.uint8((1 << depth) - 1)
+    return vals.reshape(height, stride * per)[:, :width, None]
+
+
+def _image_samples(raw: bytes, width: int, height: int, nch: int, depth: int,
+                   interlace: int) -> np.ndarray:
+    """All samples of the image, [height, width, nch]: plain, or gathered
+    from its seven Adam7 passes (each filtered as an image of its own)."""
+    if not interlace:
+        return _samples(raw, width, height, nch, depth)
+    view = memoryview(raw)
+    full = np.zeros((height, width, nch), ">u2" if depth == 16 else np.uint8)
+    off = 0
+    for x0, y0, dx, dy in _ADAM7:
+        pw = max(0, (width - x0 + dx - 1) // dx)
+        ph = max(0, (height - y0 + dy - 1) // dy)
+        if pw == 0 or ph == 0:
+            continue  # an empty pass has no scanlines at all
+        full[y0::dy, x0::dx] = _samples(view[off:], pw, ph, nch, depth)
+        off += ph * ((pw * nch * depth + 7) // 8 + 1)
+    return full
+
+
 def decode_png(data: bytes) -> np.ndarray:
     """PNG bytes → [h, w, 4] u8 RGBA (as Pillow's convert("RGBA") gives
     it)."""
@@ -107,24 +148,28 @@ def decode_png(data: bytes) -> np.ndarray:
     width, height, depth, ctype, _comp, _filt, interlace = header
     if ctype not in _CHANNELS:
         _fail(f"PNG colour type {ctype} is not a valid colour type")
-    if interlace:
-        _fail(f"interlaced PNG (colour type {ctype}, bit depth {depth}) "
-              "is not supported")
-    if depth not in (8, 16) or (ctype == 3 and depth != 8):
-        _fail(f"PNG colour type {ctype} at bit depth {depth} is not "
-              "supported (8, or 16 for colour types 0, 2, 4 and 6)")
+    if interlace not in (0, 1):
+        _fail(f"PNG interlace method {interlace} is not 0 or 1")
+    allowed = {0: (1, 2, 4, 8, 16), 3: (1, 2, 4, 8)}.get(ctype, (8, 16))
+    if depth not in allowed:
+        _fail(f"PNG colour type {ctype} at bit depth {depth} is not valid "
+              f"(bit depths {allowed})")
     nch = _CHANNELS[ctype]
-    bpp = nch * depth // 8
-    raw = _unfilter(zlib.decompress(b"".join(idat)), height, width * bpp, bpp)
+    try:
+        raw = zlib.decompress(b"".join(idat))
+    except zlib.error as e:
+        _fail(f"PNG image data is not a complete zlib stream ({e})")
+    full = _image_samples(raw, width, height, nch, depth, interlace)
     if depth == 16:
-        full = raw.view(">u2").reshape(height, width, nch)
         px = (full >> 8).astype(np.uint8)  # the high byte
         if ctype == 0:
             # Pillow opens 16-bit grey as "I;16" and its RGBA conversion
             # clips the 16-bit value to 255 rather than taking the high byte
             px = np.minimum(full, 255).astype(np.uint8)
+    elif depth < 8 and ctype == 0:
+        # grey below 8 bits, scaled to the u8 range (1 bit: 0 or 255)
+        px = full * np.uint8(255 // ((1 << depth) - 1))
     else:
-        full = raw.reshape(height, width, nch)
         px = full
     out = np.empty((height, width, 4), np.uint8)
     out[..., 3] = 255
@@ -150,13 +195,15 @@ def decode_png(data: bytes) -> np.ndarray:
         out[..., 3] = alpha[idx]
     if trns is not None and ctype in (0, 2):
         # one transparent colour, as Pillow applies it: compared at 8 bits;
-        # 16-bit grey compares its clipped value with the key's low byte,
-        # and 16-bit RGB ignores the key
+        # 1-bit grey scales its key with its samples (0 or 255); 2-, 4- and
+        # 16-bit grey compare their scaled or clipped value with the key's
+        # low byte; 16-bit RGB ignores the key
         key = np.frombuffer(trns, ">u2")[:nch]
         if depth == 8:
             out[..., 3] = np.where((full == key).all(axis=-1), 0, out[..., 3])
         elif ctype == 0:
-            out[..., 3] = np.where(px[..., 0] == (key[0] & 0xFF), 0, out[..., 3])
+            k = (255 if key[0] else 0) if depth == 1 else key[0] & 0xFF
+            out[..., 3] = np.where(px[..., 0] == k, 0, out[..., 3])
     return out
 
 
@@ -196,18 +243,21 @@ def _chunk(kind: bytes, body: bytes) -> bytes:
 
 
 def encode_png(img: np.ndarray, filter_type: int = 1) -> bytes:
-    """An [h, w, 3] (RGB) or [h, w, 4] (RGBA) u8 image → PNG bytes."""
+    """An [h, w] (grey), [h, w, 3] (RGB) or [h, w, 4] (RGBA) u8 image → PNG
+    bytes."""
     img = np.ascontiguousarray(img)
-    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] not in (3, 4):
-        raise ValueError(f"encode_png takes [h, w, 3|4] u8, got "
+    if img.ndim == 2:
+        img = img[..., None]
+    if img.dtype != np.uint8 or img.ndim != 3 or img.shape[2] not in (1, 3, 4):
+        raise ValueError(f"encode_png takes [h, w] or [h, w, 3|4] u8, got "
                          f"{img.shape} {img.dtype}")
     h, w, c = img.shape
-    ihdr = struct.pack(">IIBBBBB", w, h, 8, 2 if c == 3 else 6, 0, 0, 0)
+    ihdr = struct.pack(">IIBBBBB", w, h, 8, {1: 0, 3: 2, 4: 6}[c], 0, 0, 0)
     return (SIGNATURE + _chunk(b"IHDR", ihdr)
             + _chunk(b"IDAT", zlib.compress(_filter_rows(img, filter_type), 6))
             + _chunk(b"IEND", b""))
 
 
 def write_png(path, img: np.ndarray) -> None:
-    """Save an RGB/RGBA u8 image as a PNG file."""
+    """Save a grey, RGB or RGBA u8 image as a PNG file."""
     Path(path).write_bytes(encode_png(img))

@@ -11,9 +11,10 @@ for the lost vertex data. Triangle count, draw count, material/texture
 binding pattern and spatial distribution match the real scene; only the
 surface shapes differ.
 
-Also: the >1M-triangle stress field, and a procedural skinned character
-(for the missing Smol Ame geometry) so the skeletal-animation path runs
-with real joint palettes and keyframes.
+Also: the >1M-triangle stress field, the screen-spanning overdraw stack
+(the pair-count stress axis), a morph-target sheet, and a procedural
+skinned character (for the missing Smol Ame geometry) so the
+skeletal-animation path runs with real joint palettes and keyframes.
 """
 
 from __future__ import annotations
@@ -152,6 +153,42 @@ def load_gltf_proxy(
             primitives.append((lib_mesh, out.materials[prim["material"]]))
         out.meshes.append(primitives)
     return out
+
+
+def make_overdraw_stack(
+    builder: VertexLibraryBuilder,
+    registry,
+    extent: float = 40.0,
+    y0: float = 3.0,
+    n_layers: int = 8000,
+    dy: float = 0.002,
+):
+    """A stack of `n_layers` screen-spanning quads: the PAIR-scale stress
+    axis (VERDICT r2 #1). Each quad's two triangles cover most of the tile
+    grid, so (tile, triangle) pairs ≈ n_layers · 2 · n_tiles — millions of
+    pairs from a few thousand triangles, exercising the binning expansion /
+    sort / scatter and the raster kernels' bin streams at a scale the
+    triangle-count axis (make_stress_field) cannot reach cheaply. Returns
+    (mesh, material, transforms [n_layers, 4, 4] for queue_instanced)."""
+    h = extent / 2
+    positions = np.array(
+        [[-h, 0, -h], [h, 0, -h], [h, 0, h], [-h, 0, h]], np.float32
+    )
+    normals = np.tile(np.array([0, 1, 0], np.float32), (4, 1))
+    uvs = np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float32)
+    tangents = np.zeros((4, 4), np.float32)
+    tangents[:, 0] = 1.0
+    tangents[:, 3] = 1.0
+    # CCW from above (GLTF world, camera above looking down)
+    indices = np.array([0, 2, 1, 0, 3, 2], np.uint32)
+    mesh = builder.add_mesh(positions, uvs, normals, tangents, indices)
+    material = registry.create_material(
+        "overdraw-stack",
+        PbrMaterialParameters(base_color_factor=(0.6, 0.65, 0.7, 1.0)),
+    )
+    transforms = np.tile(np.eye(4, dtype=np.float32), (n_layers, 1, 1))
+    transforms[:, 1, 3] = y0 + dy * np.arange(n_layers, dtype=np.float32)
+    return mesh, material, transforms
 
 
 def make_stress_field(
@@ -358,3 +395,71 @@ def make_skinned_character(
         gltf_loader.Animation("bob", 0.0, float(bob_duration), bob_channels),
     ]
     return out
+
+
+def make_morph_sheet(
+    builder: VertexLibraryBuilder,
+    registry,
+    n: int = 48,
+    extent: float = 2.0,
+):
+    """A subdivided sheet with two morph targets — the demo workload for
+    blend-shape animation (a capability the reference never implemented;
+    its weights evaluation is a todo!(), gltf/src/lib.rs:229):
+
+    - target 0: a standing wave (y = a·sin(2πx/e)·cos(2πz/e)) with the
+      matching analytic normal deltas,
+    - target 1: a radial gaussian bulge, position deltas only (the vertex
+      stage renormalizes n + Σ w·Δn, so a missing Δn tilts nothing).
+
+    Returns (mesh, material); animate with
+    scene.queue_mesh(..., morph_weights=[w0(t), w1(t)]).
+    """
+    h = extent / 2.0
+    xs = np.linspace(-h, h, n + 1, dtype=np.float32)
+    gx, gz = np.meshgrid(xs, xs, indexing="ij")
+    positions = np.stack([gx, np.zeros_like(gx), gz], -1).reshape(-1, 3)
+    uvs = np.stack(
+        [(gx + h) / extent, (gz + h) / extent], -1
+    ).reshape(-1, 2).astype(np.float32)
+    normals = np.tile(np.array([0, 1, 0], np.float32), (positions.shape[0], 1))
+    tangents = np.zeros((positions.shape[0], 4), np.float32)
+    tangents[:, 0] = 1.0
+    tangents[:, 3] = 1.0
+
+    # two CCW-from-above triangles per cell (the overdraw-stack winding)
+    ii = np.arange(n, dtype=np.uint32)
+    a = (ii[:, None] * (n + 1) + ii[None, :]).reshape(-1)  # (i, j)
+    b = a + (n + 1)  # (i+1, j)
+    c = b + 1        # (i+1, j+1)
+    d = a + 1        # (i, j+1)
+    indices = np.stack([a, c, b, a, d, c], -1).reshape(-1).astype(np.uint32)
+
+    x, z = positions[:, 0], positions[:, 2]
+    k = 2.0 * np.pi / extent
+    amp = 0.35
+    wave_y = amp * np.sin(k * x) * np.cos(k * z)
+    d0 = np.zeros_like(positions)
+    d0[:, 1] = wave_y
+    # normal of y = f(x, z) is normalize(-df/dx, 1, -df/dz); the delta is
+    # (normal - base) since the stage computes normalize(n + Σ w·Δn)
+    dfdx = amp * k * np.cos(k * x) * np.cos(k * z)
+    dfdz = -amp * k * np.sin(k * x) * np.sin(k * z)
+    wn = np.stack([-dfdx, np.ones_like(dfdx), -dfdz], -1)
+    wn /= np.linalg.norm(wn, axis=-1, keepdims=True)
+    dn0 = (wn - normals).astype(np.float32)
+
+    r2 = (x * x + z * z) / (h * h)
+    d1 = np.zeros_like(positions)
+    d1[:, 1] = 0.5 * np.exp(-4.0 * r2)
+
+    mesh = builder.add_mesh(
+        positions, uvs, normals, tangents, indices,
+        morph_targets=[(d0.astype(np.float32), dn0),
+                       (d1.astype(np.float32), None)],
+    )
+    material = registry.create_material(
+        "morph-sheet",
+        PbrMaterialParameters(base_color_factor=(0.85, 0.55, 0.25, 1.0)),
+    )
+    return mesh, material

@@ -125,6 +125,12 @@ class Renderer:
 
     # -- frame stats / overflow recovery --------------------------------------
 
+    @property
+    def last_stats(self):
+        """Device stats tensor of the most recent frame, with no host sync
+        (read it after a timing loop; see pipeline.STAT_NAMES)."""
+        return self._last_stats
+
     def frame_stats(self) -> dict[str, int] | None:
         """Stats of the most recent frame (syncs on it). See
         pipeline.STAT_NAMES."""

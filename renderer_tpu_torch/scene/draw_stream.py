@@ -48,6 +48,23 @@ def _bucket_quarter_pow2(x: int, quantum: int = 256) -> int:
     return p
 
 
+def sorted_draws(scene: Scene) -> list[DrawParameters]:
+    """Materialized sorted draw list — introspection / geometry building only
+    (the per-frame path uses scene.frame_order() + build_frame_arrays)."""
+    order, _keys, _gk = scene.frame_order()
+    return scene.materialize(order)
+
+
+def geometry_key(draws: list[DrawParameters]) -> tuple:
+    """Geometry arrays depend only on this; frames that queue the same meshes
+    in the same order (the common case) reuse the cached device arrays."""
+    return tuple(
+        (d.mesh.library.library_id, d.mesh.mesh_id, d.mesh.skinned,
+         d.material.alpha_mode)
+        for d in draws
+    )
+
+
 @dataclass
 class GeometryStream:
     """Host-side packed geometry for one draw list (numpy; device_put by the
@@ -275,6 +292,45 @@ def frame_view(scene: Scene) -> FrameView:
     scene._fv_cache = (n, scene._any_morph, scene._keys[:n].copy(),
                        order, sorted_keys, geom_key, pdf, pdi, pmw)
     return FrameView(order, sorted_keys, geom_key, pdf, pdi, pmw)
+
+
+def build_frame_arrays(scene: Scene) -> dict[str, np.ndarray]:
+    """Per-frame arrays as a dict of views over the packed FrameView
+    (introspection/tests; the renderer consumes FrameView directly). Normal
+    matrices are not here — they are derived from the transforms on device
+    (see unpack_frame)."""
+    fv = frame_view(scene)
+    cap = fv.pdf.shape[0]
+    return {
+        "transforms": fv.pdf.reshape(cap, 3, 4),
+        "material_id": fv.pdi[:, 0],
+        "joints_offset": fv.pdi[:, 1],
+        "skinned": fv.pdi[:, 2],
+        "debug_id": fv.pdi[:, 3],
+        "joint_palette": scene.joint_palette[:, :3, :],  # [J, 3, 4]
+    }
+
+
+def pack_frame_arrays(fv: FrameView, joint_palette: np.ndarray,
+                      proj_view: np.ndarray,
+                      counts: tuple[int, int, int, int]) -> dict:
+    """The per-frame state as separate arrays (introspection/tests; the
+    renderer uploads it as the one blob of pack_frame_blob, the analog of
+    the reference writing all temp uniforms into ONE per-frame arena
+    buffer, renderer.rs:258-302):
+      pdf    f32 [Dc, 12]  : sorted 3x4 transforms
+      pdi    i32 [Dc, 4]   : material_id, joints_offset, skinned, debug_id
+      palette f32 [J, 3, 4]
+      proj_view f32 [4, 4]
+      counts i32 [4]       : num_tris, n_opaque, n_masked, debug_mode
+    """
+    return {
+        "pdf": fv.pdf,
+        "pdi": fv.pdi,
+        "joint_palette": joint_palette[:, :3, :],
+        "proj_view": np.asarray(proj_view, np.float32),
+        "counts": np.asarray(counts, np.int32),
+    }
 
 
 def pack_frame_blob(fv: FrameView, joint_palette: np.ndarray,

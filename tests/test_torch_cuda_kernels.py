@@ -285,3 +285,31 @@ def test_stage_timings_on_the_card(cuda, paced):
     timings = stats.device_stage_timings(r, scene, iters=2, paced=paced)
     assert len(timings) == 10 and "FULL FRAME (fused, msaa4)" in timings
     assert all(v > 0.0 for v in timings.values()), timings
+
+
+@pytest.mark.parametrize("captured", [False, True])
+def test_degenerate_triangles_are_invalid_on_the_card(cuda, captured):
+    """tests/torch_parity.degenerate_triangles on the card: every point and
+    collinear triangle leaves setup invalid (its column all zero) and the
+    controls valid, eager and replayed from a captured CUDA graph, and the
+    card's setup equals the CPU's bit for bit."""
+    from renderer_tpu_torch.raster import pipeline
+    from tests.torch_parity import degenerate_triangles
+
+    clip, tri_v, n, w, h, degenerate, control = degenerate_triangles(cuda)
+
+    def run():
+        return setup.triangle_setup(clip, tri_v, n, w, h, bbox_pad=0.5)
+
+    if captured:
+        graph = pipeline.CapturedGraph(run, cuda)
+        graph.out.zero_()
+        graph.replay()
+        td = graph.out
+    else:
+        td = run()
+    td = td.cpu()
+    assert torch.equal(td[:, degenerate], torch.zeros_like(td[:, degenerate]))
+    assert td[setup.VALID_ROW, control].tolist() == [1.0, 1.0]
+    cpu = setup.triangle_setup(clip.cpu(), tri_v.cpu(), n, w, h, bbox_pad=0.5)
+    assert _bits_equal(td, cpu)

@@ -91,12 +91,17 @@ def test_lit_batch_with_all_alpha_classes_matches_jax():
     the port's render_frames_device against the JAX package's frame of
     each scene — stats rows exactly, images at the golden tolerance.
 
-    The reference is JAX's render_frame, which its render_frames_scan
-    defines the batch as (lax.scan over the single-frame pipeline). JAX's
-    own batch of this scene, on the CPU with Pallas in interpret mode,
-    departs from that definition: its total_pairs and total_rows grow and
-    one primitive fills a screen rectangle, on ~17% of pixels (ROADMAP.md
-    queue 3), so it is not the comparison here."""
+    The reference is JAX's render_frame, which the Renderer composes
+    eagerly on the CPU (op by op). JAX's own batch of this scene is the
+    jitted frame, and under jit XLA contracts the cross products of
+    setup.cross (renderer_tpu/raster/setup.py:84-89) into FMAs: 16 of the
+    scene's zero-index padding triangles (points, column 792 the first)
+    get edge coefficients of 1e-6 to 1e-5 instead of 0, pass det > 0 and
+    fill a screen rectangle, so its total_pairs and total_rows grow and
+    ~17% of pixels move. The scan is not the cause: a jitted single frame
+    gives the same. So the jitted batch is not the comparison here; the
+    port rejects those triangles as the eager reference does
+    (tests/test_torch_stages.py::test_degenerate_triangles_are_invalid)."""
     registry, scene, cfg = torch_parity.build_scene("renderer_tpu_torch", "sandbox-static")
     r = trt.Renderer(registry, replace(cfg, msaa_samples=1), overflow_policy="off",
                      device="cpu")

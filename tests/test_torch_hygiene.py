@@ -26,7 +26,13 @@ def test_every_module_imports_without_jax():
             "renderer_tpu_torch.materials.bc7",
             "renderer_tpu_torch.materials.atlas_device",
             "renderer_tpu_torch.engine.stats",
-            "renderer_tpu_torch.tools.timings_report"} <= set(mods)
+            "renderer_tpu_torch.tools.timings_report",
+            "renderer_tpu_torch.apps.configs", "renderer_tpu_torch.tools.stress_run",
+            "renderer_tpu_torch.tools.flythrough_run",
+            "renderer_tpu_torch.tools.frame_capture",
+            "renderer_tpu_torch.tools.binning_scaling",
+            "renderer_tpu_torch.tools.prologue_probe",
+            "renderer_tpu_torch.tools.startup_probe"} <= set(mods)
     code = (
         "import sys\n"
         "sys.modules['jax'] = None\n"

@@ -215,19 +215,46 @@ def test_sandbox_proxy_path_matches_jax(tmp_path, monkeypatch):
 # -- PNG codec ---------------------------------------------------------------
 
 
-def raw_png(samples, ctype, depth, ftype, palette=None, trns=None) -> bytes:
-    """A PNG of [h, w, channels] samples at any colour type and bit depth
-    ≥ 8, every row filtered with `ftype`."""
+# Adam7's passes, written out again here so the encoder is the test's own
+ADAM7 = ((0, 0, 8, 8), (4, 0, 8, 8), (0, 4, 4, 8), (2, 0, 4, 4),
+         (0, 2, 2, 4), (1, 0, 2, 2), (0, 1, 1, 2))
+
+
+def _scanlines(samples, depth, ftype) -> bytes:
+    """The filtered scanlines of [h, w, channels] samples at `depth`:
+    below 8 bits packed leftmost-first into bytes, 16 bits big-endian."""
+    h, w, _ = samples.shape
+    if depth < 8:
+        per = 8 // depth
+        padded = np.zeros((h, -(-w // per) * per), np.uint8)
+        padded[:, :w] = samples[..., 0]
+        shifts = depth * np.arange(per - 1, -1, -1)
+        b = (padded.reshape(h, -1, per) << shifts).sum(axis=-1).astype(np.uint8)
+        b = b.reshape(h, -1, 1)  # filters work on whole bytes (bpp 1)
+    elif depth == 16:
+        b = samples.astype(">u2").view(np.uint8).reshape(h, w, -1)
+    else:
+        b = samples.astype(np.uint8)
+    return png._filter_rows(b, ftype)
+
+
+def raw_png(samples, ctype, depth, ftype, palette=None, trns=None,
+            interlace=False) -> bytes:
+    """A PNG of [h, w, channels] samples at any colour type and bit depth,
+    every row filtered with `ftype`, plain or Adam7-interlaced."""
     h, w, nch = samples.shape
-    b = (samples.astype(">u2").view(np.uint8) if depth == 16
-         else samples.astype(np.uint8)).reshape(h, w, -1)
-    ihdr = struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, 0)
+    if interlace:
+        data = b"".join(_scanlines(samples[y0::dy, x0::dx], depth, ftype)
+                        for x0, y0, dx, dy in ADAM7 if w > x0 and h > y0)
+    else:
+        data = _scanlines(samples, depth, ftype)
+    ihdr = struct.pack(">IIBBBBB", w, h, depth, ctype, 0, 0, int(interlace))
     out = png.SIGNATURE + png._chunk(b"IHDR", ihdr)
     if palette is not None:
         out += png._chunk(b"PLTE", palette.tobytes())
     if trns is not None:
         out += png._chunk(b"tRNS", trns)
-    return (out + png._chunk(b"IDAT", zlib.compress(png._filter_rows(b, ftype)))
+    return (out + png._chunk(b"IDAT", zlib.compress(data))
             + png._chunk(b"IEND", b""))
 
 
@@ -236,41 +263,85 @@ PNG_CASES = [(c, d, f, t) for c in (0, 2, 3, 4, 6) for d in ((8,) if c == 3 else
              for f in range(5) for t in ((False, True) if c in (0, 2, 3) else (False,))]
 
 
+def _png_vectors(ctype, depth, trns, seed, shape=(7, 9)):
+    """(samples, palette, tRNS body) of a random image: palette images
+    index 20 entries (fewer at low depth); a colour key repeats one pixel."""
+    rng = np.random.default_rng(seed)
+    nch = _CHANNELS[ctype]
+    n_pal = min(20, 1 << depth)
+    s = rng.integers(0, n_pal if ctype == 3 else 1 << depth, (*shape, nch))
+    pal = key = None
+    if ctype == 3:
+        pal = rng.integers(0, 256, (n_pal, 3), dtype=np.uint8)
+        key = bytes(rng.integers(0, 256, min(12, n_pal), dtype=np.uint8)) if trns else None
+    elif trns:
+        if depth < 8:
+            # a zero key for odd seeds: Pillow matches a 2- or 4-bit grey key
+            # against the scaled value, which only 0 keeps
+            s[0, 0] = s[0, 0] * (seed % 2 == 0)
+        s[-1, -1] = s[0, 0]
+        key = struct.pack(">" + "H" * nch, *(int(v) for v in s[0, 0]))
+    return s, pal, key
+
+
 @pytest.mark.parametrize("ctype,depth,ftype,trns", PNG_CASES)
 def test_png_decode_matches_pillow(ctype, depth, ftype, trns):
     from PIL import Image
 
-    rng = np.random.default_rng(ctype * 100 + depth * 10 + ftype)
-    nch = _CHANNELS[ctype]
-    s = rng.integers(0, 20 if ctype == 3 else 1 << depth, (7, 9, nch))
-    pal = key = None
-    if ctype == 3:
-        pal = rng.integers(0, 256, (20, 3), dtype=np.uint8)
-        key = bytes(rng.integers(0, 256, 12, dtype=np.uint8)) if trns else None
-    elif trns:
-        s[4, 5] = s[2, 3]
-        key = struct.pack(">" + "H" * nch, *(int(v) for v in s[2, 3]))
+    s, pal, key = _png_vectors(ctype, depth, trns, ctype * 100 + depth * 10 + ftype)
     data = raw_png(s, ctype, depth, ftype, pal, key)
     want = np.asarray(Image.open(io.BytesIO(data)).convert("RGBA"))
     np.testing.assert_array_equal(png.decode_png(data), want)
 
 
-@pytest.mark.parametrize("channels", [3, 4])
+# every colour type and bit depth the specification allows, plain and
+# Adam7-interlaced, each with and without a tRNS chunk where one may stand
+INTERLACE_CASES = [
+    (c, d, i, t) for c in (0, 2, 3, 4, 6)
+    for d in {0: (1, 2, 4, 8, 16), 3: (1, 2, 4, 8)}.get(c, (8, 16))
+    for i in (False, True) for t in ((False, True) if c in (0, 2, 3) else (False,))
+    if i or d < 8]
+
+
+@pytest.mark.parametrize("ctype,depth,interlace,trns", INTERLACE_CASES)
+def test_png_interlaced_and_low_depth_decode_matches_pillow(ctype, depth, interlace, trns):
+    """Sizes that leave some Adam7 passes empty (1×1, 3×2) or ragged
+    (13×11), every filter type on a larger image's passes."""
+    pytest.importorskip("PIL")
+    from PIL import Image
+
+    for k, (shape, ftype) in enumerate((((1, 1), 0), ((2, 3), 1), ((11, 13), 4),
+                                        ((17, 10), 3), ((9, 16), 2))):
+        s, pal, key = _png_vectors(ctype, depth, trns, ctype * 100 + depth * 10 + k,
+                                   shape)
+        data = raw_png(s, ctype, depth, ftype, pal, key, interlace=interlace)
+        want = np.asarray(Image.open(io.BytesIO(data)).convert("RGBA"))
+        np.testing.assert_array_equal(png.decode_png(data), want, err_msg=str(shape))
+
+
+@pytest.mark.parametrize("channels", [1, 3, 4])
 @pytest.mark.parametrize("ftype", range(5))
 def test_png_writer_round_trips(channels, ftype):
+    """channels 1: a 2-D grey image, written as colour type 0."""
     from PIL import Image
 
     img = np.random.default_rng(ftype).integers(0, 256, (11, 13, channels), dtype=np.uint8)
+    if channels == 1:
+        img = img[..., 0]
     data = png.encode_png(img, ftype)
     np.testing.assert_array_equal(np.asarray(Image.open(io.BytesIO(data))), img)
     back = png.decode_png(data)
-    np.testing.assert_array_equal(back[..., :channels], img)
-    if channels == 3:
+    if channels == 1:
+        np.testing.assert_array_equal(back[..., :3], np.repeat(img[..., None], 3, -1))
+    else:
+        np.testing.assert_array_equal(back[..., :channels], img)
+    if channels in (1, 3):
         assert (back[..., 3] == 255).all()
 
 
 @pytest.mark.parametrize("depth,ctype,interlace,match", [
-    (8, 6, 1, "interlaced PNG"), (4, 3, 0, "bit depth 4"), (1, 0, 0, "bit depth 1"),
+    (8, 6, 2, "interlace method 2"), (4, 2, 0, "colour type 2 at bit depth 4"),
+    (1, 4, 0, "colour type 4 at bit depth 1"),
     (16, 3, 0, "colour type 3 at bit depth 16")])
 def test_png_refuses_what_it_cannot_decode(depth, ctype, interlace, match):
     from renderer_tpu_torch.assets.gltf_loader import GltfLoadingError

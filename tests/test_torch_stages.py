@@ -39,7 +39,7 @@ from renderer_tpu_torch.raster import shade as tshade
 from renderer_tpu_torch.raster import vertex_stage as tvs
 from renderer_tpu_torch.raster.pipeline import STANDARD_SAMPLE_POSITIONS
 from renderer_tpu_torch.scene import draw_stream as tds
-from tests.torch_parity import SCENES, host_inputs
+from tests.torch_parity import SCENES, degenerate_triangles, host_inputs
 
 
 def to_torch(d):
@@ -255,3 +255,24 @@ def test_shade(frame_case, srgb_per_tap, aniso):
     ta, tco = tshade.base_alpha(tit, c["tframe"], tmats, *args)
     assert np.abs(np.asarray(ja) - ta.numpy()).max() <= 2.0**-12
     assert np.array_equal(np.asarray(jco), tco.numpy())
+
+
+@pytest.mark.parametrize("bbox_pad", [0.0, 0.5])
+def test_degenerate_triangles_are_invalid(bbox_pad):
+    """Point and collinear triangles (tests/torch_parity.degenerate_triangles:
+    the sandbox scene's 48 zero-index padding triangles, column 792 among
+    them, and hand-made ones) leave triangle_setup invalid, their columns
+    all zero, so no stage can rasterize them; the valid controls stay
+    valid. The JAX package's eager setup agrees on the valid row. (Its
+    jitted frame does not: there XLA contracts setup.cross into FMAs and
+    16 of the point triangles pass det > 0, ROADMAP queue 3.)"""
+    clip, tri_v, n, w, h, degenerate, control = degenerate_triangles("cpu")
+    assert len(degenerate) == 48 + 7 and 792 in degenerate
+    assert tri_v[792].tolist() == [400, 400, 400]
+    td = tsetup.triangle_setup(clip, tri_v, n, w, h, bbox_pad=bbox_pad)
+    assert torch.equal(td[:, degenerate], torch.zeros_like(td[:, degenerate]))
+    assert td[tsetup.VALID_ROW, control].tolist() == [1.0, 1.0]
+    jt = jsetup.triangle_setup(jnp.asarray(clip.numpy()), jnp.asarray(tri_v.numpy()),
+                               n, w, h, bbox_pad=bbox_pad)
+    np.testing.assert_array_equal(np.asarray(jt)[tsetup.VALID_ROW],
+                                  td[tsetup.VALID_ROW].numpy())

@@ -156,3 +156,59 @@ def host_inputs(name: str, debug_mode: int = 0):
     )
     return geom, mats, np.asarray(blob), static, config
 
+
+
+def degenerate_triangles(device):
+    """Point and collinear triangles through the port's vertex stage, as
+    triangle_setup sees them: (clip [V, 4], tri_v [T, 3] i32, num_tris,
+    width, height, degenerate columns, control columns).
+
+    Columns: the zero index padding of proxy._patch_geometry in the
+    "sandbox-static" scene at W×H (48 point triangles, 8 a patch; column
+    792 has vertices [400, 400, 400], and 16 of them turn valid in the JAX
+    package's jitted frame, whose XLA contracts setup's cross products into
+    FMAs); then, appended, hand-made triangles whose
+    screen positions are exact in f32: a point, a repeated vertex, and
+    collinear triples (horizontal, vertical, diagonal, the diagonal at
+    w = 2 and reversed). The control columns are valid triangles of the
+    same vertices, so the test sees setup accept what it should."""
+    from renderer_tpu_torch import Renderer
+    from renderer_tpu_torch.raster import vertex_stage
+    from renderer_tpu_torch.scene import draw_stream
+
+    registry, scene, cfg = build_scene("renderer_tpu_torch", "sandbox-static")
+    r = Renderer(registry, cfg, overflow_policy="off", device=device)
+    fv = draw_stream.frame_view(scene)
+    gs, geom = r._geometry(scene, fv.order, fv.geom_key)
+    frame = draw_stream.unpack_frame(r._frame_arrays(scene, fv, gs),
+                                     morph_k=gs.morph_k, joint_cap=r._joint_cap(scene))
+    clip = vertex_stage.run_vertex_stage(geom, frame, gs.skin_start)["clip"]
+    tri_v = geom["tri_v"][: gs.num_tris]
+    live = tri_v.cpu().numpy()
+    points = np.flatnonzero((live[:, 0] == live[:, 1]) & (live[:, 1] == live[:, 2]))
+
+    # hand-made vertices at pixel (40 | 80 | 120, 24 | 48 | 72) of W×H
+    def v(x, y, w=1.0):
+        return [x * w, y * w, 0.5 * w, w]
+
+    made = np.array([
+        v(-0.5, 0.5), v(-0.5, 0.5), v(-0.5, 0.5),   # a point
+        v(-0.5, 0.5), v(-0.5, 0.5), v(0.5, -0.5),   # a repeated vertex
+        v(-0.5, 0.0), v(0.0, 0.0), v(0.5, 0.0),     # horizontal
+        v(0.0, -0.5), v(0.0, 0.0), v(0.0, 0.5),     # vertical
+        v(-0.5, -0.5), v(0.0, 0.0), v(0.5, 0.5),    # diagonal
+        v(-0.5, -0.5, 2.0), v(0.0, 0.0, 2.0), v(0.5, 0.5, 2.0),  # at w = 2
+        v(0.5, 0.5), v(0.0, 0.0), v(-0.5, -0.5),    # diagonal, reversed
+        v(-0.5, -0.5), v(-0.5, 0.5), v(0.5, -0.5),  # control, front-facing
+        v(0.5, -0.5), v(-0.5, 0.5), v(0.5, 0.5),    # control, front-facing
+    ], np.float32)
+    base = clip.shape[0]
+    clip = torch.cat([clip, torch.from_numpy(made).to(clip.device)])
+    n_made = made.shape[0] // 3
+    made_v = torch.arange(base, base + 3 * n_made, dtype=torch.int32,
+                          device=clip.device).reshape(n_made, 3)
+    tri_v = torch.cat([tri_v, made_v])
+    n = gs.num_tris
+    degenerate = np.concatenate([points, np.arange(n, n + n_made - 2)])
+    control = np.array([n + n_made - 2, n + n_made - 1])
+    return clip, tri_v, tri_v.shape[0], cfg.width, cfg.height, degenerate, control
