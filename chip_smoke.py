@@ -81,6 +81,25 @@ capacities 1M-8M; tools.prologue_probe, and tools.startup_probe run twice as
 a process of its own, cold (the kernels built into an empty directory) and
 warm.
 
+Phase 10 runs what the JAX package does beyond the frame: the host C++
+library (tools/native.py, built with g++ in phase 2; the run fails if it
+took the numpy path), the mini-sandbox's frame_view and queue_animated on
+the library against their numpy plain versions at NATIVE_TIMES (the draw
+stream bit-equal; the joint palettes within PALETTE_DRIFT, the reference's
+own last-bit drift between its library and its numpy path) and
+tools.prologue_probe on each; tools.make_ntex on a 1024×1024 PNG written by
+the port's encoder, as sRGB and as linear, each decoded on the card and on
+the CPU (bit-equal) with its PSNR held to tests/test_make_ntex.py's floor
+and the encode's Mblocks/s on the host; and the mesh (parallel/mesh.py):
+four ranks spawned on the one card over gloo with CUDA tensors, at
+1920×1024, render scene A's stress field at sp=2 (contiguous and
+interleaved) and the mini-sandbox at dp=2 × sp=2 (1×MSAA, game times
+MESH_TIMES), each against the single-device pipeline.render_frame on the
+same inputs: stats equal, pixel agreement ≥ 0.999 (the differing pixels
+are printed). The ranks' K1/K2 launches go into the kernels line as
+"10 mesh". Ranks sharing one card time nothing useful: the wall-clock is a
+smoke figure.
+
 Each phase prints one line; any failure raises (exit code ≠ 0). The line
 before the last is a JSON object with one entry per kernel (with its
 launches in each phase); the last line is {"ok": true, "device": {...}}.
@@ -89,6 +108,7 @@ Without CUDA the script fails before printing either.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import statistics
@@ -118,6 +138,7 @@ from renderer_tpu_torch.materials.atlas import build_atlas
 from renderer_tpu_torch.raster import (
     binning,
     layers,
+    pipeline,
     raster_kernel,
     setup,
     ui_stage,
@@ -125,10 +146,18 @@ from renderer_tpu_torch.raster import (
 )
 from renderer_tpu_torch.raster.pipeline import STANDARD_SAMPLE_POSITIONS, STAT_NAMES
 from renderer_tpu_torch.scene import draw_stream
-from renderer_tpu_torch.tools import binning_scaling, frame_capture, prologue_probe
+from renderer_tpu_torch.tools import (
+    binning_scaling,
+    frame_capture,
+    make_ntex,
+    native,
+    prologue_probe,
+)
 
 W, H = 1920, 1080
-FRAMES = {"A": 20, "B": 10, "C": 10}
+# phase 6's timed frames a scene (B and C, ~7-8 s a frame, are cut to 6 to
+# keep the script near half its time limit)
+FRAMES = {"A": 20, "B": 6, "C": 6}
 GOLDEN = "tests/golden/goldens.npz"
 SANDBOX_GOLDEN = "tests/golden/sandbox-golden.npz"
 BC7_VECTORS = "tests/golden/torch-bc7-vectors.npz"
@@ -154,6 +183,15 @@ JAX_DEMAND = {"stress-1M-tris-1080p": (607_000, 604_000),
               "stress-4Mpairs-1080p": (1_750_000, 759_000)}
 CAPTURE_W, CAPTURE_H = 1280, 720
 BINNING_REPS = 5
+MESH_W, MESH_H = 1920, 1024  # the JAX package's multichip shape (32 tile rows)
+MESH_TIMES = (0.4, 1.0)  # the mini-sandbox's dp=2 batch
+MESH_AGREEMENT = 0.999  # tests/test_multichip.py's floor
+NATIVE_TIMES = (0.4, 1.0, 1.02, 1.5)
+# the joint palettes' last-bit drift between the library and the numpy
+# path: one f32 ULP at the palettes' magnitude (< 2), as in the JAX package
+PALETTE_DRIFT = 2.0 ** -22
+NTEX_SIDE = 1024
+PSNR_FLOOR = 28.0  # tests/test_make_ntex.py's
 
 
 def scene_a():
@@ -885,6 +923,241 @@ def tools_checks(dev, card) -> tuple[dict, dict, dict]:
                          "9 capture": capture_launches}
 
 
+def alpha_classes(gs) -> dict:
+    """The alpha classes a geometry stream holds, as Renderer._dispatch
+    passes them."""
+    return {"has_masked": gs.num_masked_tris > 0,
+            "has_blended": gs.num_tris > gs.num_opaque_tris + gs.num_masked_tris}
+
+
+def mesh_scenes(dev, configs=None) -> dict:
+    """Phase 10's scenes at MESH_W×MESH_H on `dev`: name -> (renderer,
+    scenes, debug modes). A: the stress field (one frame); C: the
+    mini-sandbox at two game times (a dp=2 batch), at 1×MSAA. `configs`
+    (name -> RenderConfig) replaces the default configs."""
+    reg_a, sc_a = demo_scenes.stress_scene()
+    cfg_a = trt.RenderConfig(width=MESH_W, height=MESH_H, max_triangles=1 << 21,
+                             pair_capacity=1 << 20, row_capacity=1 << 20)
+    sandbox = demo_scenes.MiniSandbox()
+    cfg_c = trt.RenderConfig(width=MESH_W, height=MESH_H)
+    configs = configs or {"A": cfg_a, "C": cfg_c}
+    return {
+        "A": (trt.Renderer(reg_a, configs["A"], overflow_policy="off", device=dev),
+              [sc_a], (0,)),
+        "C": (trt.Renderer(sandbox.registry, configs["C"], overflow_policy="off",
+                           device=dev),
+              [sandbox.build_scene(t) for t in MESH_TIMES], (0, 0)),
+    }
+
+
+def mesh_rank(rank: int, configs: dict, device_type: str) -> dict:
+    """Phase 10's rank body, in a process of its own on the one card
+    (gloo, CUDA tensors): scene A at sp=2 (the world is two meshes of two
+    ranks), contiguous and interleaved, then the mini-sandbox at dp=2 ×
+    sp=2. Returns each run's image and stats (numpy), the seconds, and this
+    rank's kernel launches (counted around the mesh calls only)."""
+    from renderer_tpu_torch.parallel import mesh as pmesh
+    from renderer_tpu_torch.raster import pipeline
+
+    dev = torch.device(device_type)
+    mesh2 = pmesh.make_mesh(2)
+    mesh22 = pmesh.make_mesh_2d(2, 2)
+    scenes = mesh_scenes(dev, configs)
+    inputs = {name: pmesh.frame_inputs(r, scs[0], modes[0]) + (r.config,)
+              for name, (r, scs, modes) in scenes.items()}
+    r_c, scs_c, modes_c = scenes["C"]
+    blobs = torch.stack([pmesh.frame_inputs(r_c, sc, m)[2]["blob"]
+                         for sc, m in zip(scs_c, modes_c)])
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    before = pipeline.launch_counts()
+    t0 = time.perf_counter()
+    runs = {}
+    gs, geom, frame, mats, jc, cfg = inputs["A"]
+    for inter in (False, True):
+        runs[f"A sp2 {'interleaved' if inter else 'contiguous'}"] = pmesh.render_frame_sharded(
+            geom, frame, mats, config=cfg, mesh=mesh2, interleave=inter,
+            morph_k=gs.morph_k, joint_cap=jc, **alpha_classes(gs))
+    gs, geom, _frame, mats, jc, cfg = inputs["C"]
+    runs["C dp2xsp2"] = pmesh.render_frames_batched(
+        geom, {"blob": blobs}, mats, config=cfg, mesh=mesh22, morph_k=gs.morph_k,
+        joint_cap=jc, **alpha_classes(gs))
+    sync()
+    seconds = time.perf_counter() - t0
+    after = pipeline.launch_counts()
+    return {"runs": {k: (img.cpu().numpy(), st.cpu().numpy()) for k, (img, st) in runs.items()},
+            "seconds": seconds,
+            "launches": {k: after[k] - before[k] for k in after}}
+
+
+def native_checks(dev, card) -> dict:
+    """Phase 10, the host library: the mini-sandbox's frame_view and
+    queue_animated on the library and on their numpy plain versions, and
+    tools.prologue_probe on each."""
+    status = native.status()
+    if status["path"] != "native":
+        raise RuntimeError(f"native: the card's run took the numpy path: {status}")
+    sandbox = demo_scenes.MiniSandbox()
+    palette_drift = 0
+    for t in NATIVE_TIMES:
+        snaps = []
+        for ctx in (contextlib.nullcontext, native.plain):
+            sandbox.character.invalidate_caches()
+            with ctx():
+                scene = sandbox.build_scene(t)
+                fv = draw_stream.frame_view(scene)
+            n = scene.draw_count
+            snaps.append([scene._keys[:n].copy(), scene._transforms[:n].copy(),
+                          scene._material_id[:n].copy(), scene._joints_offset[:n].copy(),
+                          scene._skinned[:n].copy(), scene._morph_weights[:n].copy(),
+                          fv.order.astype(np.int64), fv.sorted_keys.copy(), fv.pdf.copy(),
+                          fv.pdi.copy(), scene.joint_palette.copy()])
+        (*lib_exact, lib_pal), (*plain_exact, plain_pal) = snaps
+        if not all(np.array_equal(a, b) for a, b in zip(lib_exact, plain_exact)):
+            raise RuntimeError(f"native: frame_view / queue_animated differ from the "
+                               f"numpy path at game time {t}")
+        # the joint palettes: the reference's own last-bit drift between its
+        # library and its numpy path (tests/test_torch_native.py pins it)
+        diff = np.abs(lib_pal - plain_pal).max()
+        if diff > PALETTE_DRIFT:
+            raise RuntimeError(f"native: joint palettes differ by {diff} at {t}")
+        palette_drift += int(np.count_nonzero(lib_pal != plain_pal))
+    probes = {"native": prologue_probe.main(reps=200, sandbox=demo_scenes.MiniSandbox(),
+                                            device=dev)}
+    with native.plain():
+        probes["numpy"] = prologue_probe.main(reps=200, sandbox=demo_scenes.MiniSandbox(),
+                                              device=dev)
+    if probes["native"]["host_library"] != "native" or probes["numpy"]["host_library"] != "numpy":
+        raise RuntimeError(f"native: prologue_probe paths {probes}")
+    print(f"native: {status['library']} built in {status['build_seconds']:.1f} s | "
+          f"mini-sandbox frame_view + queue_animated at {len(NATIVE_TIMES)} game times: "
+          f"draw stream bit-equal to the numpy path, {palette_drift} joint-palette floats "
+          f"of {len(NATIVE_TIMES) * lib_pal.size} off by <= {PALETTE_DRIFT} | "
+          f"prologue_probe median of 200: full prologue native "
+          f"{probes['native']['full_prologue_us']:.1f} us vs numpy "
+          f"{probes['numpy']['full_prologue_us']:.1f} us, build_scene "
+          f"{probes['native']['build_scene_us']:.1f} vs {probes['numpy']['build_scene_us']:.1f}"
+          f" us | {card}", flush=True)
+    return {"build_s": status["build_seconds"], "palette_floats_drifted": palette_drift,
+            "prologue": probes}
+
+
+def ntex_checks(dev, tmp: Path, card) -> dict:
+    """Phase 10, make_ntex: a NTEX_SIDE² synthetic PNG (written by the
+    port's encoder) compiled by the CLI as sRGB and as linear (two files,
+    by make-ntex's name rule), each decoded on the card and on the CPU
+    (bit-equal), PSNR of mip 0 against the source."""
+    rng = np.random.default_rng(7)
+    x, y = np.meshgrid(np.linspace(0, 255, NTEX_SIDE), np.linspace(0, 255, NTEX_SIDE))
+    img = np.stack([x, y, (x + y) / 2, np.full_like(x, 255)], -1)
+    img[..., :3] += rng.normal(0, 8, img[..., :3].shape)
+    img = np.clip(img, 0, 255).astype(np.uint8)
+    paths = [tmp / "synthetic.png", tmp / "synthetic_rough.png"]  # sRGB, linear
+    for path in paths:
+        png.write_png(path, img)
+    t0 = time.perf_counter()
+    if make_ntex.main(["--silent", *map(str, paths)]) != 0:
+        raise RuntimeError("make_ntex: the CLI failed")
+    seconds = time.perf_counter() - t0
+    blocks, psnr = 0, {}
+    for path, fmt in zip(paths, (ntex.VK_FORMAT_BC7_SRGB, ntex.VK_FORMAT_BC7_UNORM)):
+        data = path.with_suffix(".ntex").read_bytes()
+        header, on_card = ntex.decode(data, device=dev)
+        _, on_cpu = ntex.decode(data, device="cpu")
+        if header.vk_format != fmt or len(on_card) != len(on_cpu):
+            raise RuntimeError(f"make_ntex: {path.name}: format {header.vk_format}")
+        if not all(np.array_equal(a, b) for a, b in zip(on_card, on_cpu)):
+            raise RuntimeError(f"make_ntex: {path.name}: card and CPU BC7 decodes differ")
+        blocks += (len(data) - 1024) // 16
+        err = (on_card[0][..., :3].astype(np.float64) - img[..., :3]) ** 2
+        psnr[path.name] = float(10 * np.log10(255 ** 2 / max(err.mean(), 1e-9)))
+        if psnr[path.name] < PSNR_FLOOR:
+            raise RuntimeError(f"make_ntex: {path.name}: PSNR {psnr[path.name]:.2f} dB")
+    rate = blocks / seconds / 1e6
+    print(f"make_ntex: {NTEX_SIDE}x{NTEX_SIDE} PNG as sRGB and linear: {blocks} BC7 blocks "
+          f"(all mips) in {seconds:.1f} s = {rate:.4f} Mblocks/s on the host "
+          f"({os.cpu_count()} cores, threads over files and mips) | card decode = CPU "
+          f"decode, bit-equal | PSNR mip 0 {psnr} (floor {PSNR_FLOOR}) | {card}", flush=True)
+    return {"blocks": blocks, "encode_s": seconds, "mblocks_per_s": rate, "psnr_db": psnr}
+
+
+def mesh_checks(dev, tmp: Path, card) -> tuple[dict, dict]:
+    """Phase 10, the mesh: four ranks on the one card over gloo
+    (mesh_rank), each run against the single-device pipeline.render_frame
+    of the same scene on the same inputs. Returns the numbers and the
+    ranks' summed launches."""
+    from renderer_tpu_torch.parallel import mesh as pmesh
+
+    scenes = mesh_scenes(dev)
+    singles = {}
+    for name, (r, scs, modes) in scenes.items():
+        frames = []
+        for sc, m in zip(scs, modes):
+            gs, geom, frame, mats, jc = pmesh.frame_inputs(r, sc, m)
+            img, st = pipeline.render_frame(
+                geom, frame, mats, config=r.config, skin_start=gs.skin_start,
+                morph_k=gs.morph_k, joint_cap=jc, **alpha_classes(gs))
+            frames.append((img.cpu().numpy(), st.cpu().numpy()))
+        singles[name] = frames
+    configs = {name: r.config for name, (r, _s, _m) in scenes.items()}
+    del scenes
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    outs = pmesh.spawn(mesh_rank, 4, configs, dev.type, store_dir=tmp, threads=2,
+                       timeout=300)
+    wall = time.perf_counter() - t0
+    result = {"wall_s": wall, "rank_s": [o["seconds"] for o in outs], "runs": {}}
+    for run in outs[0]["runs"]:
+        imgs, stats = outs[0]["runs"][run]
+        for o in outs[1:]:
+            if not all(np.array_equal(a, b) for a, b in zip(o["runs"][run], (imgs, stats))):
+                raise RuntimeError(f"mesh: {run}: the ranks' frames differ")
+        want = singles[run[0]]
+        got = [(imgs[b], stats[b]) for b in range(len(want))] if imgs.ndim == 4 else [(imgs, stats)]
+        differing = []
+        for (gi, gst), (wi, wst) in zip(got, want):
+            if not np.array_equal(gst, wst):
+                raise RuntimeError(f"mesh: {run}: stats {gst.tolist()} vs single {wst.tolist()}")
+            if gi.shape != wi.shape or (wst[:4] != 0).any():
+                raise RuntimeError(f"mesh: {run}: shape {gi.shape} stats {wst.tolist()}")
+            differing.append(int((gi != wi).any(axis=-1).sum()))
+        agree = 1.0 - max(differing) / (MESH_W * MESH_H)
+        if agree < MESH_AGREEMENT:
+            raise RuntimeError(f"mesh: {run}: agreement {agree}")
+        result["runs"][run] = {"pixels_differing": differing, "agreement": agree,
+                               "total_pairs": [int(st[STAT_NAMES.index("total_pairs")])
+                                               for _, st in got]}
+    launches = {"k1": 0, "k2_masked": 0, "k2_blended": 0, "k2_ui": 0}
+    for o in outs:
+        for k, v in o["launches"].items():
+            launches["k1" if k == "k1" else f"k2_{k}"] += v
+    if min(launches["k1"], launches["k2_masked"], launches["k2_blended"]) < 4:
+        raise RuntimeError(f"mesh: the ranks' launches {[o['launches'] for o in outs]}")
+    result["launches_by_rank"] = [o["launches"] for o in outs]
+    print(f"mesh: 4 ranks on one card over gloo (CUDA tensors), {MESH_W}x{MESH_H}: "
+          + " | ".join(f"{k}: stats = single, {v['pixels_differing']} px differ "
+                       f"(agreement {v['agreement']:.6f}), total_pairs {v['total_pairs']}"
+                       for k, v in result["runs"].items())
+          + f" | launches by rank {result['launches_by_rank']} | wall {wall:.1f} s, in-rank "
+          f"{[round(s, 2) for s in result['rank_s']]} s (smoke, ranks share one card) "
+          f"| {card}", flush=True)
+    return result, launches
+
+
+def phase10(dev, card) -> tuple[dict, dict]:
+    """Phase 10 (module docstring): the host library, make_ntex and the mesh."""
+    t0 = time.perf_counter()
+    out = {"native": native_checks(dev, card)}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        (tmp / "ntex").mkdir()
+        out["make_ntex"] = ntex_checks(dev, tmp / "ntex", card)
+        out["mesh"], launches = mesh_checks(dev, tmp, card)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 10 took {out['seconds']:.1f} s", flush=True)
+    return out, launches
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean device milliseconds of fn() over `reps` back-to-back calls as
     the host issues them (CUDA events; the host's launch gaps included)."""
@@ -948,6 +1221,11 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"(nvcc {kernels.build_seconds:.1f} s) -> {kernels.library_path().name}",
           flush=True)
+    host = native.status()  # builds the host library (g++)
+    if host["path"] != "native":
+        raise RuntimeError(f"build: the host library took the numpy path: {host}")
+    print(f"build: host library {host['build_seconds']:.1f} s ({host['reason']}, "
+          f"g++ {' '.join(native.CXX_FLAGS)}) -> {Path(host['library']).name}", flush=True)
 
     # -- 3. main path: Renderer.render_frame on scenes A, B and C ----------
     reg_a, sc_a, cfg_a, pol_a = scene_a()
@@ -1041,9 +1319,15 @@ def main() -> int:
     tools, k1_row8, tool_launches = tools_checks(dev, card)
     results.append(k1_row8)
     per_frame["8"] = tool_launches.pop("9 configs row 8 frame")
+    torch.cuda.empty_cache()
+
+    # -- 10. the host library, make_ntex and the mesh ----------------------
+    reset_counters()
+    extra, mesh_launches = phase10(dev, card)
 
     phases = {"3 main path": main_launches, "7 run_loop": assets["run_loop_launches"],
-              "8 flythrough": frames["launches"], **tool_launches}
+              "8 flythrough": frames["launches"], **tool_launches,
+              "10 mesh": mesh_launches}
     for row in results:
         counter = row.pop("counter")
         row["launches_per_frame"] = per_frame[row.pop("scene")][counter]
@@ -1053,6 +1337,7 @@ def main() -> int:
     print(json.dumps({"assets": assets, "card": card}))
     print(json.dumps({"frames": frames, "card": card}))
     print(json.dumps({"tools": tools, "card": card}))
+    print(json.dumps({"phase10": extra, "card": card}))
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -27,7 +27,9 @@ pending_gltf.rs, scene_queueing.rs, mesh_iter.rs). Behavior highlights kept:
 - Skins: joint = animated_node_transform @ inverse_bind_matrix
   (scene_queueing.rs:38-45).
 
-Pose evaluation runs the vectorized numpy sampler.
+Pose evaluation runs the host library's samplers (tools/native.py,
+csrc/anim_pose.cpp), or the vectorized numpy sampler, their plain version,
+without it.
 """
 
 from __future__ import annotations
@@ -52,7 +54,8 @@ from renderer_tpu_torch.materials.registry import (
     Texture,
     TextureKind,
 )
-from renderer_tpu_torch.scene.scene import Scene
+from renderer_tpu_torch.scene.scene import Scene, make_draw_block
+from renderer_tpu_torch.tools import native
 
 GLTF_BYTE, GLTF_UNSIGNED_BYTE = 5120, 5121
 GLTF_SHORT, GLTF_UNSIGNED_SHORT = 5122, 5123
@@ -299,6 +302,15 @@ class _CompiledAnimation:
         self.cubic = np.array(
             [ch.interpolation == "CUBICSPLINE" for _, ch in chans], bool
         )
+        # the native samplers' layouts (csrc/anim_pose.cpp): raw per-channel
+        # times (no big-offset packing) and narrow dtypes
+        self.times_raw = (
+            np.concatenate([ch.times.astype(np.float64) for _, ch in chans])
+            if c else np.zeros(0)
+        )
+        self.path_id32 = self.path_id.astype(np.int32)
+        self.step_u8 = self.step.astype(np.uint8)
+        self.cubic_u8 = self.cubic.astype(np.uint8)
 
     def local_matrices(self, time: float, name, base=None) -> np.ndarray:
         """[n_touched, 4, 4] animated local transforms (T·R·S over the cached
@@ -454,11 +466,13 @@ class Gltf:
         # transform bytes (the demo re-queues Sponza at the same transform
         # every frame — main.rs:549-583)
         self._queue_cache = None
+        self._multi_cache = None  # comps tuple -> native layered sampler
+        self._prologue_cache = None  # comps tuple -> native prologue entry
 
     def invalidate_caches(self) -> None:
         """Drop every derived cache: compiled animations (with their baked
-        static TRS decomposes), the hierarchy walk arrays, and the
-        queue-order row split.
+        static TRS decomposes and native-sampler pointers), the hierarchy
+        walk arrays, the queue-order row split and the native prologues.
 
         The fast paths snapshot `Node.transform` (and the node graph) at
         first use; nodes are treated as IMMUTABLE afterwards — mutate a node
@@ -469,6 +483,8 @@ class Gltf:
         self._walk_valid = None
         self._walk_all_valid = None
         self._rows_cache = None
+        self._multi_cache = None
+        self._prologue_cache = None
         self._queue_cache = None
         for a in self.animations:
             a._compiled = None
@@ -509,8 +525,6 @@ class Gltf:
         so the sorted stream is identical."""
         cached = getattr(self, "_rows_cache", None)
         if cached is None:
-            from renderer_tpu_torch.scene.scene import make_draw_block
-
             skinned_rows = []
             static_items = []
             static_idx = []
@@ -608,6 +622,12 @@ class Gltf:
             self.morph_weights_at(playing_animations)
             if self.has_morph else {}
         )
+        if playing_animations:
+            done = self._queue_animated_native(
+                scene, transform, playing_animations, wmap
+            )
+            if done is not None:
+                return done
         fast = self._fast_node_transforms(playing_animations)
         if fast is None:
             node_transforms = self.get_node_transforms(playing_animations)
@@ -759,6 +779,21 @@ class Gltf:
         time, anim = playing_animations[0]
         comp = comps[0]
         order, parents, static = self._walk_arrays()
+
+        sampler = getattr(comp, "_native_pose", False)
+        if sampler is False:  # built once; None: no host library
+            sampler = comp._native_pose = native.make_anim_pose(
+                comp, static, order, parents
+            )
+        if sampler is not None:
+            try:
+                mats = sampler(float(time))
+            except ValueError:
+                raise AnimationError(
+                    f"animation {anim.name}: invalid timestamp {time}"
+                ) from None
+            return mats, self._valid_mask(mats.shape[0], order)
+
         local = static.copy()
         if comp.touched:
             local[comp.touched_arr] = comp.local_matrices(time, anim.name)
@@ -779,7 +814,32 @@ class Gltf:
         result for nodes an earlier playing animation already touched, and
         from the baked static decompose otherwise."""
         order, parents, static = self._walk_arrays()
-        # identical layering, vectorized per animation
+
+        # native full path (sample + layer + decompose + chain), cached per
+        # compiled-animation tuple. The comps themselves are the key: the
+        # strong references keep them alive, so a freed comp's id() can
+        # never alias a live entry after a rebake.
+        key = tuple(comps)
+        if self._multi_cache is None:
+            self._multi_cache = {}
+        sampler = self._multi_cache.get(key, False)
+        if sampler is False:
+            sampler = self._multi_cache[key] = native.make_anim_pose_multi(
+                comps, static, order, parents
+            )
+        times = [float(t) for t, _ in playing_animations]
+        if sampler is not None:
+            try:
+                mats = sampler(times)
+            except ValueError as e:
+                k = int(e.args[0]) if e.args and isinstance(e.args[0], int) else 0
+                anim = playing_animations[k][1]
+                raise AnimationError(
+                    f"animation {anim.name}: invalid timestamp {times[k]}"
+                ) from None
+            return mats, self._valid_mask(mats.shape[0], order)
+
+        # the plain version: identical layering, vectorized per animation
         local = static.copy()
         touched = np.zeros(static.shape[0], bool)
         for (time, anim), comp in zip(playing_animations, comps):
@@ -796,6 +856,157 @@ class Gltf:
             local[idx] = comp.local_matrices(time, anim.name, base=base)
             touched[idx] = True
         return self._chain_walk(local, order, parents)
+
+    def _build_prologue(self, comps):
+        """Compile the one-call native frame prologue for a fixed tuple of
+        playing animations (csrc anim_prologue via native.make_anim_prologue).
+        Returns None when ineligible — no native library, or unreachable
+        nodes that need the numpy path's identity substitution. The returned
+        entry bakes the skin/joint layout and the DrawBlock row split; only
+        the joint OFFSETS (scene palette cursor positions) vary per frame,
+        handled by the per-offsets block cache in _queue_animated_native."""
+        order, parents, static = self._walk_arrays()
+        valid = self._valid_mask(static.shape[0], order)
+        all_valid = getattr(self, "_walk_all_valid", None)
+        if all_valid is None:
+            all_valid = self._walk_all_valid = bool(valid.all())
+        if not all_valid:
+            return None
+        skinned_rows, static_block, static_idx, static_mw, morph_rows = \
+            self._split_rows()
+        skins_in_order: list[int] = []
+        for _ni, _mesh, _mat, skin_index in skinned_rows:
+            if skin_index not in skins_in_order:
+                skins_in_order.append(skin_index)
+        joint_nodes_parts, ibms_parts, skin_counts = [], [], []
+        for si in skins_in_order:
+            idx, ibms = skin_arrays(self.skins[si])
+            joint_nodes_parts.append(idx)
+            ibms_parts.append(ibms)
+            skin_counts.append(len(idx))
+        joint_nodes = (
+            np.concatenate(joint_nodes_parts) if joint_nodes_parts
+            else np.zeros(0, np.int64)
+        )
+        ibms = (
+            np.concatenate(ibms_parts) if ibms_parts
+            else np.zeros((0, 4, 4), np.float32)
+        )
+        sample = native.make_anim_prologue(
+            comps, static, order, parents, joint_nodes, ibms,
+            len(skinned_rows), static_idx,
+        )
+        if sample is None:
+            return None
+
+        # combined default morph weights in DrawBlock row order
+        # [skinned..., static...]; None when nothing in the draw list morphs
+        n_rows = len(skinned_rows) + len(static_block.keys)
+        skinned_morph = [
+            (r, mesh.morph_count, ni)
+            for r, (ni, mesh, _mat, _si) in enumerate(skinned_rows)
+            if mesh.morph_count
+        ]
+        base_mw = None
+        if skinned_morph or morph_rows:
+            base_mw = np.zeros((n_rows, constants.MAX_MORPH_TARGETS), np.float32)
+            for r, mc, ni in skinned_morph:
+                w = self._node_default_weights(ni)
+                if w is not None:
+                    k = min(mc, w.size)
+                    base_mw[r, :k] = w[:k]
+            if static_mw is not None:
+                base_mw[len(skinned_rows):] = static_mw
+        return {
+            "sample": sample,
+            "skins_in_order": skins_in_order,
+            "skin_counts": skin_counts,
+            "skinned_rows": skinned_rows,
+            "static_block": static_block,
+            "skinned_morph": skinned_morph,
+            "static_morph": morph_rows,
+            "base_mw": base_mw,
+            "blocks": {},  # joint-offsets tuple -> combined DrawBlock
+        }
+
+    def _queue_animated_native(self, scene, transform, playing, wmap):
+        """queue_animated's fastest path: ONE native call (pose sampling +
+        joint palettes written into the scene palette + the per-draw
+        transform array) and ONE vectorized queue_block. Returns the
+        all-drawn bool, or None to fall back to the numpy fast path.
+        Bit-compatible with the numpy path (tests/test_torch_native.py pins
+        the resulting scene SoA and palette)."""
+        comps = [_compiled_animation(a, self.nodes) for _t, a in playing]
+        key = tuple(comps)
+        if self._prologue_cache is None:
+            self._prologue_cache = {}
+        cache = self._prologue_cache
+        entry = cache.get(key, False)
+        if entry is False:
+            entry = cache[key] = self._build_prologue(comps)
+        if entry is None:
+            return None
+
+        # joint palette ranges: bump-allocated back-to-back, so the skins'
+        # palettes form ONE contiguous scene slice the native call fills.
+        # Remember the cursor so a failed pose sample can roll the
+        # allocation back — the numpy paths raise BEFORE allocating, and a
+        # caller that catches AnimationError and requeues must not leak
+        # palette slots.
+        cursor_before = scene._joint_cursor
+        offsets = []
+        for si, count in zip(entry["skins_in_order"], entry["skin_counts"]):
+            alloc = scene.allocate_joint_offset(count)
+            if alloc is None:
+                raise RuntimeError("too many bones in scene")
+            offsets.append(alloc[0])
+        total_joints = sum(entry["skin_counts"])
+        first = offsets[0] if offsets else 0
+        palettes_out = scene.joint_palette[first : first + total_joints]
+
+        off_key = tuple(offsets)
+        block = entry["blocks"].get(off_key)
+        if block is None:
+            if len(entry["blocks"]) >= 8:  # offsets churn: keep it bounded
+                entry["blocks"].clear()
+            off_of_skin = dict(zip(entry["skins_in_order"], offsets))
+            items = [
+                (mesh, material, off_of_skin[si])
+                for _ni, mesh, material, si in entry["skinned_rows"]
+            ] + [
+                (mesh, material, None)
+                for mesh, material in entry["static_block"].sources
+            ]
+            block = entry["blocks"][off_key] = make_draw_block(items)
+
+        times = [float(t) for t, _ in playing]
+        try:
+            transforms = entry["sample"](times, transform, palettes_out)
+        except ValueError as e:
+            scene._joint_cursor = cursor_before  # nothing was drawn
+            k = int(e.args[0]) if e.args and isinstance(e.args[0], int) else 0
+            raise AnimationError(
+                f"animation {playing[k][1].name}: invalid timestamp "
+                f"{times[k]}"
+            ) from None
+
+        mw = entry["base_mw"]
+        if wmap and mw is not None:
+            n_skinned = len(entry["skinned_rows"])
+            mw = mw.copy()
+            for r, mc, ni in entry["skinned_morph"]:
+                w = wmap.get(ni)
+                if w is not None:
+                    k = min(mc, w.size)
+                    mw[r] = 0.0
+                    mw[r, :k] = w[:k]
+            for r, mc, ni in entry["static_morph"]:
+                w = wmap.get(ni)
+                if w is not None:
+                    k = min(mc, w.size)
+                    mw[n_skinned + r] = 0.0
+                    mw[n_skinned + r, :k] = w[:k]
+        return scene.queue_block(block, transforms, morph_weights=mw)
 
     def _animated_transform(self, node_index, playing_animations) -> np.ndarray:
         node = self.nodes[node_index]

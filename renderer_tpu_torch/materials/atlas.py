@@ -164,7 +164,12 @@ def _plan_placements(shapes: dict[int, list[tuple[int, int]]]):
 
 def _blit_wrap(src: np.ndarray, atlas: np.ndarray, x: int, y: int) -> None:
     """Blit an RGBA8 [h,w,4] image into the u32 atlas at (x, y) with a
-    1-texel REPEAT border."""
+    1-texel REPEAT border: the host library's blit, or this numpy plain
+    version without it."""
+    from renderer_tpu_torch.tools import native
+
+    if native.atlas_blit_wrap(src, atlas, x, y):
+        return
     h, w = src.shape[:2]
     bordered = np.pad(_pack_rgba(src), ((1, 1), (1, 1)), mode="wrap")
     atlas[y - 1 : y + h + 1, x - 1 : x + w + 1] = bordered

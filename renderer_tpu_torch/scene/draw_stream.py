@@ -249,6 +249,7 @@ def frame_view(scene: Scene) -> FrameView:
     call on the same Scene (the per-frame consumers — pack_frame_blob,
     _geometry — copy or finish with them inside the frame)."""
     from renderer_tpu_torch.scene.scene import GEOMETRY_KEY_MASK
+    from renderer_tpu_torch.tools import native
 
     n = scene.draw_count
     c = getattr(scene, "_fv_cache", None)
@@ -266,21 +267,28 @@ def frame_view(scene: Scene) -> FrameView:
         return FrameView(order, sorted_keys, geom_key, pdf, pdi, pmw)
 
     cap = _next_pow2(max(n, 1))
-    order, sorted_keys, _gk = scene.frame_order()
-    pdf = np.zeros((cap, 12), np.float32)
-    pdi = np.zeros((cap, 4), np.int32)
-    if n:
-        pdf[:n] = scene._transforms[:n][order][:, :3, :].reshape(n, 12)
-        pdi[:n, 0] = scene._material_id[:n][order]
-        pdi[:n, 1] = scene._joints_offset[:n][order]
-        pdi[:n, 2] = scene._skinned[:n][order]
-        # instance-merge groups: boundary where the packed key changes;
-        # the debug id of every draw is its group's first index
-        first = np.empty(n, np.int64)
-        first[0] = 0
-        idx = np.arange(1, n, dtype=np.int64)
-        first[1:] = np.where(sorted_keys[1:] != sorted_keys[:-1], idx, 0)
-        pdi[:n, 3] = np.maximum.accumulate(first)
+    nat = native.draw_prologue(
+        scene._keys[:n], scene._transforms[:n], scene._material_id[:n],
+        scene._joints_offset[:n], scene._skinned[:n], cap,
+    )
+    if nat is not None:
+        order, sorted_keys, pdf, pdi = nat
+    else:  # the plain version (no host library)
+        order, sorted_keys, _gk = scene.frame_order()
+        pdf = np.zeros((cap, 12), np.float32)
+        pdi = np.zeros((cap, 4), np.int32)
+        if n:
+            pdf[:n] = scene._transforms[:n][order][:, :3, :].reshape(n, 12)
+            pdi[:n, 0] = scene._material_id[:n][order]
+            pdi[:n, 1] = scene._joints_offset[:n][order]
+            pdi[:n, 2] = scene._skinned[:n][order]
+            # instance-merge groups: boundary where the packed key changes;
+            # the debug id of every draw is its group's first index
+            first = np.empty(n, np.int64)
+            first[0] = 0
+            idx = np.arange(1, n, dtype=np.int64)
+            first[1:] = np.where(sorted_keys[1:] != sorted_keys[:-1], idx, 0)
+            pdi[:n, 3] = np.maximum.accumulate(first)
     geom_key = (sorted_keys & GEOMETRY_KEY_MASK).tobytes()
     pmw = None
     if scene._any_morph:

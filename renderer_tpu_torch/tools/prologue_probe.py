@@ -7,7 +7,9 @@ runs on the host clock; nothing is rendered.
 The scene source is `sandbox=` (default: the sandbox assets, or the
 mini-sandbox of assets/demo_scenes.py when they are absent), on a
 1920×1080, 4×MSAA renderer on `device` (its geometry is uploaded once).
-It prints one JSON line.
+The sort, the pack and the animation run on the host library
+(tools/native.py) when it is there, on their numpy plain versions inside
+`native.plain()`; `host_library` names which. It prints one JSON line.
 
 Run: python -m renderer_tpu_torch.tools.prologue_probe [reps] [device]
 """
@@ -46,6 +48,7 @@ def main(reps: int = 200, sandbox=None, device="cuda") -> dict:
     import renderer_tpu_torch as rt
     from renderer_tpu_torch.apps.sandbox import orbit_camera
     from renderer_tpu_torch.scene import draw_stream
+    from renderer_tpu_torch.tools import native
 
     sb = sandbox if sandbox is not None else _default_source(device)
     renderer = rt.Renderer(sb.registry, rt.RenderConfig(
@@ -90,6 +93,7 @@ def main(reps: int = 200, sandbox=None, device="cuda") -> dict:
     t["full_prologue_us"] = median_us(full, reps)
     t["draws"] = scene.draw_count
     t["scene_source"] = type(sb).__name__
+    t["host_library"] = native.status()["path"]  # "native" or "numpy"
     print(json.dumps(t), flush=True)
     return t
 

@@ -9,6 +9,7 @@ imports no jax, so it runs on a machine without it:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda_kernels.py
 """
 
+import contextlib
 from pathlib import Path
 
 import numpy as np
@@ -16,6 +17,7 @@ import pytest
 import torch
 
 import renderer_tpu_torch as trt
+from renderer_tpu_torch import kernels
 from renderer_tpu_torch.assets import demo_scenes
 from renderer_tpu_torch.raster import binning, layers, raster_kernel, setup, ui_stage
 from renderer_tpu_torch.raster.pipeline import STANDARD_SAMPLE_POSITIONS
@@ -313,3 +315,55 @@ def test_degenerate_triangles_are_invalid_on_the_card(cuda, captured):
     assert td[setup.VALID_ROW, control].tolist() == [1.0, 1.0]
     cpu = setup.triangle_setup(clip.cpu(), tri_v.cpu(), n, w, h, bbox_pad=0.5)
     assert _bits_equal(td, cpu)
+
+
+# -- the mesh and the host library (parallel/mesh.py, tools/native.py) -----
+
+def test_mesh_on_the_card_over_gloo(cuda, tmp_path):
+    """Four ranks sharing the card over gloo with CUDA tensors
+    (tests/torch_mesh_ranks.CASES: sp=4 and sp=2, contiguous and
+    interleaved, dp=2 × sp=2) against the single-device frame: stats
+    equal, pixel agreement > 0.999, and every rank's bands through K1 and
+    both K2 modes."""
+    from renderer_tpu_torch.parallel import mesh as pmesh
+    from tests import torch_mesh_ranks as ranks
+
+    kernels.load()  # built once here, not by four ranks at once
+    outs = pmesh.spawn(ranks.run_cases, 4, "triangle", "cuda", store_dir=tmp_path)
+    singles = ranks.singles("triangle")
+    for case in ranks.CASES:
+        img, stats = outs[0]["cases"][case]
+        got = [(img[b], stats[b]) for b in range(2)] if case[0] == "dp2sp2" else [(img, stats)]
+        for (gi, gs), (wi, ws) in zip(got, singles):
+            np.testing.assert_array_equal(gs, ws, err_msg=str(case))
+            assert ranks.agreement(gi, wi) > 0.999, case
+    for o in outs:
+        np.testing.assert_array_equal(o["combined"],
+                                      ranks.expected_combine(o["combined"].shape[0]))
+        assert o["launches"]["k1"] > 0 and o["launches"]["masked"] > 0, o["launches"]
+
+
+def test_native_prologue_feeds_a_card_frame(cuda):
+    """The mini-sandbox's host prologue (queue_animated's one native call,
+    frame_view's native sort) against its numpy plain version: the same
+    draw stream, and the same frame on the card. (At some game times the
+    joint palettes differ in the last bit, the reference's own drift
+    between its library and its numpy path: tests/test_torch_native.py.)"""
+    from renderer_tpu_torch.scene import draw_stream
+    from renderer_tpu_torch.tools import native
+
+    assert native.status()["path"] == "native"
+    frames = []
+    for ctx in (contextlib.nullcontext, native.plain):
+        sandbox = demo_scenes.MiniSandbox()
+        with ctx():
+            scene = sandbox.build_scene(0.4)
+            fv = draw_stream.frame_view(scene)
+            r = trt.Renderer(sandbox.registry, trt.RenderConfig(
+                width=160, height=96, msaa_samples=4), device=cuda)
+            frames.append((fv, r.render_frame(scene)))
+    (fa, ia), (fb, ib) = frames
+    np.testing.assert_array_equal(fa.order, fb.order)
+    np.testing.assert_array_equal(fa.pdf, fb.pdf)
+    np.testing.assert_array_equal(fa.pdi, fb.pdi)
+    np.testing.assert_array_equal(ia, ib)

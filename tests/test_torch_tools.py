@@ -27,6 +27,7 @@ from renderer_tpu_torch.tools import binning_scaling as tbs
 from renderer_tpu_torch.tools import (
     flythrough_run,
     frame_capture,
+    native,
     prologue_probe,
     startup_probe,
     stress_run,
@@ -163,8 +164,9 @@ def test_prologue_probe_prints_its_keys(capsys):
     printed = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
     assert printed == out
     assert set(out) == {"build_scene_us", "frame_view_us", "pack_blob_us", "camera_us",
-                        "full_prologue_us", "draws", "scene_source"}
+                        "full_prologue_us", "draws", "scene_source", "host_library"}
     assert out["draws"] == 7 and out["scene_source"] == "MiniSandbox"
+    assert out["host_library"] == native.status()["path"]
     assert all(out[k] > 0 for k in out if k.endswith("_us"))
 
 
