@@ -100,6 +100,21 @@ are printed). The ranks' K1/K2 launches go into the kernels line as
 "10 mesh". Ranks sharing one card time nothing useful: the wall-clock is a
 smoke figure.
 
+Phase 11 runs the JPEG path, on a machine without Pillow: (a) every vector
+of tests/golden/torch-jpeg-vectors.npz (Pillow's decodes, written by
+`python -m tests.test_torch_jpeg regen`) decoded by assets/jpeg.py equal to
+Pillow's pixels, or to the SHA-256 of Pillow's decode for the two 512×512
+4:2:0 images (baseline and progressive), whose median host ms and Mpixel/s
+it prints; (b) a GLB assembled here (jpeg_glb: GLB_PATCHES proxy patches,
+three materials — opaque, alpha-to-coverage, blended — on the 512×512
+baseline JPEG embedded in its BIN chunk) loaded onto the card by load_gltf,
+rendered at 1920×1080, 4×MSAA under "sync" with zero overflow (its K1/K2
+launches go into the kernels line as "11 glb"), and again at GLB_SMALL on
+the card and on the CPU, which must agree to the golden tolerance; (c)
+tools.make_ntex's CLI on that JPEG and on a PNG of the port's decode of
+it: the two .ntex files must be byte-equal, and the card's BC7 decode of
+them equal to the CPU's.
+
 Each phase prints one line; any failure raises (exit code ≠ 0). The line
 before the last is a JSON object with one entry per kernel (with its
 launches in each phase); the last line is {"ok": true, "device": {...}}.
@@ -109,6 +124,7 @@ Without CUDA the script fails before printing either.
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import json
 import os
 import statistics
@@ -117,6 +133,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from dataclasses import replace
 from pathlib import Path
 
 import numpy as np
@@ -126,7 +143,7 @@ import renderer_tpu_torch as trt
 from renderer_tpu_torch import kernels
 from renderer_tpu_torch.apps import configs
 from renderer_tpu_torch.apps.sandbox import flythrough, run_loop
-from renderer_tpu_torch.assets import demo_scenes, ntex, png
+from renderer_tpu_torch.assets import demo_scenes, jpeg, ntex, png, proxy
 from renderer_tpu_torch.assets.gltf_loader import load_gltf, ntex_texture
 from renderer_tpu_torch.core import math3d
 from renderer_tpu_torch.engine import stats as engine_stats
@@ -192,6 +209,11 @@ NATIVE_TIMES = (0.4, 1.0, 1.02, 1.5)
 PALETTE_DRIFT = 2.0 ** -22
 NTEX_SIDE = 1024
 PSNR_FLOOR = 28.0  # tests/test_make_ntex.py's
+JPEG_VECTORS = "tests/golden/torch-jpeg-vectors.npz"
+JPEG_BIG = ("big-baseline-420", "big-progressive-420")  # the 512×512 vectors
+JPEG_REPS = 3  # decodes timed a large vector (the median is printed)
+GLB_PATCHES, GLB_GRID = 12, 24  # phase 11's GLB: patches of 2·24² triangles
+GLB_SMALL = (160, 96)  # its card-against-CPU frame
 
 
 def scene_a():
@@ -1158,6 +1180,200 @@ def phase10(dev, card) -> tuple[dict, dict]:
     return out, launches
 
 
+def jpeg_glb(image: bytes) -> bytes:
+    """A GLB written here without Pillow (the layout of
+    tests/make_loader_fixture.py's build()): GLB_PATCHES proxy patches in a
+    ring around the sandbox camera's target, one node and one mesh each,
+    cycling three materials that all take `image` (a JPEG) as their base
+    colour —
+    opaque, MASK (alpha-to-coverage, cutoff 0.4) and BLEND — and the JPEG
+    embedded as a bufferView of the BIN chunk."""
+    blob, views, accessors = bytearray(), [], []
+
+    def view(data: bytes) -> int:
+        blob.extend(b"\0" * (-len(blob) % 4))
+        views.append({"buffer": 0, "byteOffset": len(blob), "byteLength": len(data)})
+        blob.extend(data)
+        return len(views) - 1
+
+    def accessor(arr: np.ndarray, ctype: int, atype: str, minmax: bool = False) -> int:
+        a = {"bufferView": view(arr.tobytes()), "componentType": ctype,
+             "type": atype, "count": int(arr.shape[0])}
+        if minmax:
+            a["min"], a["max"] = arr.min(0).tolist(), arr.max(0).tolist()
+        accessors.append(a)
+        return len(accessors) - 1
+
+    meshes, nodes = [], []
+    for i in range(GLB_PATCHES):
+        p, uv, n, t, idx = proxy._patch_geometry(
+            (GLB_GRID + 1) ** 2, 6 * GLB_GRID ** 2, [-0.8, -0.5, -0.2], [0.8, 0.5, 0.2],
+            seed=300 + i)
+        attrs = {"POSITION": accessor(p, 5126, "VEC3", minmax=True),
+                 "NORMAL": accessor(n, 5126, "VEC3"), "TANGENT": accessor(t, 5126, "VEC4"),
+                 "TEXCOORD_0": accessor(uv, 5126, "VEC2")}
+        meshes.append({"primitives": [{"attributes": attrs,
+                                       "indices": accessor(idx, 5125, "SCALAR"),
+                                       "material": i % 3}]})
+        ang = 2 * np.pi * i / GLB_PATCHES
+        q = math3d.quat_from_axis_angle([0, 1, 0], ang)
+        nodes.append({"mesh": i, "rotation": [float(x) for x in q],
+                      "translation": [1.6 * np.cos(ang), 0.4 + 0.08 * i, 1.6 * np.sin(ang)]})
+    image_view = view(image)
+    blob.extend(b"\0" * (-len(blob) % 4))
+    tex = {"baseColorTexture": {"index": 0}}
+    gltf = {
+        "asset": {"version": "2.0"}, "scene": 0,
+        "scenes": [{"nodes": list(range(GLB_PATCHES))}], "nodes": nodes, "meshes": meshes,
+        "materials": [
+            {"name": "jpeg-opaque", "pbrMetallicRoughness": dict(tex)},
+            {"name": "jpeg-masked", "alphaMode": "MASK", "alphaCutoff": 0.4,
+             "pbrMetallicRoughness": dict(tex, baseColorFactor=[1, 1, 1, 0.9])},
+            {"name": "jpeg-blended", "alphaMode": "BLEND",
+             "pbrMetallicRoughness": dict(tex, baseColorFactor=[1, 1, 1, 0.45])}],
+        "textures": [{"source": 0, "sampler": 0}],
+        "samplers": [{"wrapS": 10497, "wrapT": 10497}],
+        "images": [{"bufferView": image_view, "mimeType": "image/jpeg"}],
+        "buffers": [{"byteLength": len(blob)}], "bufferViews": views, "accessors": accessors,
+    }
+    js = json.dumps(gltf).encode()
+    js += b" " * (-len(js) % 4)
+    body = (struct.pack("<II", len(js), 0x4E4F534A) + js
+            + struct.pack("<II", len(blob), 0x004E4942) + bytes(blob))
+    return struct.pack("<III", 0x46546C67, 2, 12 + len(body)) + body
+
+
+def jpeg_decode_checks(z, card) -> dict:
+    """Phase 11 (a): every vector of JPEG_VECTORS decoded on the host equal
+    to Pillow's decode (its pixels, or its SHA-256 for the two 512×512
+    images), with the median host time of JPEG_REPS decodes of each large
+    one."""
+    names = [k[:-len("_jpeg")] for k in z.files if k.endswith("_jpeg")]
+    out = {"vectors": len(names), "big": {}}
+    for name in names:
+        data = z[f"{name}_jpeg"].tobytes()
+        times = []
+        for _ in range(JPEG_REPS if name in JPEG_BIG else 1):
+            t0 = time.perf_counter()
+            got = jpeg.decode_jpeg(data)
+            times.append((time.perf_counter() - t0) * 1e3)
+        if name in JPEG_BIG:
+            digest = hashlib.sha256(got.tobytes()).hexdigest()
+            if digest != str(z[f"{name}_sha256"]):
+                raise RuntimeError(f"jpeg: {name} decodes to another image than Pillow's")
+            ms = statistics.median(times)
+            out["big"][name] = {"ms": ms, "mpixel_per_s": got.shape[0] * got.shape[1] / ms / 1e3,
+                                "jpeg_bytes": len(data), "ms_all": times}
+        elif not np.array_equal(got, z[f"{name}_rgba"]):
+            raise RuntimeError(f"jpeg: {name}: {int((got != z[f'{name}_rgba']).sum())} "
+                               f"values differ from Pillow's decode")
+    print(f"jpeg: {len(names)} vectors decode equal to Pillow's | "
+          + " | ".join(f"{k} ({v['jpeg_bytes']} bytes) {v['ms']:.1f} ms = "
+                       f"{v['mpixel_per_s']:.3f} Mpixel/s on the host"
+                       for k, v in out["big"].items()) + f" | {card}", flush=True)
+    return out
+
+
+def glb_checks(dev, tmp: Path, data: bytes, card) -> tuple[dict, dict]:
+    """Phase 11 (b): jpeg_glb(data) loaded onto the card and rendered at
+    1920×1080, 4×MSAA (overflow stats 0; K1 and K2 in both scene modes
+    launched), then at GLB_SMALL on the card and on the CPU, which must
+    agree to the golden tolerance. Returns the numbers and the launches of
+    the 1080p frame."""
+    path = tmp / "jpeg.glb"
+    path.write_bytes(jpeg_glb(data))
+    registry, builder = trt.MaterialRegistry(), trt.VertexLibraryBuilder()
+    t0 = time.perf_counter()
+    gltf = load_gltf(path, builder, registry, device=dev)
+    builder.build()
+    load_ms = (time.perf_counter() - t0) * 1e3
+    tex = gltf.textures[0]
+    if tex.mips[0].shape != (512, 512, 4) or len(gltf.materials) != 3:
+        raise RuntimeError(f"glb: texture {tex.mips[0].shape}, {len(gltf.materials)} materials")
+    scene = trt.Scene(world_space=trt.GLTF)
+    scene.camera.position = np.array([0.0, 0.9, 2.6], np.float32)
+    scene.camera.orientation = math3d.quat_from_axis_angle([0, 1, 0], np.pi)
+    if not gltf.queue(scene, math3d.IDENTITY):
+        raise RuntimeError("glb: the scene did not queue")
+    r = trt.Renderer(registry, trt.RenderConfig(width=W, height=H, msaa_samples=4),
+                     overflow_policy="sync", device=dev)
+    reset_counters()
+    t0 = time.perf_counter()
+    img, stats, moved = render_checked(r, scene, "GLB")
+    torch.cuda.synchronize()
+    frame_s = time.perf_counter() - t0
+    launches = counters()
+    if min(moved["k1"], moved["k2_masked"], moved["k2_blended"]) < 1:
+        raise RuntimeError(f"glb: the 1080p frame's launches {moved}")
+    # the small frames take the capacities the 1080p frame grew to, so
+    # "sync" renders each once
+    small_cfg = replace(r.config, width=GLB_SMALL[0], height=GLB_SMALL[1])
+    frames, small_s = {}, {}
+    for where in (dev, torch.device("cpu")):
+        small = trt.Renderer(registry, small_cfg, overflow_policy="sync", device=where)
+        t0 = time.perf_counter()
+        frames[where.type] = small.render_frame(scene, 0)
+        small_s[where.type] = time.perf_counter() - t0
+        bad = {k: v for k, v in small.frame_stats().items() if k in OVERFLOW_STATS and v}
+        if bad:
+            raise RuntimeError(f"glb: {where.type} {GLB_SMALL} overflow stats {bad}")
+    diff = np.abs(frames["cuda"].astype(int) - frames["cpu"].astype(int)).max(axis=-1)
+    drifted = float((diff > 2).mean())
+    if drifted >= 0.005 or frames["cuda"].std() < 5.0:
+        raise RuntimeError(f"glb: card and CPU frames: {drifted:.2%} of pixels drifted")
+    out = {"load_ms": load_ms, "frame_s": frame_s, "launches": moved,
+           "total_pairs": stats["total_pairs"], "mask_layers": r.config.mask_layers,
+           "blend_layers": r.config.blend_layers, "small_drifted": drifted,
+           "small_max_diff": int(diff.max()), "small_s": small_s}
+    print(f"glb: {GLB_PATCHES} patches, 3 materials on one embedded 512x512 JPEG: "
+          f"load_gltf {load_ms:.1f} ms | 1080p 4xMSAA first frame {frame_s:.2f} s, overflow "
+          f"0, launches {moved}, total_pairs {stats['total_pairs']} | {GLB_SMALL[0]}x"
+          f"{GLB_SMALL[1]} card vs CPU: {drifted:.4%} of pixels > 2 (max {diff.max()}; "
+          f"card {small_s['cuda']:.2f} s, CPU {small_s['cpu']:.2f} s) | {card}", flush=True)
+    return out, launches
+
+
+def jpeg_ntex_checks(dev, tmp: Path, data: bytes, card) -> dict:
+    """Phase 11 (c): make_ntex's CLI on the JPEG and on a PNG of the port's
+    decode of it (png.py's encoder) writes the same .ntex bytes; the card's
+    BC7 decode of the file equals the CPU's."""
+    paths = [tmp / "bricks.jpg", tmp / "bricks_png.png"]
+    paths[0].write_bytes(data)
+    png.write_png(paths[1], jpeg.decode_jpeg(data))
+    t0 = time.perf_counter()
+    if make_ntex.main(["--silent", "--assume-color", *map(str, paths)]) != 0:
+        raise RuntimeError("make_ntex: the CLI failed on the JPEG")
+    seconds = time.perf_counter() - t0
+    ntex_jpg, ntex_png = (p.with_suffix(".ntex").read_bytes() for p in paths)
+    if ntex_jpg != ntex_png:
+        raise RuntimeError("make_ntex: the JPEG's .ntex differs from its PNG's")
+    header, on_card = ntex.decode(ntex_jpg, device=dev)
+    _, on_cpu = ntex.decode(ntex_jpg, device="cpu")
+    if not all(np.array_equal(a, b) for a, b in zip(on_card, on_cpu, strict=True)):
+        raise RuntimeError("make_ntex: card and CPU BC7 decodes of the JPEG's .ntex differ")
+    blocks = (len(ntex_jpg) - 1024) // 16
+    print(f"make_ntex: 512x512 JPEG and its PNG: .ntex bytes equal ({len(ntex_jpg)} bytes, "
+          f"{header.mip_levels} mips, {blocks} blocks each) in {seconds:.1f} s | card decode = "
+          f"CPU decode | {card}", flush=True)
+    return {"ntex_bytes": len(ntex_jpg), "blocks": blocks, "encode_s": seconds}
+
+
+def phase11(dev, card) -> tuple[dict, dict]:
+    """Phase 11 (module docstring): JPEG decode, a GLB with an embedded
+    JPEG on the card, make_ntex on a JPEG."""
+    t0 = time.perf_counter()
+    z = np.load(JPEG_VECTORS)
+    out = {"decode": jpeg_decode_checks(z, card)}
+    data = z[f"{JPEG_BIG[0]}_jpeg"].tobytes()
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        out["glb"], launches = glb_checks(dev, tmp, data, card)
+        out["make_ntex"] = jpeg_ntex_checks(dev, tmp, data, card)
+    out["seconds"] = time.perf_counter() - t0
+    print(f"phase 11 took {out['seconds']:.1f} s", flush=True)
+    return out, launches
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean device milliseconds of fn() over `reps` back-to-back calls as
     the host issues them (CUDA events; the host's launch gaps included)."""
@@ -1208,6 +1424,7 @@ def main() -> int:
     # -- 1. device ---------------------------------------------------------
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
+    script_t0 = time.perf_counter()
     dev = torch.device("cuda")
     card = card_line()
     kind = torch.cuda.get_device_name(0)
@@ -1325,19 +1542,24 @@ def main() -> int:
     reset_counters()
     extra, mesh_launches = phase10(dev, card)
 
+    # -- 11. JPEG: decode, a GLB with an embedded JPEG, make_ntex ----------
+    jpeg_out, glb_launches = phase11(dev, card)
+
     phases = {"3 main path": main_launches, "7 run_loop": assets["run_loop_launches"],
               "8 flythrough": frames["launches"], **tool_launches,
-              "10 mesh": mesh_launches}
+              "10 mesh": mesh_launches, "11 glb": glb_launches}
     for row in results:
         counter = row.pop("counter")
         row["launches_per_frame"] = per_frame[row.pop("scene")][counter]
         row["launches_by_phase"] = {name: n[counter] for name, n in phases.items()}
         del row["pairs"], row["n_s"], row["dense_ms"]
+    print(f"chip_smoke: phases 1-11 took {time.perf_counter() - script_t0:.1f} s", flush=True)
     print(json.dumps({"frame_ms": frame_ms, "card": card}))
     print(json.dumps({"assets": assets, "card": card}))
     print(json.dumps({"frames": frames, "card": card}))
     print(json.dumps({"tools": tools, "card": card}))
     print(json.dumps({"phase10": extra, "card": card}))
+    print(json.dumps({"phase11": jpeg_out, "card": card}))
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

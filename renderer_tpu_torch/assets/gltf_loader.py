@@ -15,7 +15,8 @@ pending_gltf.rs, scene_queueing.rs, mesh_iter.rs). Behavior highlights kept:
   (lib.rs:199-230) — quirks included.
 - Image URIs are retargeted to .ntex (lib.rs:400-401) and decoded lazily
   through assets/ntex.py on the loader's device; embedded images (a
-  superset) decode through assets/png.py. Texture color-space kind is
+  superset) decode by content through assets/image.py (PNG or JPEG, the
+  two types glTF allows; mimeType is ignored, as Pillow ignores it). Texture color-space kind is
   inferred from material usage: baseColor/emissive → sRGB, normal → normal
   map, others linear (get_gltf_texture_kinds, lib.rs:726-764).
 - Material factors: glTF defaults, alpha_cutoff forced to 0 unless alphaMode
@@ -43,7 +44,8 @@ from pathlib import Path
 
 import numpy as np
 
-from renderer_tpu_torch.assets import ntex, png
+from renderer_tpu_torch.assets import ntex
+from renderer_tpu_torch.assets.image import decode_image
 from renderer_tpu_torch.core import constants, math3d
 from renderer_tpu_torch.geometry.vertex_library import Mesh, VertexLibraryBuilder
 from renderer_tpu_torch.materials.registry import (
@@ -1412,7 +1414,11 @@ def load_gltf(
             view = gltf["bufferViews"][image["bufferView"]]
             data = acc._buffer(view["buffer"])
             start = view.get("byteOffset", 0)
-            mips = generate_mips(png.decode_png(data[start : start + view["byteLength"]]))
+            try:
+                rgba = decode_image(data[start : start + view["byteLength"]])
+            except ValueError as e:
+                raise GltfLoadingError(f"embedded image {i}: {e}") from e
+            mips = generate_mips(rgba)
             tex = Texture(mips, kind, name=image.get("name", f"embedded-{i}"),
                           wrap_s=wrap_s, wrap_t=wrap_t)
         else:

@@ -1,0 +1,728 @@
+"""JPEG decode on numpy (no Pillow: the card's machine has none).
+
+`decode_jpeg(data)` gives what `PIL.Image.open(...).convert("RGBA")` gives
+under Pillow's bundled libjpeg-turbo, bit for bit (tests/test_torch_jpeg.py
+holds the two equal): the integer pipeline of libjpeg-turbo's defaults,
+which Pillow does not change —
+
+- Huffman entropy decoding: baseline and extended sequential (SOF0/SOF1)
+  and progressive (SOF2: DC and AC scans, first passes and refinements,
+  EOB runs), restart intervals, any number of DHT and DQT segments (8- or
+  16-bit tables, each latched by a component at its first scan);
+- dequantisation and the `islow` inverse DCT (jidctint.c: CONST_BITS 13,
+  PASS1_BITS 2, the range-limit table of jdmaster.c);
+- the "fancy" triangle upsampling of jdsample.c (h2v1, h2v2; libjpeg-turbo
+  takes the merged upsampler of jdmerge.c only without fancy upsampling),
+  clamped at the component's real edges as jdmainct.c pads them, and box
+  replication where the component is at most two samples wide;
+- YCbCr → RGB with jdcolor.c's fixed-point tables (SCALEBITS 16).
+
+Colour spaces as libjpeg-turbo reads them (jdapimin.c): one component is
+grey (Pillow's "L"); three are YCbCr under a JFIF marker, RGB under an
+Adobe marker with transform 0 or with component ids 'R', 'G', 'B' (what
+Pillow's `keep_rgb=True` writes), YCbCr otherwise; four are CMYK, stored
+inverted as Adobe writes them, and converted as Pillow's CMYK → RGB does.
+APPn and COM segments are skipped; EXIF orientation is ignored, as
+`Image.open` ignores it.
+
+Sampling: every component at the frame's maximum factors (4:4:4) or at
+half of them horizontally (4:2:2) or in both directions (4:2:0) — what
+Pillow writes. Anything else raises ValueError naming it, as do arithmetic
+coding, 12-bit samples, lossless and hierarchical frames, YCCK, and
+truncated or corrupt data (with the byte offset where it was found); no
+partial image is ever returned.
+
+Entropy decoding is sequential Python over a table of every 16-bit
+lookahead; the inverse DCT, upsampling and colour conversion run on numpy
+over all blocks at once.
+"""
+
+from __future__ import annotations
+
+import struct
+
+import numpy as np
+
+# zigzag position k -> natural (row-major) index of the 8×8 block
+_ZIGZAG = np.array([
+    0, 1, 8, 16, 9, 2, 3, 10, 17, 24, 32, 25, 18, 11, 4, 5,
+    12, 19, 26, 33, 40, 48, 41, 34, 27, 20, 13, 6, 7, 14, 21, 28,
+    35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
+    58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63], np.int64)
+
+_REFUSED_SOF = {
+    0xC3: "lossless (SOF3)",
+    0xC5: "hierarchical differential sequential (SOF5)",
+    0xC6: "hierarchical differential progressive (SOF6)",
+    0xC7: "hierarchical differential lossless (SOF7)",
+    0xC9: "arithmetic-coded sequential (SOF9)",
+    0xCA: "arithmetic-coded progressive (SOF10)",
+    0xCB: "arithmetic-coded lossless (SOF11)",
+    0xCD: "hierarchical arithmetic-coded sequential (SOF13)",
+    0xCE: "hierarchical arithmetic-coded progressive (SOF14)",
+    0xCF: "hierarchical arithmetic-coded lossless (SOF15)",
+    0xF7: "JPEG-LS (SOF55)",
+}
+_REFUSED_OTHER = {
+    0xCC: "arithmetic coding (DAC)",
+    0xDC: "a DNL marker (image height given after the first scan)",
+    0xDE: "hierarchical mode (DHP)",
+    0xDF: "hierarchical mode (EXP)",
+}
+
+# jidctint.c's constants: FIX(x) = round(x * 2^13)
+_CONST_BITS, _PASS1_BITS = 13, 2
+_F_0_298, _F_0_390, _F_0_541, _F_0_765 = 2446, 3196, 4433, 6270
+_F_0_899, _F_1_175, _F_1_501, _F_1_847 = 7373, 9633, 12299, 15137
+_F_1_961, _F_2_053, _F_2_562, _F_3_072 = 16069, 16819, 20995, 25172
+
+
+def _range_limit_table() -> np.ndarray:
+    """jdmaster.c's post-IDCT table, indexed by (x & 1023) for a centred
+    sample x: x + 128 over [-128, 127], 255 above up to 511, 0 below down
+    to -512, and wrapping beyond as the C table does."""
+    idx = np.arange(1024)
+    out = np.where(idx < 128, idx + 128, np.where(idx < 512, 255, 0))
+    out[896:] = idx[896:] - 896
+    return out.astype(np.uint8)
+
+
+_RANGE_LIMIT = _range_limit_table()
+
+
+def _fix(x: float) -> int:
+    return int(x * 65536 + 0.5)
+
+
+def _ycc_tables():
+    """jdcolor.c's build_ycc_rgb_table (SCALEBITS 16)."""
+    x = np.arange(256, dtype=np.int64) - 128
+    half = 1 << 15
+    cr_r = (_fix(1.40200) * x + half) >> 16
+    cb_b = (_fix(1.77200) * x + half) >> 16
+    cr_g = -_fix(0.71414) * x
+    cb_g = -_fix(0.34414) * x + half
+    return cr_r, cb_b, cr_g, cb_g
+
+
+_CR_R, _CB_B, _CR_G, _CB_G = _ycc_tables()
+
+
+def _refuse(what: str):
+    raise ValueError(f"JPEG: {what} is not supported")
+
+
+def _corrupt(offset: int, what: str):
+    raise ValueError(f"JPEG: corrupt or truncated data at byte {offset}: {what}")
+
+
+class _Huffman:
+    """A DHT table as one lookup over every 16-bit lookahead: entry
+    (length << 8) | symbol, 0 where no code starts (a corrupt stream)."""
+
+    __slots__ = ("lookup",)
+
+    def __init__(self, counts: bytes, symbols: bytes, offset: int):
+        table = np.zeros(1 << 16, np.int64)
+        code, k = 0, 0
+        for length in range(1, 17):
+            for _ in range(counts[length - 1]):
+                if code >= 1 << length:
+                    _corrupt(offset, "a Huffman table with too many codes")
+                lo = code << (16 - length)
+                table[lo:lo + (1 << (16 - length))] = (length << 8) | symbols[k]
+                code += 1
+                k += 1
+            code <<= 1
+        self.lookup = table.tolist()
+
+
+class _Component:
+    __slots__ = ("cid", "h", "v", "tq", "qtable", "bw", "bh", "coef", "width", "height")
+
+
+def _markers(data: bytes, pos: int):
+    """The next marker at or after pos: (code, offset of its 0xFF), skipping
+    0xFF fill bytes. Raises if the stream ends first or pos is not at a
+    marker."""
+    n = len(data)
+    if pos >= n or data[pos] != 0xFF:
+        _corrupt(pos, "expected a marker")
+    while pos + 1 < n and data[pos + 1] == 0xFF:
+        pos += 1
+    if pos + 1 >= n:
+        _corrupt(pos, "the data ends inside a marker")
+    return data[pos + 1], pos
+
+
+def _payload(data: bytes, pos: int) -> tuple[bytes, int]:
+    """The payload of the marker segment whose 0xFF is at pos, and the
+    offset after it."""
+    if pos + 4 > len(data):
+        _corrupt(pos, "the data ends inside a segment length")
+    (length,) = struct.unpack(">H", data[pos + 2:pos + 4])
+    end = pos + 2 + length
+    if length < 2 or end > len(data):
+        _corrupt(pos, f"a segment of length {length} runs past the end")
+    return data[pos + 4:end], end
+
+
+def _entropy_data(data: bytes, pos: int) -> tuple[list[tuple[int, bytes]], int]:
+    """The entropy-coded data of a scan starting at pos, split at its RSTn
+    markers: [(offset, unstuffed bytes)] per restart interval, the RST
+    numbers checked in order. Returns the intervals and the offset of the
+    marker that ends the scan."""
+    intervals, start, expect = [], pos, 0
+    n = len(data)
+    while True:
+        i = data.find(b"\xff", pos)
+        if i < 0 or i + 1 >= n:
+            _corrupt(n, "the data ends inside a scan")
+        nxt = data[i + 1]
+        if nxt == 0x00:
+            pos = i + 2
+            continue
+        if nxt == 0xFF:  # fill bytes before a marker
+            j = i
+            while j + 1 < n and data[j + 1] == 0xFF:
+                j += 1
+            if j + 1 >= n:
+                _corrupt(n, "the data ends inside a scan")
+            nxt = data[j + 1]
+            if nxt == 0x00:
+                _corrupt(j, "0xFF fill bytes before a stuffed zero")
+        else:
+            j = i
+        intervals.append((start, data[start:i].replace(b"\xff\x00", b"\xff")))
+        if 0xD0 <= nxt <= 0xD7:
+            if nxt - 0xD0 != expect:
+                _corrupt(j, f"restart marker RST{nxt - 0xD0} where RST{expect} was due")
+            expect = (expect + 1) & 7
+            start = pos = j + 2
+            continue
+        return intervals, j
+
+
+class _BitReader:
+    """Big-endian bit windows over one restart interval: win[i] holds the
+    32 bits starting at byte i, padded with zero bytes so a lookahead past
+    the end reads zeros; `nbits` is what the interval really holds."""
+
+    __slots__ = ("win", "nbits", "offset")
+
+    def __init__(self, offset: int, body: bytes, pad: int):
+        a = np.frombuffer(body + bytes(pad + 4), np.uint8).astype(np.int64)
+        self.win = ((a[:-3] << 24) | (a[1:-2] << 16) | (a[2:-1] << 8) | a[3:]).tolist()
+        self.nbits = 8 * len(body)
+        self.offset = offset
+
+
+def _check_end(br: _BitReader, pos: int) -> None:
+    if pos > br.nbits:
+        _corrupt(br.offset + br.nbits // 8,
+                 f"a scan needs {pos - br.nbits} bits more than its data holds")
+
+
+def _dc_diff(win, pos, lookup, br):
+    """One DC difference at bit pos: its Huffman-coded size s, then s bits,
+    sign-extended (T.81 F.2.2.1). Returns (difference, new pos)."""
+    e = lookup[(win[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
+    if not e:
+        _corrupt(br.offset + (pos >> 3), "a bit pattern that is no Huffman code")
+    pos += e >> 8
+    s = e & 0xFF
+    if not s:
+        return 0, pos
+    r = (win[pos >> 3] >> (32 - (pos & 7) - s)) & ((1 << s) - 1)
+    if r < 1 << (s - 1):
+        r += (-1 << s) + 1
+    return r, pos + s
+
+
+def _scan_blocks(comps, scomps, mcux, mcuy):
+    """The blocks of a scan in stream order: per MCU a list of (component
+    index within the scan, coefficient offset). A one-component scan is
+    non-interleaved: one block an MCU over the component's own block grid
+    (its samples rounded up to blocks, not to MCUs)."""
+    if len(scomps) == 1:
+        c = comps[scomps[0]]
+        cols, rows = -(-c.width // 8), -(-c.height // 8)
+        return [[(0, (by * c.bw + bx) * 64)] for by in range(rows) for bx in range(cols)]
+    mcus = []
+    for my in range(mcuy):
+        for mx in range(mcux):
+            blocks = []
+            for si, ci in enumerate(scomps):
+                c = comps[ci]
+                for y in range(c.v):
+                    for x in range(c.h):
+                        blocks.append((si, ((my * c.v + y) * c.bw + mx * c.h + x) * 64))
+            mcus.append(blocks)
+    return mcus
+
+
+def _decode_scan(intervals, mcus, restart, coefs, dc_tabs, ac_tabs, ss, se, ah, al,
+                 progressive):
+    """Entropy-decode one scan into `coefs` (per scan component, a flat list
+    of coefficients in zigzag order, 64 a block)."""
+    n_mcu = len(mcus)
+    per = restart if restart else n_mcu
+    if len(intervals) != -(-n_mcu // per):
+        _corrupt(intervals[-1][0], f"{len(intervals)} restart intervals where "
+                 f"{-(-n_mcu // per)} are due")
+    max_blocks = max(len(m) for m in mcus)
+    for ii, (offset, body) in enumerate(intervals):
+        br = _BitReader(offset, body, max_blocks * 64 * 4 + 8)
+        win, pos = br.win, 0
+        preds = [0] * len(coefs)
+        eobrun = 0
+        for mcu in mcus[ii * per:(ii + 1) * per]:
+            for si, base in mcu:
+                coef = coefs[si]
+                if not progressive:
+                    pos = _block_sequential(win, pos, coef, base, dc_tabs[si],
+                                            ac_tabs[si], preds, si, br)
+                elif ss == 0:
+                    if ah == 0:
+                        d, pos = _dc_diff(win, pos, dc_tabs[si], br)
+                        preds[si] += d
+                        coef[base] = preds[si] << al
+                    else:
+                        if (win[pos >> 3] >> (31 - (pos & 7))) & 1:
+                            coef[base] |= 1 << al
+                        pos += 1
+                elif ah == 0:
+                    if eobrun:
+                        eobrun -= 1
+                    else:
+                        pos, eobrun = _block_ac_first(win, pos, coef, base, ac_tabs[si],
+                                                      ss, se, al, br)
+                else:
+                    pos, eobrun = _block_ac_refine(win, pos, coef, base, ac_tabs[si],
+                                                   ss, se, al, eobrun, br)
+            _check_end(br, pos)
+
+
+def _block_sequential(win, pos, coef, base, dc, ac, preds, si, br):
+    d, pos = _dc_diff(win, pos, dc, br)
+    preds[si] += d
+    coef[base] = preds[si]
+    k = 1
+    while k < 64:
+        e = ac[(win[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
+        if not e:
+            _corrupt(br.offset + (pos >> 3), "a bit pattern that is no Huffman code")
+        pos += e >> 8
+        s = e & 15
+        if s:
+            k += (e >> 4) & 15
+            if k > 63:
+                _corrupt(br.offset + (pos >> 3), "an AC run past the block's end")
+            r = (win[pos >> 3] >> (32 - (pos & 7) - s)) & ((1 << s) - 1)
+            pos += s
+            if r < 1 << (s - 1):
+                r += (-1 << s) + 1
+            coef[base + k] = r
+            k += 1
+        elif (e & 0xFF) == 0xF0:
+            k += 16
+        else:
+            break
+    return pos
+
+
+def _block_ac_first(win, pos, coef, base, ac, ss, se, al, br):
+    k = ss
+    while k <= se:
+        e = ac[(win[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
+        if not e:
+            _corrupt(br.offset + (pos >> 3), "a bit pattern that is no Huffman code")
+        pos += e >> 8
+        s, r = e & 15, (e >> 4) & 15
+        if s:
+            k += r
+            if k > se:
+                _corrupt(br.offset + (pos >> 3), "an AC run past the band's end")
+            v = (win[pos >> 3] >> (32 - (pos & 7) - s)) & ((1 << s) - 1)
+            pos += s
+            if v < 1 << (s - 1):
+                v += (-1 << s) + 1
+            coef[base + k] = v << al
+            k += 1
+        elif r == 15:
+            k += 16
+        else:
+            eobrun = 1 << r
+            if r:
+                eobrun += (win[pos >> 3] >> (32 - (pos & 7) - r)) & ((1 << r) - 1)
+                pos += r
+            return pos, eobrun - 1
+    return pos, 0
+
+
+def _block_ac_refine(win, pos, coef, base, ac, ss, se, al, eobrun, br):
+    """jdphuff.c decode_mcu_AC_refine for one block."""
+    p1, m1 = 1 << al, -1 << al
+    k = ss
+    if eobrun == 0:
+        while k <= se:
+            e = ac[(win[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
+            if not e:
+                _corrupt(br.offset + (pos >> 3), "a bit pattern that is no Huffman code")
+            pos += e >> 8
+            s, r = e & 15, (e >> 4) & 15
+            if s:
+                if s != 1:
+                    _corrupt(br.offset + (pos >> 3), "a refinement coefficient wider than 1 bit")
+                s = p1 if (win[pos >> 3] >> (31 - (pos & 7))) & 1 else m1
+                pos += 1
+            elif r != 15:
+                eobrun = 1 << r
+                if r:
+                    eobrun += (win[pos >> 3] >> (32 - (pos & 7) - r)) & ((1 << r) - 1)
+                    pos += r
+                break
+            # skip already-nonzero coefficients (refining each) and r zeros
+            while k <= se:
+                i = base + k
+                c = coef[i]
+                if c:
+                    if (win[pos >> 3] >> (31 - (pos & 7))) & 1 and not c & p1:
+                        coef[i] = c + (p1 if c >= 0 else m1)
+                    pos += 1
+                else:
+                    r -= 1
+                    if r < 0:
+                        break
+                k += 1
+            if s:
+                if k > se:
+                    _corrupt(br.offset + (pos >> 3), "a refinement run past the band's end")
+                coef[base + k] = s
+            k += 1
+    if eobrun > 0:
+        for k in range(k, se + 1):
+            i = base + k
+            c = coef[i]
+            if c:
+                if (win[pos >> 3] >> (31 - (pos & 7))) & 1 and not c & p1:
+                    coef[i] = c + (p1 if c >= 0 else m1)
+                pos += 1
+        eobrun -= 1
+    return pos, eobrun
+
+
+def _idct_1d(x, axis: int):
+    """jidctint.c's 1-D islow transform along `axis` (exact in int64),
+    before the final descale: the eight outputs in order."""
+    t = [np.take(x, i, axis=axis) for i in range(8)]
+    z1 = (t[2] + t[6]) * _F_0_541
+    tmp2 = z1 - t[6] * _F_1_847
+    tmp3 = z1 + t[2] * _F_0_765
+    tmp0 = (t[0] + t[4]) << _CONST_BITS
+    tmp1 = (t[0] - t[4]) << _CONST_BITS
+    tmp10, tmp13 = tmp0 + tmp3, tmp0 - tmp3
+    tmp11, tmp12 = tmp1 + tmp2, tmp1 - tmp2
+    o0, o1, o2, o3 = t[7], t[5], t[3], t[1]
+    z1, z2, z3, z4 = o0 + o3, o1 + o2, o0 + o2, o1 + o3
+    z5 = (z3 + z4) * _F_1_175
+    o0 = o0 * _F_0_298
+    o1 = o1 * _F_2_053
+    o2 = o2 * _F_3_072
+    o3 = o3 * _F_1_501
+    z1 = z1 * -_F_0_899
+    z2 = z2 * -_F_2_562
+    z3 = z3 * -_F_1_961 + z5
+    z4 = z4 * -_F_0_390 + z5
+    o0 += z1 + z3
+    o1 += z2 + z4
+    o2 += z2 + z3
+    o3 += z1 + z4
+    return [tmp10 + o3, tmp11 + o2, tmp12 + o1, tmp13 + o0,
+            tmp13 - o0, tmp12 - o1, tmp11 - o2, tmp10 - o3]
+
+
+def _descale(x, n: int):
+    return (x + (1 << (n - 1))) >> n
+
+
+def _idct_islow(coef: np.ndarray, qtable: np.ndarray) -> np.ndarray:
+    """Dequantise and inverse-transform blocks: coef [n, 64] (natural order)
+    and qtable [64] → [n, 8, 8] u8 samples, as jpeg_idct_islow."""
+    blocks = (coef.astype(np.int64) * qtable.astype(np.int64)).reshape(-1, 8, 8)
+    # pass 1: columns (down axis 1) into the int workspace
+    ws = np.stack([_descale(r, _CONST_BITS - _PASS1_BITS)
+                   for r in _idct_1d(blocks, 1)], axis=1)
+    # pass 2: rows, descaled by another PASS1_BITS + 3 and range-limited
+    out = np.stack([_descale(c, _CONST_BITS + _PASS1_BITS + 3)
+                    for c in _idct_1d(ws, 2)], axis=2)
+    return _RANGE_LIMIT[out & 1023]
+
+
+def _upsample_h2(x: np.ndarray, width: int) -> np.ndarray:
+    """jdsample.c h2v1_fancy_upsample on the first `width` columns of each
+    row, as int64 (ends replicated: equal to the C code's special cases)."""
+    x = x[:, :width].astype(np.int64)
+    left = np.concatenate([x[:, :1], x[:, :-1]], axis=1)
+    right = np.concatenate([x[:, 1:], x[:, -1:]], axis=1)
+    out = np.empty((x.shape[0], 2 * width), np.int64)
+    out[:, 0::2] = (3 * x + left + 1) >> 2
+    out[:, 1::2] = (3 * x + right + 2) >> 2
+    return out
+
+
+def _upsample_h2v2(x: np.ndarray, width: int, height: int) -> np.ndarray:
+    """jdsample.c h2v2_fancy_upsample over the component's real samples
+    [height, width]: each output row weighs its nearer input row 3:1 with
+    the next nearer (rows clamped at the edges, as jdmainct.c pads the
+    context rows), then columns likewise, rounding with 8 and 7."""
+    x = x[:height, :width].astype(np.int64)
+    up = np.concatenate([x[:1], x[:-1]], axis=0)
+    down = np.concatenate([x[1:], x[-1:]], axis=0)
+    cols = np.empty((2 * height, width), np.int64)
+    cols[0::2] = 3 * x + up
+    cols[1::2] = 3 * x + down
+    left = np.concatenate([cols[:, :1], cols[:, :-1]], axis=1)
+    right = np.concatenate([cols[:, 1:], cols[:, -1:]], axis=1)
+    out = np.empty((2 * height, 2 * width), np.int64)
+    out[:, 0::2] = (3 * cols + left + 8) >> 4
+    out[:, 1::2] = (3 * cols + right + 7) >> 4
+    return out
+
+
+def _full_plane(c: _Component, samples: np.ndarray, hmax: int, vmax: int,
+                width: int, height: int) -> np.ndarray:
+    """The component's samples ([bh*8, bw*8] u8) brought to the image's full
+    [height, width]."""
+    ex, ey = hmax // c.h, vmax // c.v
+    if (ex, ey) == (1, 1):
+        return samples[:height, :width]
+    if c.width > 2:  # jdsample.c: fancy only for components over 2 wide
+        if ey == 1:
+            out = _upsample_h2(samples[:c.height], c.width)
+        else:
+            out = _upsample_h2v2(samples, c.width, c.height)
+    else:  # box replication (h2v1_upsample / h2v2_upsample)
+        out = np.repeat(samples[:c.height, :c.width], 2, axis=1)
+        if ey == 2:
+            out = np.repeat(out, 2, axis=0)
+    return out[:height, :width]
+
+
+def _ycc_to_rgb(y, cb, cr) -> np.ndarray:
+    y = y.astype(np.int64)
+    cb, cr = cb.astype(np.intp), cr.astype(np.intp)
+    r = y + _CR_R[cr]
+    g = y + ((_CB_G[cb] + _CR_G[cr]) >> 16)
+    b = y + _CB_B[cb]
+    return np.clip(np.stack([r, g, b], axis=-1), 0, 255).astype(np.uint8)
+
+
+def _cmyk_to_rgb(cmyk) -> np.ndarray:
+    """Pillow's cmyk2rgb on the inverted Adobe samples ("CMYK;I")."""
+    c = 255 - cmyk.astype(np.int64)
+    nk = 255 - c[..., 3:4]
+    t = c[..., :3] * nk + 128
+    return np.clip(nk - ((t + (t >> 8)) >> 8), 0, 255).astype(np.uint8)
+
+
+def decode_jpeg(data: bytes) -> np.ndarray:
+    """JPEG bytes → [h, w, 4] u8 RGBA, as Pillow's convert("RGBA") gives it
+    (module docstring). Raises ValueError on what it does not decode."""
+    data = bytes(data)
+    if not data.startswith(b"\xff\xd8"):
+        _corrupt(0, "no SOI marker")
+    qtables: dict[int, np.ndarray] = {}
+    dc_tables: dict[int, _Huffman] = {}
+    ac_tables: dict[int, _Huffman] = {}
+    comps: list[_Component] = []
+    frame = None
+    restart = 0
+    jfif = False
+    adobe = None
+    scans = 0
+    pos = 2
+    while True:
+        code, mpos = _markers(data, pos)
+        if code == 0xD9:  # EOI
+            break
+        if code in _REFUSED_SOF:
+            _refuse(_REFUSED_SOF[code] + " JPEG")
+        if code in _REFUSED_OTHER:
+            _refuse(_REFUSED_OTHER[code])
+        if code == 0x01 or 0xD0 <= code <= 0xD8:
+            _corrupt(mpos, f"a stray 0xFF{code:02X} marker")
+        body, pos = _payload(data, mpos)
+        if code in (0xC0, 0xC1, 0xC2):
+            if frame is not None:
+                _corrupt(mpos, "a second frame header")
+            if len(body) < 6:
+                _corrupt(mpos, "a short frame header")
+            precision, height, width, nf = struct.unpack(">BHHB", body[:6])
+            if precision != 8:
+                _refuse(f"{precision}-bit sample precision")
+            if height == 0:
+                _refuse("a DNL marker (image height given after the first scan)")
+            if width == 0 or nf not in (1, 3, 4) or len(body) < 6 + 3 * nf:
+                _corrupt(mpos, f"a frame of {width}x{height} with {nf} components")
+            for i in range(nf):
+                c = _Component()
+                c.cid, hv, c.tq = body[6 + 3 * i:9 + 3 * i]
+                c.h, c.v = hv >> 4, hv & 15
+                c.qtable = None
+                if not (1 <= c.h <= 4 and 1 <= c.v <= 4) or c.tq > 3:
+                    _corrupt(mpos, f"component {i} sampling {c.h}x{c.v} table {c.tq}")
+                comps.append(c)
+            frame = (code == 0xC2, width, height)
+        elif code == 0xC4:  # DHT
+            i = 0
+            while i < len(body):
+                if i + 17 > len(body):
+                    _corrupt(mpos, "a short Huffman table")
+                tc, th = body[i] >> 4, body[i] & 15
+                counts = body[i + 1:i + 17]
+                n = sum(counts)
+                if tc > 1 or th > 3 or i + 17 + n > len(body):
+                    _corrupt(mpos, f"a Huffman table of class {tc} id {th}")
+                table = _Huffman(counts, body[i + 17:i + 17 + n], mpos)
+                (ac_tables if tc else dc_tables)[th] = table
+                i += 17 + n
+        elif code == 0xDB:  # DQT
+            i = 0
+            while i < len(body):
+                pq, tq = body[i] >> 4, body[i] & 15
+                size = 128 if pq else 64
+                if pq > 1 or tq > 3 or i + 1 + size > len(body):
+                    _corrupt(mpos, f"a quantisation table of precision {pq} id {tq}")
+                vals = np.frombuffer(body[i + 1:i + 1 + size], ">u2" if pq else np.uint8)
+                q = np.zeros(64, np.int64)
+                q[_ZIGZAG] = vals
+                qtables[tq] = q
+                i += 1 + size
+        elif code == 0xDD:  # DRI
+            if len(body) < 2:
+                _corrupt(mpos, "a short restart interval")
+            (restart,) = struct.unpack(">H", body[:2])
+        elif code == 0xE0 and body.startswith(b"JFIF\x00"):
+            jfif = True
+        elif code == 0xEE and body.startswith(b"Adobe") and len(body) >= 12:
+            adobe = body[11]
+        elif code == 0xDA:  # SOS
+            if frame is None:
+                _corrupt(mpos, "a scan before the frame header")
+            if scans == 0:
+                _setup(comps, frame, jfif, adobe)
+            pos = _scan(data, mpos, body, pos, frame, comps, qtables, dc_tables,
+                        ac_tables, restart)
+            scans += 1
+        elif 0xE0 <= code <= 0xEF or code == 0xFE:
+            pass  # APPn, COM
+        else:
+            _corrupt(mpos, f"an unknown marker 0xFF{code:02X}")
+    if frame is None or scans == 0:
+        _corrupt(pos, "no image data before EOI")
+    return _output(comps, frame, jfif, adobe)
+
+
+def _setup(comps, frame, jfif, adobe) -> None:
+    """Checks the colour space and sampling before the first scan, and
+    sizes each component's block grid (padded to whole MCUs)."""
+    _, width, height = frame
+    if len(comps) == 4 and adobe not in (None, 0):
+        # jdapimin.c: four components under any Adobe transform but 0
+        _refuse(f"YCCK colour (Adobe transform {adobe})")
+    hmax, vmax = max(c.h for c in comps), max(c.v for c in comps)
+    for c in comps:
+        ex, ey = hmax // c.h, vmax // c.v
+        if hmax % c.h or vmax % c.v or (ex, ey) not in ((1, 1), (2, 1), (2, 2)):
+            factors = ", ".join(f"{k.h}x{k.v}" for k in comps)
+            _refuse(f"sampling factors {factors} (only 4:4:4, 4:2:2 and 4:2:0)")
+    mcux, mcuy = -(-width // (8 * hmax)), -(-height // (8 * vmax))
+    for c in comps:
+        c.width = -(-width * c.h // hmax)
+        c.height = -(-height * c.v // vmax)
+        c.bw, c.bh = mcux * c.h, mcuy * c.v
+        c.coef = [0] * (c.bw * c.bh * 64)
+
+
+def _scan(data, mpos, body, pos, frame, comps, qtables, dc_tables, ac_tables,
+          restart) -> int:
+    """Reads one scan (its header `body`, its entropy data from pos) into
+    the components' coefficients; returns the offset of the next marker."""
+    progressive, width, height = frame
+    if not body or len(body) < 1 + 2 * body[0] + 3:
+        _corrupt(mpos, "a short scan header")
+    ns = body[0]
+    by_id = {c.cid: i for i, c in enumerate(comps)}
+    scomps, dcs, acs = [], [], []
+    for i in range(ns):
+        cid, t = body[1 + 2 * i], body[2 + 2 * i]
+        if cid not in by_id:
+            _corrupt(mpos, f"a scan of unknown component id {cid}")
+        scomps.append(by_id[cid])
+        dcs.append(t >> 4)
+        acs.append(t & 15)
+    ss, se, a = body[1 + 2 * ns:4 + 2 * ns]
+    ah, al = a >> 4, a & 15
+    if progressive:
+        bad = (ss > se or se > 63 or al > 13 or (ss == 0 and se != 0)
+               or (ss > 0 and ns != 1))
+    else:
+        bad = ss != 0 or se != 63 or ah or al
+    if bad or not 1 <= ns <= 4 or len(set(scomps)) != ns:
+        _corrupt(mpos, f"a scan with Ss={ss} Se={se} Ah={ah} Al={al} over {ns} components")
+    for ci in scomps:  # jdinput.c latch_quant_tables: at a component's first scan
+        c = comps[ci]
+        if c.qtable is None:
+            if c.tq not in qtables:
+                _corrupt(mpos, f"quantisation table {c.tq} is not defined")
+            c.qtable = qtables[c.tq].copy()
+    need_dc = ss == 0 and ah == 0
+    need_ac = ss > 0 or not progressive
+    dc_tabs, ac_tabs = [], []
+    for d, t in zip(dcs, acs):
+        if (need_dc and d not in dc_tables) or (need_ac and t not in ac_tables):
+            _corrupt(mpos, f"a scan with undefined Huffman tables {d}/{t}")
+        dc_tabs.append(dc_tables[d].lookup if need_dc else None)
+        ac_tabs.append(ac_tables[t].lookup if need_ac else None)
+    hmax, vmax = max(c.h for c in comps), max(c.v for c in comps)
+    mcus = _scan_blocks(comps, scomps, -(-width // (8 * hmax)), -(-height // (8 * vmax)))
+    intervals, end = _entropy_data(data, pos)
+    _decode_scan(intervals, mcus, restart, [comps[ci].coef for ci in scomps], dc_tabs,
+                 ac_tabs, ss, se, ah, al, progressive)
+    return end
+
+
+def _output(comps, frame, jfif, adobe) -> np.ndarray:
+    _, width, height = frame
+    hmax, vmax = max(c.h for c in comps), max(c.v for c in comps)
+    planes = []
+    for c in comps:
+        if c.qtable is None:
+            _corrupt(0, f"component {c.cid} has no scan")
+        coef = np.asarray(c.coef, np.int64).reshape(-1, 64)
+        natural = np.empty_like(coef)
+        natural[:, _ZIGZAG] = coef
+        samples = _idct_islow(natural, c.qtable).reshape(c.bh, c.bw, 8, 8).transpose(
+            0, 2, 1, 3).reshape(c.bh * 8, c.bw * 8)
+        planes.append(_full_plane(c, samples, hmax, vmax, width, height))
+    out = np.empty((height, width, 4), np.uint8)
+    out[..., 3] = 255
+    if len(comps) == 1:
+        out[..., :3] = planes[0][..., None]
+    elif len(comps) == 4:
+        out[..., :3] = _cmyk_to_rgb(np.stack(planes, axis=-1))
+    elif _is_rgb(comps, jfif, adobe):
+        out[..., :3] = np.stack(planes, axis=-1)
+    else:
+        out[..., :3] = _ycc_to_rgb(*planes)
+    return out
+
+
+def _is_rgb(comps, jfif: bool, adobe) -> bool:
+    """jdapimin.c default_decompress_parms for three components."""
+    if jfif:
+        return False
+    if adobe is not None:
+        return adobe == 0
+    return [c.cid for c in comps] == [82, 71, 66]  # 'R', 'G', 'B'

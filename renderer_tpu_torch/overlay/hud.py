@@ -12,9 +12,13 @@ the span's share of its section root (the reference's percentage coloring,
 main.rs:795-818) — rendered THROUGH the raster pipeline's UI pass
 (raster/ui_stage.py), exactly the reference's pass position. Collapse state
 is an explicit `collapsed` set (headless engine: the caller owns input).
+`draw_hud` composites the flat window onto an image on the host, for
+annotating images outside a render loop, without Pillow.
 """
 
 from __future__ import annotations
+
+import numpy as np
 
 from renderer_tpu_torch.engine.profiling import Profiler, Span
 from renderer_tpu_torch.engine.stats import format_bytes, memory_usage
@@ -24,6 +28,7 @@ from renderer_tpu_torch.engine.stats import format_bytes, memory_usage
 # heavy ones stand out.
 _COL_HEADER = (160, 190, 255, 255)
 _COL_TEXT = (220, 220, 230, 255)
+_COL_BG = (20, 20, 28)  # draw_hud's window, blended at its alpha
 
 
 def _pct_color(pct: float) -> tuple[int, int, int, int]:
@@ -130,3 +135,54 @@ def build_hud_drawlist(
         ui.add_text((x0, y0 + i * line_h), text, color, font, registry)
     ui.pop_clip_rect()
     return ui
+
+
+def _blend(dst: np.ndarray, mask, ink) -> None:
+    """Pillow's ImageDraw blend of an RGBA ink onto RGB pixels, in place:
+    dst = DIV255(dst * (255 - mask) + ink * mask), DIV255(a) = ((a + 128)
+    + ((a + 128) >> 8)) >> 8 (libImaging's BLEND)."""
+    m = np.asarray(mask, np.int32)[..., None]
+    t = dst.astype(np.int32) * (255 - m) + np.asarray(ink, np.int32) * m + 128
+    dst[...] = ((t >> 8) + t) >> 8
+
+
+def draw_hud(
+    img: np.ndarray,
+    profiler: Profiler | None = None,
+    extra_lines: list[str] | None = None,
+    *,
+    origin: tuple[int, int] = (8, 8),
+    alpha: float = 0.65,
+    device="cuda",
+) -> np.ndarray:
+    """A copy of `img` (u8 [H, W, 3]) with the stats window (hud_lines, the
+    memory of `device`) composited on the host, for annotating images
+    outside a render loop; the in-frame HUD is build_hud_drawlist. The
+    window is the JAX package's host fallback drawn without Pillow: the same
+    box (12-pixel lines, 6 pixels a character, inclusive corners) blended
+    at `alpha` and the text at the font atlas's coverage
+    (ui/font.Font.line_coverage), both with Pillow's blend."""
+    from renderer_tpu_torch.ui import get_font
+
+    lines = hud_lines(profiler, extra_lines, device=device)
+    if not lines:
+        return img
+    out = np.array(img, np.uint8)
+    h, w = out.shape[:2]
+    x0, y0 = origin
+    line_h = 12
+    wmax = max(6 * max(len(line) for line in lines) + 12, 120)
+    hmax = line_h * len(lines) + 10
+    bx0, by0 = max(x0 - 4, 0), max(y0 - 4, 0)
+    bx1, by1 = min(x0 + wmax + 1, w), min(y0 + hmax + 1, h)
+    if bx0 < bx1 and by0 < by1:
+        _blend(out[by0:by1, bx0:bx1], int(alpha * 255), _COL_BG)
+    font = get_font()
+    for i, line in enumerate(lines):
+        cov = font.line_coverage(line)
+        ty, tx = y0 + i * line_h, x0 - 1  # column 0 is left of the origin
+        ys, xs = max(ty, 0), max(tx, 0)
+        ye, xe = min(ty + cov.shape[0], h), min(tx + cov.shape[1], w)
+        if ys < ye and xs < xe:
+            _blend(out[ys:ye, xs:xe], cov[ys - ty:ye - ty, xs - tx:xe - tx], _COL_TEXT[:3])
+    return out

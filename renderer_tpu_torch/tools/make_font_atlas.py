@@ -27,7 +27,10 @@ OUT = Path(__file__).resolve().parents[1] / "ui" / "font_atlas.npz"
 
 def rasterize():
     """(coverage u8 [H, W], line_height, glyph table f32 [95, 7] of
-    u0 v0 u1 v1 width height advance), in character order."""
+    u0 v0 u1 v1 width height advance, text advances i32 [95]), in
+    character order. The text advance is the pen step of Pillow's
+    `ImageDraw.text` (`getlength`), which overlay/hud.draw_hud lays lines
+    out with."""
     from PIL import Image, ImageDraw, ImageFont
 
     pil_font = ImageFont.load_default()
@@ -57,13 +60,15 @@ def rasterize():
         w, _h = boxes[ch]
         table[i] = (cx / aw, cy / ah, (cx + w) / aw,
                     (cy + line_height - 1) / ah, w, line_height - 1, w + 1)
-    return np.asarray(img, np.uint8), line_height, table
+    text_advance = np.array([pil_font.getlength(ch) for ch in chars], np.int32)
+    return np.asarray(img, np.uint8), line_height, table, text_advance
 
 
 def main() -> None:
-    coverage, line_height, table = rasterize()
+    coverage, line_height, table, text_advance = rasterize()
     np.savez_compressed(OUT, coverage=coverage,
-                        line_height=np.int32(line_height), glyphs=table)
+                        line_height=np.int32(line_height), glyphs=table,
+                        text_advance=text_advance)
     print(f"wrote {OUT}: coverage {coverage.shape}, line_height {line_height}, "
           f"{len(table)} glyphs")
 

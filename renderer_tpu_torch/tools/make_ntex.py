@@ -1,4 +1,5 @@
-"""make_ntex: the offline texture compiler, PNG images → BC7 .ntex files.
+"""make_ntex: the offline texture compiler, PNG and JPEG images → BC7 .ntex
+files.
 
 The reference's make-ntex CLI (make-ntex/src/main.rs:47-95): a full mip
 chain (Lanczos for colour, bilinear for non-colour data,
@@ -6,16 +7,17 @@ main.rs:150-156,201-209), BC7 compression (the host library's
 all-mode encoder, csrc/bc7enc.cpp through tools/native.py; the reference
 uses intel_tex at slow settings) and the 1024-byte ntex header.
 
-Without Pillow: images are decoded by assets/png.py (PNG only; anything
-else raises), and the mips come from tools/resample.py, which equals
-Pillow's LANCZOS / BILINEAR resize bit for bit, so the output equals the
-JAX package's tool (tools/make_ntex.py) byte for byte.
+Without Pillow: images are decoded by assets/image.py (PNG through
+assets/png.py, JPEG through assets/jpeg.py, each equal to Pillow's decode;
+anything else raises), and the mips come from tools/resample.py, which
+equals Pillow's LANCZOS / BILINEAR resize bit for bit, so the output equals
+the JAX package's tool (tools/make_ntex.py) byte for byte.
 
     python -m renderer_tpu_torch.tools.make_ntex [--overwrite] [--silent]
-        [--assume-color | --assume-linear] FILE.png [FILE.png ...]
+        [--assume-color | --assume-linear] FILE [FILE ...]
 
-Each FILE.png is written beside itself as FILE.ntex; an existing .ntex is
-skipped unless --overwrite.
+Each FILE (.png, .jpg, ...) is written beside itself as FILE.ntex; an
+existing .ntex is skipped unless --overwrite.
 """
 
 from __future__ import annotations
@@ -30,7 +32,7 @@ from pathlib import Path
 import numpy as np
 
 from renderer_tpu_torch.assets import ntex as ntex_mod
-from renderer_tpu_torch.assets import png
+from renderer_tpu_torch.assets.image import decode_image
 from renderer_tpu_torch.tools import native, resample
 
 
@@ -84,11 +86,12 @@ def is_color_image(path: Path, assume_color: bool, assume_linear: bool) -> bool:
 
 
 def read_image(path: Path) -> np.ndarray:
-    """RGBA u8 [h, w, 4] of a PNG file; other formats raise ValueError."""
-    data = path.read_bytes()
-    if not data.startswith(png.SIGNATURE):
-        raise ValueError(f"{path}: not a PNG file (make_ntex reads PNG only)")
-    return png.decode_png(data)
+    """RGBA u8 [h, w, 4] of a PNG or JPEG file; other formats raise
+    ValueError."""
+    try:
+        return decode_image(path.read_bytes())
+    except ValueError as e:
+        raise ValueError(f"{path}: {e}") from e
 
 
 def main(argv=None) -> int:

@@ -43,6 +43,7 @@ class Font:
             coverage = data["coverage"]
             self.line_height = int(data["line_height"])
             table = data["glyphs"]
+            text_advance = data["text_advance"]
         chars = [chr(c) for c in range(ASCII_FIRST, ASCII_LAST + 1)]
         if coverage.dtype != np.uint8 or table.shape != (len(chars), 7):
             raise ValueError(f"{path}: not a font atlas")
@@ -51,6 +52,9 @@ class Font:
                       int(h), int(adv))
             for ch, (u0, v0, u1, v1, w, h, adv) in zip(chars, table)
         }
+        # Pillow's pen step a character (ImageDraw.text), for line_coverage
+        self.text_advance = dict(zip(chars, text_advance.tolist()))
+        self._coverage = coverage
         rgba = np.zeros((*coverage.shape, 4), np.uint8)
         rgba[..., 0] = coverage  # alpha lives in R (R8 parity)
         rgba[..., 1] = rgba[..., 2] = coverage
@@ -74,6 +78,30 @@ class Font:
 
     def text_width(self, text: str) -> int:
         return sum(self.glyphs.get(c, self.glyphs["?"]).advance for c in text)
+
+    def line_coverage(self, text: str) -> np.ndarray:
+        """u8 [line_height - 1, w] coverage of `text` laid out as Pillow's
+        ImageDraw.text lays it out with this font, its column 0 one pixel
+        left of the text's origin (glyphs such as 's' and ')' reach one
+        column left of their pen; the atlas keeps that column just left of
+        their cells): each glyph's cell at its pen position (the sum of the
+        earlier text advances), a glyph over the ones before it as Pillow
+        composites them: DIV255(under * (255 - over) + over * 255)."""
+        h, aw = self.line_height - 1, self._coverage.shape[1]
+        ah = self._coverage.shape[0]
+        chars = [c if c in self.glyphs else "?" for c in text]
+        pens = np.cumsum([0] + [self.text_advance[c] for c in chars])
+        width = max([int(p) + self.glyphs[c].width for p, c in zip(pens, chars)] + [0])
+        out = np.zeros((h, width + 1), np.uint8)
+        for pen, c in zip(pens, chars):
+            g = self.glyphs[c]
+            x, y = round(g.u0 * aw), round(g.v0 * ah)
+            lead = min(x, 1)
+            cell = self._coverage[y:y + h, x - lead:x + g.width]
+            view = out[:, pen + 1 - lead:pen + 1 + g.width]
+            t = view.astype(np.int32) * (255 - cell) + cell.astype(np.int32) * 255 + 128
+            view[...] = ((t >> 8) + t) >> 8
+        return out
 
 
 _font: Font | None = None

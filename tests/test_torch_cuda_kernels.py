@@ -31,6 +31,7 @@ from tests.torch_bins import (
     ui_config,
     ui_drawlist,
 )
+from tests.torch_parity import build_scene
 
 GOLDEN = Path(__file__).parent / "golden" / "goldens.npz"
 pytestmark = pytest.mark.cuda
@@ -217,6 +218,39 @@ def test_renderer_on_card_matches_goldens(cuda, case):
     expected = np.load(GOLDEN)[case]
     diff = np.abs(img.astype(int) - expected.astype(int)).max(axis=-1)
     assert (diff > 2).mean() < 0.005
+
+
+def _switch_frames(device, name, **cfg_fields):
+    from dataclasses import replace
+
+    registry, scene, cfg = build_scene("renderer_tpu_torch", name)
+    r = trt.Renderer(registry, replace(cfg, **cfg_fields).validate(),
+                     overflow_policy="off", device=device)
+    return r.render_frame(scene, 0), r.frame_stats()
+
+
+def test_bf16_shading_on_the_card(cuda):
+    """tests/test_torch_switches.py's bf16 frame on the card: stats equal to
+    the CPU's, pixels within the golden tolerance, coverage equal to the
+    card's f32 frame."""
+    fields = dict(width=96, height=64, srgb_per_tap=False, aniso_samples=4)
+    b16, stats = _switch_frames(cuda, "sandbox-static", bf16_shading=True, **fields)
+    f32, _ = _switch_frames(cuda, "sandbox-static", **fields)
+    want, want_stats = _switch_frames("cpu", "sandbox-static", bf16_shading=True,
+                                      **fields)
+    assert stats == want_stats
+    diff = np.abs(b16.astype(int) - want.astype(int)).max(axis=-1)
+    assert (diff > 2).mean() < 0.005
+    np.testing.assert_array_equal(f32.sum(axis=-1) > 0, b16.sum(axis=-1) > 0)
+
+
+def test_shade_strips_bit_equal_on_the_card(cuda):
+    """Strip-mapped shading (shade_strip_elems 1) bit-equal to unstripped
+    on the card, the twin of tests/test_torch_switches.py's."""
+    plain, _ = _switch_frames(cuda, "strip-quads", shade_strip_elems=0)
+    striped, _ = _switch_frames(cuda, "strip-quads", shade_strip_elems=1)
+    assert plain.std() > 10
+    np.testing.assert_array_equal(plain, striped)
 
 
 # -- the multi-frame path: the frame captured as one CUDA graph ------------

@@ -1,0 +1,373 @@
+"""The port's JPEG decoder (renderer_tpu_torch/assets/jpeg.py) and its two
+callers, on the CPU, against Pillow (present here, absent on the card's
+machine).
+
+- decode_jpeg equals `Image.open(...).convert("RGBA")` bit for bit in every
+  mode Pillow writes: 4:4:4 / 4:2:2 / 4:2:0, baseline and progressive,
+  restart markers (by blocks and by rows), grey, CMYK, `keep_rgb`, 16-bit
+  quantisation tables (SOF1), optimised Huffman tables, APPn and COM
+  segments; at quality 50 and 95 and at sizes that are not whole MCUs.
+- Every variant it does not decode, and truncated or corrupt data, raise
+  ValueError naming the variant or the offset.
+- assets/image.decode_image dispatches by content.
+- make_ntex on a JPEG writes the JAX tool's .ntex bytes; a GLB with an
+  embedded JPEG loads to the JAX loader's textures (every mip).
+- tests/golden/torch-jpeg-vectors.npz (chip_smoke.py phase 11's vectors)
+  decodes to the Pillow decode it stores. Rewrite it here, with Pillow:
+
+    python -m tests.test_torch_jpeg regen
+"""
+
+from __future__ import annotations
+
+import hashlib
+import io
+import json
+import struct
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+
+from tests import torch_parity  # noqa: F401 — one torch thread a worker
+
+VECTORS = Path(__file__).parent / "golden" / "torch-jpeg-vectors.npz"
+# Pillow's save options of each mode (Pillow's subsampling 2 is 4:2:0)
+Q16 = [[100 + 7 * i for i in range(64)], [300 + 2 * i for i in range(64)]]
+MODES = {
+    "444": ("RGB", dict(subsampling=0)),
+    "422": ("RGB", dict(subsampling=1)),
+    "420": ("RGB", dict(subsampling=2)),
+    "444-progressive": ("RGB", dict(subsampling=0, progressive=True)),
+    "422-progressive": ("RGB", dict(subsampling=1, progressive=True)),
+    "420-progressive": ("RGB", dict(subsampling=2, progressive=True)),
+    "restart-blocks": ("RGB", dict(subsampling=2, restart_marker_blocks=2)),
+    "restart-rows-progressive": ("RGB", dict(subsampling=1, restart_marker_rows=1,
+                                             progressive=True)),
+    "grey": ("L", {}),
+    "grey-progressive": ("L", dict(progressive=True)),
+    "cmyk": ("CMYK", {}),
+    "cmyk-progressive": ("CMYK", dict(progressive=True)),
+    "keep-rgb": ("RGB", dict(keep_rgb=True)),
+    "dqt-16bit": ("RGB", dict(qtables=Q16, subsampling=2)),
+    "optimized": ("RGB", dict(optimize=True, subsampling=1)),
+    "app-com": ("RGB", dict(comment=b"a comment", icc_profile=b"\0" * 300)),
+}
+SIZES = [(37, 53), (1, 17)]  # (width, height): neither is whole MCUs
+BIG = 512  # the two large vectors, 512×512 4:2:0, baseline and progressive
+
+
+def _pixels(w: int, h: int, seed: int) -> np.ndarray:
+    """u8 [h, w, 4]: gradients, a hard edge and noise, so every frequency
+    and the clamps of the colour conversion are exercised."""
+    rng = np.random.default_rng(seed)
+    y, x = np.mgrid[0:h, 0:w].astype(np.float64)
+    img = np.stack([x * 255 / max(w - 1, 1), y * 255 / max(h - 1, 1),
+                    np.where((x // 5 + y // 7) % 2, 250.0, 10.0), (x * 3 + y * 5) % 256], -1)
+    img += rng.normal(0, 25, img.shape)
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def _texture(side: int) -> np.ndarray:
+    """u8 [side, side, 3]: a brick-like texture with mild noise (the large
+    vectors, and the base colour of chip_smoke.py's GLB)."""
+    rng = np.random.default_rng(8)
+    y, x = np.mgrid[0:side, 0:side].astype(np.float64)
+    row = y // 32
+    mortar = ((y % 32) < 3) | (((x + 32 * (row % 2)) % 64) < 3)
+    base = np.stack([150 + 40 * np.sin(x / 37), 70 + 30 * np.cos(y / 23), 50 + 0 * x], -1)
+    img = np.where(mortar[..., None], 200.0, base) + rng.normal(0, 4, (side, side, 3))
+    return np.clip(img, 0, 255).astype(np.uint8)
+
+
+def _encode(mode: str, w: int, h: int, quality: int, seed: int = 0) -> bytes:
+    from PIL import Image
+
+    pil_mode, opts = MODES[mode]
+    px = _pixels(w, h, seed)
+    im = Image.fromarray(px if pil_mode == "CMYK" else
+                         px[..., 0] if pil_mode == "L" else px[..., :3], pil_mode)
+    buf = io.BytesIO()
+    # Pillow scales explicit tables by a quality and then clamps them to
+    # 8 bits, so the 16-bit tables go in unscaled
+    im.save(buf, "JPEG", **opts, **({} if "qtables" in opts else {"quality": quality}))
+    return buf.getvalue()
+
+
+def _pillow(data: bytes) -> np.ndarray:
+    from PIL import Image
+
+    return np.asarray(Image.open(io.BytesIO(data)).convert("RGBA"))
+
+
+def _segments(data: bytes):
+    """(marker, payload) of each segment before the first SOS, then the
+    markers found in the rest (RSTn, SOS, EOI...) with empty payloads."""
+    pos, out = 2, []
+    while data[pos + 1] != 0xDA:
+        (n,) = struct.unpack(">H", data[pos + 2:pos + 4])
+        out.append((data[pos + 1], data[pos + 4:pos + 2 + n]))
+        pos += 2 + n
+    rest = data[pos:]
+    out += [(rest[i + 1], b"") for i in range(len(rest) - 1)
+            if rest[i] == 0xFF and rest[i + 1] not in (0x00, 0xFF)]
+    return out
+
+
+@pytest.mark.parametrize("quality", [50, 95])
+@pytest.mark.parametrize("w,h", SIZES)
+@pytest.mark.parametrize("mode", sorted(MODES))
+def test_decode_equals_pillow(mode, w, h, quality):
+    from renderer_tpu_torch.assets.jpeg import decode_jpeg
+
+    data = _encode(mode, w, h, quality, seed=w * 100 + h)
+    markers = [m for m, _ in _segments(data)]
+    # the file really is in the variant the mode names
+    sof = {0xC0, 0xC1, 0xC2} & set(markers)
+    assert sof == ({0xC2} if "progressive" in mode else
+                   {0xC1} if mode == "dqt-16bit" else {0xC0}), markers
+    if mode.startswith("restart"):
+        assert 0xDD in markers and (0xD0 in markers or w < 16)
+    if mode == "dqt-16bit":
+        assert any(m == 0xDB and p[0] >> 4 == 1 for m, p in _segments(data))
+    if mode == "optimized" or "progressive" in mode:
+        assert markers.count(0xC4) >= 2
+    got = decode_jpeg(data)
+    want = _pillow(data)
+    assert got.dtype == np.uint8 and got.shape == want.shape == (h, w, 4)
+    np.testing.assert_array_equal(got, want)
+
+
+def _replace_first(data: bytes, old: bytes, new: bytes) -> bytes:
+    i = data.index(old)
+    return data[:i] + new + data[i + len(old):]
+
+
+def _sof_offset(data: bytes) -> int:
+    for code in (0xC0, 0xC1, 0xC2):
+        i = data.find(bytes([0xFF, code]))
+        if i >= 0:
+            return i
+    raise AssertionError("no SOF")
+
+
+def _with_sof(code: int):
+    def fn(data):
+        i = _sof_offset(data)
+        return data[:i + 1] + bytes([code]) + data[i + 2:]
+    return fn
+
+
+def _set_byte(rel: int, value: int):
+    """Sets the byte `rel` bytes after the SOF marker's 0xFF."""
+    def fn(data):
+        i = _sof_offset(data) + rel
+        return data[:i] + bytes([value]) + data[i + 1:]
+    return fn
+
+
+def _scan_garbage(data: bytes) -> bytes:
+    """The first scan's entropy data replaced by all-ones bits (no Huffman
+    code is all ones)."""
+    sos = data.index(b"\xff\xda")
+    start = sos + 2 + struct.unpack(">H", data[sos + 2:sos + 4])[0]
+    return data[:start] + b"\xff\x00" * 40 + b"\xff\xd9"
+
+
+def _insert_before_sos(segment: bytes):
+    return lambda data: _replace_first(data, b"\xff\xda", segment + b"\xff\xda")
+
+
+def _adobe_transform(value: int):
+    def fn(data):
+        i = data.index(b"Adobe")
+        return data[:i + 11] + bytes([value]) + data[i + 12:]
+    return fn
+
+
+def _swap_rst(data: bytes) -> bytes:
+    i = data.index(b"\xff\xd0", data.index(b"\xff\xda"))
+    return data[:i + 1] + b"\xd1" + data[i + 2:]
+
+
+# (mode the file is made in, edit, message the ValueError must carry);
+# the SOF's component table starts 10 bytes after its 0xFF: id, h<<4|v, tq
+REFUSALS = {
+    "arithmetic-sof9": ("420", _with_sof(0xC9), "arithmetic-coded sequential"),
+    "arithmetic-sof10": ("420", _with_sof(0xCA), "arithmetic-coded progressive"),
+    "arithmetic-dac": ("420", _insert_before_sos(b"\xff\xcc\x00\x04\x00\x11"),
+                       "arithmetic coding"),
+    "lossless-sof3": ("420", _with_sof(0xC3), "lossless"),
+    "hierarchical-sof5": ("420", _with_sof(0xC5), "hierarchical"),
+    "hierarchical-dhp": ("420", _insert_before_sos(b"\xff\xde\x00\x02"), "hierarchical"),
+    "12-bit": ("420", _set_byte(4, 12), "12-bit sample precision"),
+    "ycck": ("cmyk", _adobe_transform(2), "YCCK"),
+    "sampling-4x1": ("420", _set_byte(11, 0x41), "sampling factors 4x1, 1x1, 1x1"),
+    "sampling-1x2": ("420", _set_byte(11, 0x12), "sampling factors 1x2, 1x1, 1x1"),
+    "sampling-3x1": ("420", _set_byte(11, 0x31), "sampling factors 3x1"),
+    "truncated-half": ("420", lambda d: d[:len(d) // 2], "corrupt or truncated"),
+    "truncated-no-eoi": ("420", lambda d: d[:-2], "corrupt or truncated"),
+    "truncated-header": ("420", lambda d: d[:40], "corrupt or truncated"),
+    "truncated-progressive": ("420-progressive", lambda d: d[:len(d) * 2 // 3],
+                              "corrupt or truncated"),
+    "no-huffman-code": ("420", _scan_garbage, "no Huffman code"),
+    "restart-out-of-order": ("restart-blocks", _swap_rst, "restart marker RST1"),
+    "not-a-jpeg": ("420", lambda d: b"GIF89a" + d[6:], "no SOI"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(REFUSALS))
+def test_refuses(case):
+    from renderer_tpu_torch.assets.jpeg import decode_jpeg
+
+    mode, edit, message = REFUSALS[case]
+    data = edit(_encode(mode, 37, 53, 75))
+    with pytest.raises(ValueError, match=message):
+        decode_jpeg(data)
+
+
+def test_decode_image_dispatches_by_content():
+    from renderer_tpu_torch.assets import png
+    from renderer_tpu_torch.assets.image import decode_image
+
+    jpg = _encode("420", 37, 53, 75)
+    np.testing.assert_array_equal(decode_image(jpg), _pillow(jpg))
+    rgba = _pixels(9, 7, 3)
+    np.testing.assert_array_equal(decode_image(png.encode_png(rgba)), rgba)
+    with pytest.raises(ValueError, match="not a PNG or JPEG image .it starts 47 49 46"):
+        decode_image(b"GIF89a\x01\x00")
+    with pytest.raises(ValueError, match="not a PNG or JPEG image"):
+        decode_image(b"")
+
+
+@pytest.mark.parametrize("mode", ["420", "grey-progressive"])
+def test_make_ntex_on_a_jpeg_equals_the_jax_tool(tmp_path, mode):
+    from renderer_tpu_torch.tools import make_ntex
+    from tools import make_ntex as jmake_ntex
+
+    data = _encode(mode, 45, 30, 80)
+    paths = []
+    for sub in ("port", "jax"):
+        (tmp_path / sub).mkdir()
+        paths.append(tmp_path / sub / "wall.jpg")
+        paths[-1].write_bytes(data)
+    assert make_ntex.main(["--silent", str(paths[0])]) == 0
+    assert jmake_ntex.main(["--silent", str(paths[1])]) == 0
+    got, want = (p.with_suffix(".ntex").read_bytes() for p in paths)
+    assert len(got) > 1024 and got == want
+
+
+# -- a GLB with an embedded JPEG, through both loaders ------------------------
+
+def _jpeg_glb(jpeg: bytes, mime: str) -> bytes:
+    """The loader fixture (tests/fixtures/strided.gltf) as one GLB whose
+    embedded image is `jpeg` (a bufferView in the BIN chunk, declared as
+    `mime`)."""
+    from tests.make_loader_fixture import BIN_PATH, GLTF_PATH
+
+    gltf = json.loads(GLTF_PATH.read_text())
+    binc = bytearray(BIN_PATH.read_bytes())
+    binc += b"\0" * (-len(binc) % 4)
+    gltf["bufferViews"].append({"buffer": 0, "byteOffset": len(binc),
+                                "byteLength": len(jpeg)})
+    binc += jpeg
+    binc += b"\0" * (-len(binc) % 4)
+    del gltf["buffers"][0]["uri"]
+    gltf["buffers"][0]["byteLength"] = len(binc)
+    gltf["images"][0] = {"bufferView": len(gltf["bufferViews"]) - 1, "mimeType": mime}
+    js = json.dumps(gltf).encode()
+    js += b" " * (-len(js) % 4)
+    body = (struct.pack("<II", len(js), 0x4E4F534A) + js
+            + struct.pack("<II", len(binc), 0x004E4942) + bytes(binc))
+    return struct.pack("<III", 0x46546C67, 2, 12 + len(body)) + body
+
+
+def _load(pkg, loader, path):
+    registry, builder = pkg.MaterialRegistry(), pkg.VertexLibraryBuilder()
+    kw = {"device": "cpu"} if pkg.__name__ == "renderer_tpu_torch" else {}
+    return loader.load_gltf(path, builder, registry, **kw)
+
+
+@pytest.mark.parametrize("mime", ["image/jpeg", "image/png"])
+def test_glb_with_an_embedded_jpeg_loads_like_jax(tmp_path, mime):
+    """Every mip of the embedded JPEG's texture equals the JAX loader's
+    (Pillow's decode); the declared mimeType is ignored by both."""
+    import renderer_tpu as jrt
+    import renderer_tpu_torch as trt
+    from renderer_tpu.assets import gltf_loader as jgl
+    from renderer_tpu_torch.assets import gltf_loader as tgl
+
+    path = tmp_path / "jpeg.glb"
+    path.write_bytes(_jpeg_glb(_encode("420-progressive", 37, 53, 90), mime))
+    want, got = _load(jrt, jgl, path), _load(trt, tgl, path)
+    assert len(got.textures) == len(want.textures) == 1
+    a, b = want.textures[0], got.textures[0]
+    assert (a.kind, a.wrap_s, a.wrap_t) == (b.kind, b.wrap_s, b.wrap_t)
+    assert len(a.mips) == len(b.mips) > 1 and a.mips[0].shape == (53, 37, 4)
+    for x, y in zip(a.mips, b.mips, strict=True):
+        np.testing.assert_array_equal(y, x)
+
+
+def test_glb_with_a_truncated_jpeg_is_refused(tmp_path):
+    from renderer_tpu_torch.assets import gltf_loader as tgl
+    import renderer_tpu_torch as trt
+
+    data = _encode("420", 37, 53, 90)
+    path = tmp_path / "cut.glb"
+    path.write_bytes(_jpeg_glb(data[:len(data) // 2], "image/jpeg"))
+    with pytest.raises(tgl.GltfLoadingError, match="embedded image 0: JPEG: corrupt"):
+        _load(trt, tgl, path)
+
+
+# -- the card's vectors --------------------------------------------------------
+
+def test_vectors_decode_to_their_stored_pixels():
+    """Every entry of the vectors file decodes to the Pillow decode it
+    stores (small images) or to its SHA-256 (the two 512×512 ones); each
+    stored decode is Pillow's."""
+    from renderer_tpu_torch.assets.jpeg import decode_jpeg
+
+    z = np.load(VECTORS)
+    names = [k[:-len("_jpeg")] for k in z.files if k.endswith("_jpeg")]
+    assert set(MODES) | {"big-baseline-420", "big-progressive-420"} == set(names)
+    for name in names:
+        data = z[f"{name}_jpeg"].tobytes()
+        got = decode_jpeg(data)
+        if name.startswith("big-"):
+            assert got.shape == (BIG, BIG, 4)
+            assert hashlib.sha256(got.tobytes()).hexdigest() == str(z[f"{name}_sha256"])
+            assert hashlib.sha256(_pillow(data).tobytes()).hexdigest() == \
+                str(z[f"{name}_sha256"])
+        else:
+            np.testing.assert_array_equal(got, z[f"{name}_rgba"], err_msg=name)
+            np.testing.assert_array_equal(_pillow(data), z[f"{name}_rgba"], err_msg=name)
+
+
+def regen() -> None:
+    """Rewrites VECTORS with Pillow: every mode at 23×17, quality 75, with
+    Pillow's RGBA decode, and the 512×512 texture as baseline and
+    progressive 4:2:0 JPEGs, quality 90, with the SHA-256 of Pillow's
+    decode."""
+    from PIL import Image
+
+    out = {}
+    for name in sorted(MODES):
+        data = _encode(name, 23, 17, 75, seed=1)
+        out[f"{name}_jpeg"] = np.frombuffer(data, np.uint8)
+        out[f"{name}_rgba"] = _pillow(data)
+    tex = Image.fromarray(_texture(BIG))
+    for name, progressive in (("big-baseline-420", False), ("big-progressive-420", True)):
+        buf = io.BytesIO()
+        tex.save(buf, "JPEG", quality=90, subsampling=2, progressive=progressive)
+        data = buf.getvalue()
+        out[f"{name}_jpeg"] = np.frombuffer(data, np.uint8)
+        out[f"{name}_sha256"] = np.array(hashlib.sha256(_pillow(data).tobytes()).hexdigest())
+    np.savez_compressed(VECTORS, **out)
+    print(f"wrote {VECTORS} ({VECTORS.stat().st_size} bytes, {len(out) // 2} images)")
+
+
+if __name__ == "__main__":
+    if sys.argv[1:] != ["regen"]:
+        raise SystemExit("usage: python -m tests.test_torch_jpeg regen")
+    regen()

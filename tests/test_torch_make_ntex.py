@@ -8,7 +8,9 @@ its Pillow-free mip resize (tools/resample.py) on the CPU.
 - encode_ntex gives the JAX tool's bytes on the same PNG, and the port's
   PNG decode of it equals Pillow's.
 - The CLI: output equal to the JAX CLI's, skip without --overwrite,
-  --overwrite, --assume-linear, and the refusal of a file that is not PNG.
+  --overwrite, --assume-linear, and the refusal of a file that is neither
+  PNG nor JPEG, or a JPEG cut short (tests/test_torch_jpeg.py holds the
+  JPEG path against the JAX tool).
 """
 
 import numpy as np
@@ -129,7 +131,14 @@ def test_cli_reports_a_skip(tmp_path, capsys):
 
 
 def test_cli_refuses_what_is_not_png(tmp_path):
+    """Neither PNG nor JPEG (a GIF), and a JPEG cut short: both refused,
+    naming what was found; no .ntex is written."""
+    gif = tmp_path / "tex.gif"
+    gif.write_bytes(b"GIF89a\x01\x00\x01\x00")
+    with pytest.raises(ValueError, match="not a PNG or JPEG image"):
+        make_ntex.main(["--silent", str(gif)])
     path = tmp_path / "tex.jpg"
     path.write_bytes(b"\xff\xd8\xff\xe0 not a png")
-    with pytest.raises(ValueError, match="PNG"):
+    with pytest.raises(ValueError, match="JPEG: corrupt or truncated"):
         make_ntex.main(["--silent", str(path)])
+    assert not list(tmp_path.glob("*.ntex"))

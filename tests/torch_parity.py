@@ -51,7 +51,8 @@ def build_scene(root: str, name: str):
     """(registry, scene, config) of scene `name` built with package `root`
     ("renderer_tpu" or "renderer_tpu_torch"). "sandbox-static" is the
     mini-sandbox golden's six patches (tests/test_sandbox_golden.py)
-    without the skinned character and the HUD, at 4×MSAA."""
+    without the skinned character and the HUD, at 4×MSAA; "strip-quads"
+    the three alpha classes on quads for the shade-strip checks."""
     m = _mods(root)
     registry = m.MaterialRegistry()
     builder = m.VertexLibraryBuilder()
@@ -92,6 +93,29 @@ def build_scene(root: str, name: str):
         scene.queue_mesh(near, ghost, None, m.math3d.trs(
             translation=np.array([0.4, 0, 0.1], np.float32)))
         return registry, scene, m.RenderConfig(width=W, height=H)
+    if name == "strip-quads":
+        # tests/test_engine.py::test_shade_strips_bit_equal's scene, 128×64
+        # (its 128×96 cut by two tile rows): every stacked shade call site
+        # (solid candidates, the masked alpha test, blended layers)
+        back = _quad(m, builder, 2.0, half=2.0)
+        masked = _quad(m, builder, 1.5, half=0.5)
+        blended = _quad(m, builder, 1.0, half=0.4)
+        builder.build()
+        mats = [
+            registry.create_material("bg", m.PbrMaterialParameters(
+                base_color_factor=(0.8, 0.2, 0.1, 1))),
+            registry.create_material("mask", m.PbrMaterialParameters(
+                base_color_factor=(0.2, 0.9, 0.3, 0.6), alpha_cutoff=0.5,
+                alpha_mode=m.AlphaMode.ALPHA_TO_COVERAGE)),
+            registry.create_material("blend", m.PbrMaterialParameters(
+                base_color_factor=(0.1, 0.4, 0.9, 0.5),
+                alpha_mode=m.AlphaMode.BLENDED)),
+        ]
+        scene = m.Scene()
+        for mesh, mat in zip((back, masked, blended), mats):
+            scene.queue_mesh(mesh, mat, None, m.math3d.IDENTITY)
+        return registry, scene, m.RenderConfig(width=128, height=64, tile_h=16,
+                                               msaa_samples=4, shade_strip_elems=0)
     assert name == "sandbox-static", name
     base = np.zeros((64, 64, 4), np.uint8)
     base[..., 3] = 255
