@@ -115,6 +115,24 @@ tools.make_ntex's CLI on that JPEG and on a PNG of the port's decode of
 it: the two .ntex files must be byte-equal, and the card's BC7 decode of
 them equal to the CPU's.
 
+Phase 12 ("shading") holds the deferred-shading kernels (csrc/shade.cu)
+against their plain versions on the real frames: renderers for scenes A, B
+and C are built afresh, and every call one 1920×1080 frame of each makes to
+shade.shade_stack (S1), shade.alpha_stack (S2) and ui_stage.shade_ui_layer
+(S3) — every candidate stack and strip, with its own row0 — is recorded
+and run again through the kernel and through its plain version: ≤ 2^-12
+absolute, ≥ 99.9% of values within 2^-18, NaN where the plain version has
+NaN, cutoffs equal (the differing counts are printed). Each (kernel, scene)
+gives one row of the kernels line for all of that frame's calls of the
+kernel: ms as issued and queued, the plain version's ms (its comparison
+run), and a bound counted from the code (shade_work: FP32 operations and
+texel taps of the covered pixels at 67 TFLOP/s, each input and output byte
+of the frame's calls once at 3.35 TB/s). It then replays frames A, B and C
+as CUDA graphs (engine.stats.fused_frame_ms; the multi-frame path has no UI
+pass) beside phase 6's eager frames, and profiles one eager frame of B and
+C with torch.profiler (tools.frame_profile.profile_frame): kernel count,
+top ops, and the device share of S1-S3 and K1/K2.
+
 Each phase prints one line; any failure raises (exit code ≠ 0). The line
 before the last is a JSON object with one entry per kernel (with its
 launches in each phase); the last line is {"ok": true, "device": {...}}.
@@ -158,6 +176,7 @@ from renderer_tpu_torch.raster import (
     pipeline,
     raster_kernel,
     setup,
+    shade,
     ui_stage,
     vertex_stage,
 )
@@ -166,10 +185,12 @@ from renderer_tpu_torch.scene import draw_stream
 from renderer_tpu_torch.tools import (
     binning_scaling,
     frame_capture,
+    frame_profile,
     make_ntex,
     native,
     prologue_probe,
 )
+from renderer_tpu_torch.tools.shade_check import compare, recorded_shading, run_shading
 
 W, H = 1920, 1080
 # phase 6's timed frames a scene (B and C, ~7-8 s a frame, are cut to 6 to
@@ -214,6 +235,17 @@ JPEG_BIG = ("big-baseline-420", "big-progressive-420")  # the 512×512 vectors
 JPEG_REPS = 3  # decodes timed a large vector (the median is printed)
 GLB_PATCHES, GLB_GRID = 12, 24  # phase 11's GLB: patches of 2·24² triangles
 GLB_SMALL = (160, 96)  # its card-against-CPU frame
+REPLAYS = 4  # phase 12's graph replays a scene
+FLOPS_PER_S = 67e12  # H100 SXM FP32 outside the tensor cores (data sheet)
+# pipeline.launch_counts' keys → this script's counter names
+PIPELINE_KEYS = {"k1": "k1", "masked": "k2_masked", "blended": "k2_blended",
+                 "ui": "k2_ui", "shade": "s1", "alpha": "s2", "ui_shade": "s3"}
+# the shading kernels: (entry point, what it replaces in the JAX package)
+SHADE_KERNELS = {
+    "s1": ("S1 shade_stack", "renderer_tpu/raster/shade.py:329"),
+    "s2": ("S2 alpha_stack", "renderer_tpu/raster/shade.py:312"),
+    "s3": ("S3 shade_ui_layer", "renderer_tpu/raster/ui_stage.py:89"),
+}
 
 
 def scene_a():
@@ -236,14 +268,11 @@ def scene_c():
 
 
 def counters():
-    return {"k1": raster_kernel.launches, "k2_masked": layers.launches["masked"],
-            "k2_blended": layers.launches["blended"], "k2_ui": layers.launches["ui"]}
+    return {PIPELINE_KEYS[k]: v for k, v in pipeline.launch_counts().items()}
 
 
 def reset_counters():
-    raster_kernel.launches = 0
-    for mode in layers.launches:
-        layers.launches[mode] = 0
+    pipeline.add_launches({k: -v for k, v in pipeline.launch_counts().items()})
 
 
 def render_checked(renderer, scene, name, ui=None):
@@ -640,7 +669,8 @@ def _asset_checks_in(tmp: Path, dev, z, chain, shapes, registries) -> dict:
     loop_launches = counters()
     fs = loop["frame_stats"]
     bad = {k: fs[k] for k in OVERFLOW_STATS if fs[k]}
-    missing = [k for k in ("k1", "k2_masked", "k2_ui") if loop_launches[k] < 1]
+    missing = [k for k in ("k1", "k2_masked", "k2_ui", "s1", "s2", "s3")
+               if loop_launches[k] < 1]
     if bad or missing or fs["masked_demand_max"] < 1:
         raise RuntimeError(f"assets: run_loop overflow {bad}, not launched {missing}, "
                            f"masked demand {fs['masked_demand_max']}")
@@ -682,9 +712,10 @@ def frames_checks(dev, rb, sc_b, card) -> dict:
     replay_ms, cap = graph.replay_ms(), graph.captured
     if len(written) != FLY_FRAMES or imgs.shape != (FLY_FRAMES, H, W, 3):
         raise RuntimeError(f"frames: flythrough wrote {written}, images {imgs.shape}")
-    missing = {k: launches[k] for k in ("k1", "k2_masked", "k2_blended")
+    missing = {k: launches[k] for k in ("k1", "k2_masked", "k2_blended", "s1", "s2")
                if launches[k] < FLY_FRAMES}
-    if missing or min(cap.launches[m] for m in ("k1", "masked", "blended")) < 1:
+    if missing or min(cap.launches[m] for m in ("k1", "masked", "blended", "shade",
+                                                 "alpha")) < 1:
         raise RuntimeError(f"frames: launches {launches}, a graph replay "
                            f"{cap.launches}")
     bad = {k: stats[:, STAT_NAMES.index(k)].tolist() for k in OVERFLOW_STATS
@@ -1149,10 +1180,10 @@ def mesh_checks(dev, tmp: Path, card) -> tuple[dict, dict]:
         result["runs"][run] = {"pixels_differing": differing, "agreement": agree,
                                "total_pairs": [int(st[STAT_NAMES.index("total_pairs")])
                                                for _, st in got]}
-    launches = {"k1": 0, "k2_masked": 0, "k2_blended": 0, "k2_ui": 0}
+    launches = dict.fromkeys(PIPELINE_KEYS.values(), 0)
     for o in outs:
         for k, v in o["launches"].items():
-            launches["k1" if k == "k1" else f"k2_{k}"] += v
+            launches[PIPELINE_KEYS[k]] += v
     if min(launches["k1"], launches["k2_masked"], launches["k2_blended"]) < 4:
         raise RuntimeError(f"mesh: the ranks' launches {[o['launches'] for o in outs]}")
     result["launches_by_rank"] = [o["launches"] for o in outs]
@@ -1374,6 +1405,159 @@ def phase11(dev, card) -> tuple[dict, dict]:
     return out, launches
 
 
+def sampler_work(n: int, n_srgb: int, trilinear: bool, aniso: int,
+                 per_tap: bool) -> tuple[int, int]:
+    """(FP32 operations, texel taps) of one make_sampler sample at n pixels,
+    n_srgb of them on sRGB textures, counted from csrc/shade_common.cuh's
+    `sample`: 17 for the footprint and LOD, 4 a tap to accumulate and 4 to
+    scale; an anisotropic tap 4 (its uv) + 17 (LOD and the two-mip blend;
+    2 without trilinear); a mip 58 (address modes, texel coordinates, the
+    bilinear weights of four channels) and 4 texel reads. A decode after the
+    filter (not per tap) costs 3 × (5 + a pow counted as 8); a per-tap
+    decode reads the block's byte table."""
+    mips = 2 if trilinear else 1
+    ops = n * (17 + 4 * aniso + 4 + aniso * (4 + (17 if trilinear else 2) + mips * 58))
+    if not per_tap:
+        ops += n_srgb * aniso * mips * 3 * (5 + 8)
+    return ops, n * aniso * mips * 4
+
+
+def shade_work(counter, args, kw, outs, tensors: dict) -> tuple[int, int]:
+    """(FP32 operations, texel taps) one recorded call needs, counted from
+    csrc/shade.cu on this call's data: S1 shades covered (candidate,
+    pixel)s only (115 operations of perspective interpolation, four samples
+    — base colour, emissive, occlusion, normal — and 60 of lighting; the
+    scenes run the lit mode); S2 every (candidate, pixel) (interpolation and
+    one sample); S3 every (layer, pixel) (70 of affine interpolation and the
+    clip test, one trilinear sample, decoded after the filter). Adds the
+    call's input tensors to `tensors` (address → bytes; the recorded calls
+    hold them, so each is counted once) and its outputs under their own
+    keys."""
+    for a in (*args, *kw.values()):
+        for t in (a.values() if isinstance(a, dict) else [a]):
+            if isinstance(t, torch.Tensor):
+                tensors[t.data_ptr()] = t.numel() * t.element_size()
+    for i, t in enumerate(outs):
+        tensors[("out", len(tensors), i)] = t.numel() * t.element_size()
+    if counter == "s3":
+        lt, ui, mats = args
+        srgb = mats["atlas_srgb"][ui["tex_slot"].long().clamp(0, mats["atlas_srgb"].shape[0] - 1)]
+        slot_srgb = srgb[ui["tri_cmd"][lt.clamp(min=0).long()].long()] > 0
+        ops, taps = sampler_work(lt.numel(), int(slot_srgb.sum()), True, 1, False)
+        return ops + lt.numel() * 70, taps
+    tid = args[0]
+    n = int((tid >= 0).sum()) if counter == "s1" else tid.numel()
+    samples = 4 if counter == "s1" else 1
+    ops, taps = sampler_work(n, 0, kw["trilinear"], kw["aniso"], kw["srgb_per_tap"])
+    ops = samples * ops + n * (115 + (60 if counter == "s1" else 0))
+    return ops, samples * taps
+
+
+def shading_rows(scene, renderer, sc, ui, main_launches, card) -> list:
+    """Phase 12 on one scene: records one frame's shading calls, holds each
+    against its plain version (timed: plain_ms is that run's CUDA-event ms),
+    and returns one kernels-line row a kernel with the frame's calls timed
+    together."""
+    renderer.render_frame_device(sc, 0, ui=ui)  # grows the capacities
+    with recorded_shading() as calls:
+        renderer.render_frame_device(sc, 0, ui=ui)
+    torch.cuda.synchronize()
+    rows = []
+    for kind in sorted({k for k, _, _ in calls}):
+        counter = kind.lower()
+        mine = [(a, k) for c, a, k in calls if c == kind]
+        checks, plain_ms, work, tensors = [], 0.0, [0, 0], {}
+        for args, kw in mine:
+            got = run_shading(kind, args, kw, plain=False)
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            want = run_shading(kind, args, kw, plain=True)
+            e1.record()
+            torch.cuda.synchronize()
+            plain_ms += e0.elapsed_time(e1)
+            checks.append(compare(got, want))
+            if counter == "s2" and not torch.equal(got[1], want[1]):
+                raise RuntimeError(f"S2 cutoffs differ on scene {scene}")
+            work = [x + y for x, y in zip(work, shade_work(counter, args, kw, got, tensors))]
+            del got, want
+
+        def run(mine=mine, kind=kind):
+            for args, kw in mine:
+                run_shading(kind, args, kw, plain=False)
+
+        (ops, taps), n_bytes = work, sum(tensors.values())
+        ops_ms, bytes_ms = ops / FLOPS_PER_S * 1e3, n_bytes / BYTES_PER_S * 1e3
+        entry, replaces = SHADE_KERNELS[counter]
+        counts = {k: sum(c[k] for c in checks) for k in ("values", "differing",
+                                                         "over_fine", "nan")}
+        row = dict(
+            name=f"{entry} (scene {scene}, {W}x{H}, the frame's {len(mine)} calls, "
+                 f"shapes {[tuple(a[0].shape) for a, _ in mine]})",
+            route="cuda", source="renderer_tpu_torch/csrc/shade.cu", replaces=replaces,
+            launches=main_launches[counter],
+            max_abs_err=max(c["max_abs_err"] for c in checks), **counts,
+            # a row's 10 runs enqueue up to 140 launches, each through the
+            # wrapper's checks: the longer spin of engine.stats (~0.1 s)
+            ms=cuda_ms(run, 10), ms_queued=queued_ms(run, 10, engine_stats.SPIN_CYCLES),
+            plain_ms=plain_ms,
+            bound_ms=max(ops_ms, bytes_ms),
+            bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+            library_ms=None, launches_per_frame=None, operations=ops, bytes=n_bytes,
+            texel_taps=taps, scene=scene, counter=counter)
+        row["share"] = row["bound_ms"] / row["ms"]
+        print(f"kernel: {row['name']}: vs plain max_abs_err {row['max_abs_err']:.3e}, "
+              f"{counts['differing']} of {counts['values']} values differ in bits, "
+              f"{counts['over_fine']} by more than 2^-18, {counts['nan']} NaN | "
+              f"{row['ms']:.3f} ms (queued {row['ms_queued']:.3f}) vs plain "
+              f"{plain_ms:.1f} ms | bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
+              f"{ops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB, {taps / 1e9:.3f} G texel "
+              f"taps), share {row['share']:.1%} ({row['bound_ms'] / row['ms_queued']:.1%} "
+              f"queued) | {card}", flush=True)
+        rows.append(row)
+    return rows
+
+
+def phase12(dev, card, main_launches, frame_ms) -> tuple[list, dict]:
+    """Phase 12 (module docstring): the shading kernels against their plain
+    versions on scenes A, B and C, the frames replayed as graphs, and one
+    profiled frame of B and C."""
+    t0 = time.perf_counter()
+    reg_a, sc_a, cfg_a, pol_a = scene_a()
+    reg_b, sc_b, cfg_b, pol_b = scene_b()
+    frames_c, cfg_c, pol_c = scene_c()
+    ra = trt.Renderer(reg_a, cfg_a, overflow_policy=pol_a, device=dev)
+    rb = trt.Renderer(reg_b, cfg_b, overflow_policy=pol_b, device=dev)
+    rc = trt.Renderer(frames_c.registry, cfg_c, profiler=frames_c.profiler,
+                      overflow_policy=pol_c, device=dev)
+    sc_c, ui_c = frames_c.next()
+    rows = []
+    for name, r, sc, ui in (("A", ra, sc_a, None), ("B", rb, sc_b, None),
+                            ("C", rc, sc_c, ui_c)):
+        rows += shading_rows(name, r, sc, ui, main_launches, card)
+    replay = {name: engine_stats.fused_frame_ms(r, sc, iters=REPLAYS)
+              for name, r, sc in (("A", ra, sc_a), ("B", rb, sc_b), ("C", rc, sc_c))}
+    profiles = {"B": frame_profile.profile_frame(rb, sc_b),
+                "C": frame_profile.profile_frame(rc, sc_c, ui_c)}
+    out = {"replayed_frame_ms": replay, "eager_frame_ms": frame_ms,
+           "profiles": profiles, "seconds": time.perf_counter() - t0}
+    print(f"shading: frames replayed as CUDA graphs (median of {REPLAYS}, no UI pass) "
+          + ", ".join(f"{k} {v:.2f} ms" for k, v in replay.items())
+          + " vs eager (phase 6) " + ", ".join(f"{k} {v:.2f} ms" for k, v in frame_ms.items())
+          + f" | {card}", flush=True)
+    for name, p in profiles.items():
+        own = ", ".join(f"{k} {v['device_ms']:.3f} ms x{v['launches']} "
+                        f"({v['share']:.1%})" for k, v in p["own_kernels"].items())
+        print(f"shading: profiled eager frame {name}: {p['kernels_and_copies']} kernels "
+              f"and copies, device busy {p['device_busy_ms']:.2f} ms of "
+              f"{p['profiled_frame_ms']:.2f} ms | {own} | top ops "
+              f"{[(k, round(ms, 3), n) for k, ms, n in p['top_ops_device_ms'][:6]]} "
+              f"| {card}", flush=True)
+    print(f"phase 12 took {out['seconds']:.1f} s", flush=True)
+    del ra, rb, rc
+    torch.cuda.empty_cache()
+    return rows, out
+
+
 def cuda_ms(fn, reps: int) -> float:
     """Mean device milliseconds of fn() over `reps` back-to-back calls as
     the host issues them (CUDA events; the host's launch gaps included)."""
@@ -1388,16 +1572,16 @@ def cuda_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def queued_ms(fn, reps: int) -> float:
+def queued_ms(fn, reps: int, cycles: int = SPIN_CYCLES) -> float:
     """Mean device milliseconds of fn() over `reps` calls that the host
-    enqueues while a spin kernel (SPIN_CYCLES) holds the stream, so the
+    enqueues while a spin kernel of `cycles` holds the stream, so the
     events time the device's work without the host's launch gaps. Raises
     when the spin had ended before the last call was enqueued (the time
     would then be host-paced)."""
     fn()
     torch.cuda.synchronize()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    with engine_stats.held_stream(SPIN_CYCLES):
+    with engine_stats.held_stream(cycles):
         start.record()
         for _ in range(reps):
             fn()
@@ -1462,13 +1646,14 @@ def main() -> int:
     torch.cuda.synchronize()
     main_launches = counters()
     first_s = time.perf_counter() - t0
-    if moved_a["k1"] < 1 or moved_b["k1"] < 1 or moved_c["k1"] < 1:
-        raise RuntimeError(f"K1 not launched: A {moved_a} B {moved_b} C {moved_c}")
+    for name, moved in (("A", moved_a), ("B", moved_b), ("C", moved_c)):
+        if moved["k1"] < 1 or moved["s1"] < 1:
+            raise RuntimeError(f"K1 or S1 not launched for {name}: {moved}")
     for name, moved in (("B", moved_b), ("C", moved_c)):
-        if moved["k2_masked"] < 1 or moved["k2_blended"] < 1:
-            raise RuntimeError(f"K2 not launched in both modes for {name}: {moved}")
-    if moved_c["k2_ui"] < 1:
-        raise RuntimeError(f"K2's UI launch not made for C: {moved_c}")
+        if moved["k2_masked"] < 1 or moved["k2_blended"] < 1 or moved["s2"] < 1:
+            raise RuntimeError(f"K2 (both modes) or S2 not launched for {name}: {moved}")
+    if moved_c["k2_ui"] < 1 or moved_c["s3"] < 1:
+        raise RuntimeError(f"K2's UI launch or S3 not made for C: {moved_c}")
     print(f"main path: A {moved_a} B {moved_b} C {moved_c} first frames "
           f"{first_s:.1f} s | A total_pairs {stats_a['total_pairs']} | B total_pairs "
           f"{stats_b['total_pairs']} masked_demand {stats_b['masked_demand_max']} "
@@ -1545,6 +1730,10 @@ def main() -> int:
     # -- 11. JPEG: decode, a GLB with an embedded JPEG, make_ntex ----------
     jpeg_out, glb_launches = phase11(dev, card)
 
+    # -- 12. the shading kernels on scenes A-C, replayed frames, profiles --
+    shade_rows, shading = phase12(dev, card, main_launches, frame_ms)
+    results += shade_rows
+
     phases = {"3 main path": main_launches, "7 run_loop": assets["run_loop_launches"],
               "8 flythrough": frames["launches"], **tool_launches,
               "10 mesh": mesh_launches, "11 glb": glb_launches}
@@ -1552,14 +1741,16 @@ def main() -> int:
         counter = row.pop("counter")
         row["launches_per_frame"] = per_frame[row.pop("scene")][counter]
         row["launches_by_phase"] = {name: n[counter] for name, n in phases.items()}
-        del row["pairs"], row["n_s"], row["dense_ms"]
-    print(f"chip_smoke: phases 1-11 took {time.perf_counter() - script_t0:.1f} s", flush=True)
+        for key in ("pairs", "n_s", "dense_ms"):
+            row.pop(key, None)
+    print(f"chip_smoke: phases 1-12 took {time.perf_counter() - script_t0:.1f} s", flush=True)
     print(json.dumps({"frame_ms": frame_ms, "card": card}))
     print(json.dumps({"assets": assets, "card": card}))
     print(json.dumps({"frames": frames, "card": card}))
     print(json.dumps({"tools": tools, "card": card}))
     print(json.dumps({"phase10": extra, "card": card}))
     print(json.dumps({"phase11": jpeg_out, "card": card}))
+    print(json.dumps({"phase12": shading, "card": card}))
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -208,9 +208,15 @@ def device_stage_timings(renderer, scene, iters: int = 10,
     depth, trid = raster_fn(b, s, c)
     depth1, trid = depth, trid[0]  # [1, Hp, Wp] single-sample stage timings
 
-    def interpolants_of(t, geom_, vs_):
-        return shade.interpolants(t[: cfg.height, : cfg.width], geom_, vs_,
-                                  width=cfg.width, height=cfg.height)
+    # the stage's entry points (shade.shade_stack / alpha_stack: kernels S1
+    # and S2 on the card) on the image area of one map, at global row 0
+    row0 = torch.zeros((cfg.height, 1), dtype=torch.float32, device=dev)
+    shade_kw = dict(width=cfg.width, height=cfg.height, trilinear=cfg.trilinear,
+                    aniso=cfg.aniso_samples, srgb_per_tap=cfg.srgb_per_tap,
+                    compute_dtype=_shade_dt(cfg))
+
+    def crop(t):
+        return t[: cfg.height, : cfg.width].contiguous()
 
     n_masked = gs.num_masked_tris
     n_blended = gs.num_tris - gs.num_opaque_tris - gs.num_masked_tris
@@ -228,10 +234,8 @@ def device_stage_timings(renderer, scene, iters: int = 10,
         lt = lt[0]  # single-sample: [K, Hp, Wp]
 
         def alpha_fn(lt_, geom_, vs_, frame_, mats_):
-            it = interpolants_of(lt_[0], geom_, vs_)
-            return shade.base_alpha(it, frame_, mats_, cfg.trilinear,
-                                    cfg.aniso_samples, cfg.srgb_per_tap,
-                                    _shade_dt(cfg))
+            return shade.alpha_stack(crop(lt_[0]), row0, geom_, vs_, frame_,
+                                     mats_, **shade_kw)
 
         timings["masked alpha test (per layer)"] = timed(
             alpha_fn, lt, geom, vs, frame, mats)
@@ -245,20 +249,15 @@ def device_stage_timings(renderer, scene, iters: int = 10,
         ltb = ltb[0]
 
         def blend_fn(ltb_, geom_, vs_, frame_, mats_):
-            return shade.shade_interpolated(
-                interpolants_of(ltb_[0], geom_, vs_), vs_, frame_, mats_,
-                cfg.trilinear, cfg.aniso_samples, cfg.srgb_per_tap,
-                _shade_dt(cfg),
-            )
+            return shade.shade_stack(crop(ltb_[0]), row0, geom_, vs_, frame_,
+                                     mats_, **shade_kw)
 
         timings["blended shade (per layer)"] = timed(
             blend_fn, ltb, geom, vs, frame, mats)
 
     def shade_fn(trid_, geom_, vs_, frame_, mats_):
-        hdr = shade.shade(
-            trid_[: cfg.height, : cfg.width], geom_, vs_, frame_, mats_,
-            width=cfg.width, height=cfg.height,
-        )
+        hdr = shade.shade_stack(crop(trid_), row0, geom_, vs_, frame_, mats_,
+                                **shade_kw)
         return post.tonemap(hdr[..., :3])
 
     timings["deferred shade + tonemap"] = timed(shade_fn, trid, geom, vs, frame, mats)

@@ -52,7 +52,39 @@ _SIGNATURES = {
     # sample_xy, stream
     "rt_rasterize_layers": (_P, _L, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                             _I, _I, _I, _I, _I, _I, _I, _P, _P),
+    # the shading kernels (csrc/shade.cu) take a pointer to their argument
+    # structure (ShadeArgs, UiArgs) and the stream
+    "rt_shade_stack": (_P, _P),
+    "rt_alpha_stack": (_P, _P),
+    "rt_shade_ui": (_P, _P),
 }
+
+
+def _struct(name: str, pointers: tuple, longs: tuple, ints: tuple) -> type:
+    return type(name, (ctypes.Structure,), {"_fields_": (
+        [(f, _P) for f in pointers] + [(f, _L) for f in longs]
+        + [(f, _I) for f in ints])})
+
+
+#: csrc/shade_common.cuh `ShadeArgs`, field for field (S1 and S2)
+ShadeArgs = _struct(
+    "ShadeArgs",
+    ("tid", "row0", "tri_v", "clip", "uv", "normal", "tangent", "draw",
+     "material_id", "debug_id", "debug_mode", "atlas", "table", "srgb", "wrap",
+     "tex_indices", "base_color_factor", "emissive_occlusion", "arm", "out",
+     "out2"),
+    ("n_cand", "n_tris", "n_verts", "n_draws", "mat_stride", "dbg_stride",
+     "n_mats", "n_atlas", "n_tex"),
+    ("h", "w", "width", "height", "atlas_w", "trilinear", "aniso",
+     "srgb_per_tap", "bf16"))
+
+#: csrc/shade_common.cuh `UiArgs`, field for field (S3)
+UiArgs = _struct(
+    "UiArgs",
+    ("lt", "row0", "tris", "pos", "uv", "col", "tri_cmd", "cliprect",
+     "tex_kind", "tex_slot", "atlas", "table", "srgb", "wrap", "rgb", "alpha"),
+    ("n_cand", "n_tris", "n_verts", "n_cmds", "n_atlas", "n_tex"),
+    ("h", "w", "atlas_w"))
 
 
 def _nvcc() -> str:

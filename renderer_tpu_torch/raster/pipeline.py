@@ -236,9 +236,9 @@ def render_shard(
         """Peak per-(sample, pixel) fragment demand inside the image area."""
         return torch.amax(aux[:, :out_rows, : cfg.width])
 
-    def interpolants_of(tid, r0):
-        return shade.interpolants(tid, geom, vs, width=cfg.width,
-                                  height=cfg.height, row0=r0)
+    shade_kw = dict(width=cfg.width, height=cfg.height, trilinear=cfg.trilinear,
+                    aniso=cfg.aniso_samples, srgb_per_tap=cfg.srgb_per_tap,
+                    compute_dtype=shade_dt)
 
     # Shading runs PER DISTINCT TRIANGLE: candidates deduped across
     # samples/layers are shaded once and selected back per slot. Exact
@@ -265,9 +265,8 @@ def render_shard(
     def shade_candidates(cands: list) -> list:
         """Shade all candidate maps in ONE stacked [C,H,W] call, in
         tile-row strips past cfg.shade_strip_elems."""
-        out = striped(cands, lambda tid, r0: shade.shade_interpolated(
-            interpolants_of(tid, r0), vs, frame, materials,
-            cfg.trilinear, cfg.aniso_samples, cfg.srgb_per_tap, shade_dt))
+        out = striped(cands, lambda tid, r0: shade.shade_stack(
+            tid.contiguous(), r0, geom, vs, frame, materials, **shade_kw))
         return [out[i] for i in range(len(cands))]
 
     # -- phase 1: opaque + masked visibility (all samples per kernel pass) ---
@@ -285,9 +284,8 @@ def render_shard(
     if has_masked:
         slots = [lt_m[s, k] for s in range(msaa) for k in range(cfg.mask_layers)]
         cands = _extract_candidates(slots, min(len(slots), cfg.mask_layers + extra))
-        a_all, co_all = striped(cands, lambda tid, r0: shade.base_alpha(
-            interpolants_of(tid, r0), frame, materials,
-            cfg.trilinear, cfg.aniso_samples, cfg.srgb_per_tap, shade_dt))
+        a_all, co_all = striped(cands, lambda tid, r0: shade.alpha_stack(
+            tid.contiguous(), r0, geom, vs, frame, materials, **shade_kw))
         alphas = [a_all[i] for i in range(len(cands))]
         cutoffs = [co_all[i] for i in range(len(cands))]
         for s in range(msaa):
@@ -474,14 +472,19 @@ def _identity(tensors: dict) -> tuple:
 
 
 def launch_counts() -> dict:
-    """The hand-written kernels' launch counters: K1's and K2's per mode."""
-    return {"k1": raster_kernel.launches, **layers.launches}
+    """The hand-written kernels' launch counters: K1's, K2's per mode, and
+    the shading kernels S1 ("shade"), S2 ("alpha") and S3 ("ui_shade")."""
+    return {"k1": raster_kernel.launches, **layers.launches, **shade.launches,
+            "ui_shade": ui_stage.launches}
 
 
 def add_launches(delta: dict) -> None:
     raster_kernel.launches += delta["k1"]
     for mode in layers.launches:
         layers.launches[mode] += delta[mode]
+    for which in shade.launches:
+        shade.launches[which] += delta[which]
+    ui_stage.launches += delta["ui_shade"]
 
 
 class CapturedGraph:

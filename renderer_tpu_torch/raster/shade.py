@@ -24,13 +24,53 @@ Parity notes:
   descriptors.rs:90-105). sRGB decode runs per tap before the filter
   weights by default (`srgb_per_tap`, the hardware order); the
   fast_sampler() option decodes the filtered value instead.
+
+`shade_stack` and `alpha_stack` are the stage's entry points. They dispatch
+on the tensors' device: CPU tensors run the plain versions
+(shade_interpolated / base_alpha over interpolants), CUDA tensors launch the
+hand-written kernels S1 and S2 (csrc/shade.cu), which repeat the plain
+versions op for op. The plain versions write their short sums out as
+explicit adds, and multiply by the same f32 constants the kernels use, so
+that on the card both round alike.
 """
 
 from __future__ import annotations
 
+import ctypes
+
+import numpy as np
 import torch
 
+from renderer_tpu_torch import kernels
 from renderer_tpu_torch.materials.atlas import MAX_MIPS
+
+#: launches of the CUDA kernels in this process, S1 ("shade") and S2
+#: ("alpha"); the plain versions do not count
+launches = {"shade": 0, "alpha": 0}
+
+# f32 constants the plain versions multiply by, as the kernels do
+# (csrc/shade_common.cuh): exact f32 values, so a product rounds alike on
+# every device
+_INV_12_92 = float(np.float32(1) / np.float32(12.92))
+_INV_1_055 = float(np.float32(1) / np.float32(1.055))
+_INV_SQRT3 = float(np.float32(1) / np.sqrt(np.float32(3)))
+
+
+def _sum3(x: torch.Tensor) -> torch.Tensor:
+    """x[..., 0] + x[..., 1] + x[..., 2] added left to right in f32 and
+    rounded once to x's type (torch.sum's f32 accumulation of a bf16
+    tensor), in the kernels' order."""
+    f = x.to(torch.float32)
+    return (f[..., 0] + f[..., 1] + f[..., 2]).to(x.dtype)
+
+
+def _dot3(w: list, rows: torch.Tensor) -> torch.Tensor:
+    """w[0]·rows[..., 0, :] + w[1]·rows[..., 1, :] + w[2]·rows[..., 2, :]
+    (w: three [...] weights, rows [..., 3, K]) added left to right — the
+    barycentric interpolation the kernels do, in place of an einsum whose
+    order the library picks."""
+    return (w[0][..., None] * rows[..., 0, :] + w[1][..., None] * rows[..., 1, :]
+            + w[2][..., None] * rows[..., 2, :])
 
 
 def _rows(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -56,8 +96,8 @@ def _take(arr: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 
 
 def _srgb_decode(c):
-    lo = c / 12.92
-    hi = torch.pow((c + 0.055) / 1.055, 2.4)
+    lo = c * _INV_12_92
+    hi = torch.pow((c + 0.055) * _INV_1_055, 2.4)
     return torch.where(c <= 0.04045, lo, hi)
 
 
@@ -167,15 +207,17 @@ def make_sampler(materials: dict, uv, lod_base, trilinear: bool = True,
         # texture's (w, h) BEFORE the length reduction, so non-square
         # textures get the correct LOD on both axes.
         wh = sizes[..., 2:4].to(torch.float32)  # [...,2]
-        lx = torch.sqrt(torch.sum((duv_dx * wh) ** 2, dim=-1))
-        ly = torch.sqrt(torch.sum((duv_dy * wh) ** 2, dim=-1))
+        qx, qy = duv_dx * wh, duv_dy * wh
+        lx = torch.sqrt(qx[..., 0] * qx[..., 0] + qx[..., 1] * qx[..., 1])
+        ly = torch.sqrt(qy[..., 0] * qy[..., 0] + qy[..., 1] * qy[..., 1])
         rho_max = torch.clamp(torch.maximum(lx, ly), min=1e-8)
         if aniso <= 1:
             return sample_filtered(slot, torch.log2(rho_max), uv, wm)
         # anisotropy: lod from the MINOR footprint axis (clamped so the
         # major/minor ratio never exceeds the tap count), N trilinear taps
         # spread along the major axis.
-        rho_min = torch.maximum(torch.minimum(lx, ly), rho_max / aniso)
+        inv = float(np.float32(1) / np.float32(aniso))  # the kernels' 1.0f / aniso
+        rho_min = torch.maximum(torch.minimum(lx, ly), rho_max * inv)
         lodf = torch.log2(rho_min)
         major = torch.where((lx >= ly)[..., None], duv_dx, duv_dy)  # [...,2]
         acc = None
@@ -264,22 +306,20 @@ def interpolants(
     gsum = g0 + g1 + g2
     inv_gsum = torch.reciprocal(
         torch.where(torch.abs(gsum) > 1e-20, gsum, torch.ones_like(gsum)))
-    lp = torch.stack([g0, g1, g2], dim=-1) * inv_gsum[..., None]
+    lp = [g0 * inv_gsum, g1 * inv_gsum, g2 * inv_gsum]
 
     def interp(attr):  # attr [VE,K] -> [...,H,W,K]
-        return torch.einsum("...v,...vk->...k", lp, _rows(attr, vid))
+        return _dot3(lp, _rows(attr, vid))
 
     uv_verts = _rows(vstage["uv"], vid)  # [...,H,W,3,2]
-    uv = torch.einsum("...v,...vk->...k", lp, uv_verts)
+    uv = _dot3(lp, uv_verts)
     draw = _rows(vstage["draw"], vid[..., 0])  # [...,H,W]
 
     # Analytic UV screen derivatives for mip selection:
     # d(f)/dx = Σ A_i (f_i − f) / Σ g_i (A_i = ∂g_i/∂px).
     duv = uv_verts - uv[..., None, :]  # [...,H,W,3,2]
-    das = torch.stack([a0, a1, a2], dim=-1) * inv_gsum[..., None]
-    dbs = torch.stack([b0, b1, b2], dim=-1) * inv_gsum[..., None]
-    duv_dx = torch.sum(das[..., None] * duv, dim=-2)  # [...,H,W,2]
-    duv_dy = torch.sum(dbs[..., None] * duv, dim=-2)
+    duv_dx = _dot3([a0 * inv_gsum, a1 * inv_gsum, a2 * inv_gsum], duv)  # [...,H,W,2]
+    duv_dy = _dot3([b0 * inv_gsum, b1 * inv_gsum, b2 * inv_gsum], duv)
     deriv = torch.maximum(
         torch.amax(torch.abs(duv_dx), dim=-1), torch.amax(torch.abs(duv_dy), dim=-1)
     )
@@ -364,21 +404,19 @@ def shade_interpolated(it: dict, vstage: dict, frame: dict, materials: dict,
         [normal_scale, normal_scale, torch.ones_like(normal_scale)], dim=-1
     )
     nt = nt * torch.reciprocal(
-        torch.sqrt(torch.clamp(torch.sum(nt * nt, dim=-1, keepdim=True), min=1e-20))
-    )
+        torch.sqrt(torch.clamp(_sum3(nt * nt), min=1e-20))
+    )[..., None]
     shading_normal = (
         tangent * nt[..., 0:1] + bitangent * nt[..., 1:2] + normal * nt[..., 2:3]
     )
 
-    # Lit mode (main.frag:78-88).
-    # (-1, 1, 1) filled on the device, not copied from the host (see
-    # make_sampler); sqrt(3) is a CPU scalar
-    sun_dir = torch.cat([torch.full((1,), -1.0, device=normal.device),
-                         torch.ones(2, device=normal.device)])
-    sun_dir = (sun_dir / torch.sqrt(torch.tensor(3.0))).to(dt)
-    sun_dot = torch.clamp(torch.sum(shading_normal * sun_dir, dim=-1), min=0.0)
+    # Lit mode (main.frag:78-88). sun_dir = (-1, 1, 1) / sqrt(3) filled on
+    # the device, not copied from the host (see make_sampler)
+    sun_dir = torch.cat([torch.full((1,), -_INV_SQRT3, device=normal.device),
+                         torch.full((2,), _INV_SQRT3, device=normal.device)])
+    sun_dot = torch.clamp(_sum3(shading_normal * sun_dir.to(dt)), min=0.0)
     brightness = 0.3 * occlusion + sun_dot * 2.0
-    emissive_len = torch.sqrt(torch.sum(emissive * emissive, dim=-1))
+    emissive_len = torch.sqrt(_sum3(emissive * emissive))
     has_emissive = (emissive_len > 0.0)[..., None]
     lit_rgb = torch.where(has_emissive, emissive,
                           brightness[..., None] * base_color[..., :3])
@@ -428,7 +466,174 @@ def shade(
     compute_dtype=torch.float32,
 ) -> torch.Tensor:
     """Returns linear HDR [H,W,4] f32. Background pixels are the clear color
-    (0,0,0,0) (render_passes.rs:192-197)."""
-    it = interpolants(trid, geom, vstage, width=width, height=height, row0=row0)
-    return shade_interpolated(it, vstage, frame, materials, trilinear, aniso,
+    (0,0,0,0) (render_passes.rs:192-197). Goes through shade_stack (S1 on
+    the card); a scalar row0 becomes a [H, 1] fill on the device."""
+    if not isinstance(row0, torch.Tensor):
+        row0 = torch.full((trid.shape[-2], 1), float(row0), device=trid.device)
+    return shade_stack(trid.contiguous(), row0, geom, vstage, frame, materials,
+                       width=width, height=height, trilinear=trilinear,
+                       aniso=aniso, srgb_per_tap=srgb_per_tap,
+                       compute_dtype=compute_dtype)
+
+
+# -- the stage's entry points: plain versions and kernels S1, S2 -----------
+
+def shade_stack_plain(tid, row0, geom, vs, frame, materials, *, width: int,
+                      height: int, trilinear: bool = True, aniso: int = 1,
+                      srgb_per_tap: bool = False, compute_dtype=torch.float32):
+    """Plain version of S1: shade_interpolated over interpolants."""
+    it = interpolants(tid, geom, vs, width=width, height=height, row0=row0)
+    return shade_interpolated(it, vs, frame, materials, trilinear, aniso,
                               srgb_per_tap, compute_dtype)
+
+
+def alpha_stack_plain(tid, row0, geom, vs, frame, materials, *, width: int,
+                      height: int, trilinear: bool = True, aniso: int = 1,
+                      srgb_per_tap: bool = False, compute_dtype=torch.float32):
+    """Plain version of S2: base_alpha over interpolants."""
+    it = interpolants(tid, geom, vs, width=width, height=height, row0=row0)
+    return base_alpha(it, frame, materials, trilinear, aniso, srgb_per_tap,
+                      compute_dtype)
+
+
+def check_tensor(name: str, t: torch.Tensor, dtype, shape: tuple | None = None,
+                 device=None, contiguous: bool = True, align: int = 4) -> None:
+    """Raises ValueError unless `t` has `dtype`, the `shape` (None entries
+    match any size), lies on `device`, is contiguous when asked and its
+    data is `align`-byte aligned (16 for the kernels' 16-byte loads)."""
+    if not isinstance(t, torch.Tensor) or t.dtype != dtype:
+        raise ValueError(f"{name} must be a {dtype} tensor, got "
+                         f"{getattr(t, 'dtype', type(t))}")
+    if shape is not None and (t.ndim != len(shape) or any(
+            want is not None and got != want for got, want in zip(t.shape, shape))):
+        raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
+    if device is not None and t.device != device:
+        raise ValueError(f"{name} is on {t.device}, not {device}")
+    if contiguous and not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+    if t.data_ptr() % align:
+        raise ValueError(f"{name} must be {align}-byte aligned")
+
+
+def atlas_fields(materials: dict, dev) -> dict:
+    """The atlas part of a kernel's argument structure, checked."""
+    atlas, table, srgb = materials["atlas"], materials["atlas_table"], materials["atlas_srgb"]
+    check_tensor("atlas", atlas, torch.int32, (None, None), dev)
+    check_tensor("atlas_table", table, torch.int32, (None, MAX_MIPS, 4), dev, align=16)
+    n_tex = table.shape[0]
+    check_tensor("atlas_srgb", srgb, torch.int32, (n_tex,), dev)
+    wrap = materials.get("atlas_wrap")
+    if wrap is not None:
+        check_tensor("atlas_wrap", wrap, torch.int32, (n_tex, 2), dev)
+    return dict(atlas=atlas.data_ptr(), table=table.data_ptr(), srgb=srgb.data_ptr(),
+                wrap=0 if wrap is None else wrap.data_ptr(), n_atlas=atlas.numel(),
+                n_tex=n_tex, atlas_w=atlas.shape[1])
+
+
+def stack_shape(tid: torch.Tensor, row0, name: str = "tid") -> tuple:
+    """(C, h, w) of a contiguous [..., h, w] i32 stack of triangle ids, with
+    row0 checked as the [h, 1] (or [h]) f32 per-row offset on its device
+    that the kernels read."""
+    if tid.ndim < 2:
+        raise ValueError(f"{name} must be [..., h, w], got {tuple(tid.shape)}")
+    h, w = tid.shape[-2:]
+    check_tensor(name, tid, torch.int32)
+    if not isinstance(row0, torch.Tensor) or row0.numel() != h:
+        raise ValueError(f"row0 must be a [{h}, 1] f32 tensor on the device")
+    check_tensor("row0", row0, torch.float32, None, tid.device)
+    return tid.numel() // max(h * w, 1), h, w
+
+
+def _launch_scene(which: str, tid, row0, geom, vs, frame, materials, *, width,
+                  height, trilinear, aniso, srgb_per_tap, compute_dtype):
+    """Checks the inputs, allocates the outputs and launches S1
+    (which="shade") or S2 ("alpha")."""
+    if compute_dtype not in (torch.float32, torch.bfloat16):
+        raise ValueError(f"compute_dtype {compute_dtype}: the kernels take f32 or bf16")
+    dev = tid.device
+    c, h, w = stack_shape(tid, row0)
+    tri_v = geom["tri_v"]
+    check_tensor("tri_v", tri_v, torch.int32, (None, 3), dev)
+    n_v = vs["clip"].shape[0]
+    for name, k, align in (("clip", 4, 16), ("uv", 2, 4), ("normal", 3, 4),
+                           ("tangent", 4, 4)):
+        check_tensor(name, vs[name], torch.float32, (n_v, k), dev, align=align)
+    check_tensor("draw", vs["draw"], torch.int32, (n_v,), dev)
+    mat_id, dbg_id, mode = frame["material_id"], frame["debug_id"], frame["debug_mode"]
+    for name, t in (("material_id", mat_id), ("debug_id", dbg_id)):
+        check_tensor(name, t, torch.int32, (mat_id.shape[0],), dev, contiguous=False)
+    check_tensor("debug_mode", mode, torch.int32, None, dev, contiguous=False)
+    if mode.numel() != 1:
+        raise ValueError("debug_mode must be one value")
+    n_m = materials["tex_indices"].shape[0]
+    check_tensor("tex_indices", materials["tex_indices"], torch.int32, (n_m, 5), dev)
+    for name in ("base_color_factor", "emissive_occlusion", "alpha_rgh_mtl_normal"):
+        check_tensor(name, materials[name], torch.float32, (n_m, 4), dev, align=16)
+    if which == "shade":
+        out = torch.empty((*tid.shape, 4), dtype=torch.float32, device=dev)
+        result, out2 = out, 0
+    else:
+        out = torch.empty(tid.shape, dtype=torch.float32, device=dev)
+        cutoff = torch.empty_like(out)
+        result, out2 = (out, cutoff), cutoff.data_ptr()
+    args = kernels.ShadeArgs(
+        tid=tid.data_ptr(), row0=row0.data_ptr(), tri_v=tri_v.data_ptr(),
+        clip=vs["clip"].data_ptr(), uv=vs["uv"].data_ptr(),
+        normal=vs["normal"].data_ptr(), tangent=vs["tangent"].data_ptr(),
+        draw=vs["draw"].data_ptr(), material_id=mat_id.data_ptr(),
+        debug_id=dbg_id.data_ptr(), debug_mode=mode.data_ptr(),
+        tex_indices=materials["tex_indices"].data_ptr(),
+        base_color_factor=materials["base_color_factor"].data_ptr(),
+        emissive_occlusion=materials["emissive_occlusion"].data_ptr(),
+        arm=materials["alpha_rgh_mtl_normal"].data_ptr(), out=out.data_ptr(),
+        out2=out2, n_cand=c, n_tris=tri_v.shape[0], n_verts=n_v,
+        n_draws=mat_id.shape[0], mat_stride=mat_id.stride(0),
+        dbg_stride=dbg_id.stride(0), n_mats=n_m, h=h, w=w, width=width,
+        height=height, trilinear=int(bool(trilinear)), aniso=int(aniso),
+        srgb_per_tap=int(bool(srgb_per_tap)),
+        bf16=int(compute_dtype == torch.bfloat16), **atlas_fields(materials, dev))
+    lib = kernels.load()
+    fn = lib.rt_shade_stack if which == "shade" else lib.rt_alpha_stack
+    with torch.cuda.device(dev):
+        err = fn(ctypes.addressof(args), kernels.current_stream())
+    kernels.check_launch(f"{which}_stack", err)
+    launches[which] += 1
+    return result
+
+
+def _dispatch(which: str, plain, tid, row0, geom, vs, frame, materials, **kw):
+    if tid.device.type == "cpu":
+        return plain(tid, row0, geom, vs, frame, materials, **kw)
+    if tid.device.type != "cuda":
+        raise ValueError(f"{which}_stack: unsupported device {tid.device}")
+    return _launch_scene(which, tid, row0, geom, vs, frame, materials, **kw)
+
+
+def shade_stack(tid, row0, geom, vs, frame, materials, *, width: int,
+                height: int, trilinear: bool = True, aniso: int = 1,
+                srgb_per_tap: bool = False, compute_dtype=torch.float32):
+    """Full deferred shade of a candidate stack: tid [..., h, w] i32 (< 0 is
+    background), row0 [h, 1] f32 (the offset of each local row to its
+    global pixel row) → linear HDR [..., h, w, 4] f32, background (0,0,0,0).
+    CPU tensors run shade_stack_plain; CUDA tensors launch S1
+    (csrc/shade.cu), which replaces the JAX package's XLA-fused
+    shade_interpolated (renderer_tpu/raster/shade.py:329) in render_shard
+    and is bound by FP32 arithmetic and texel gathers."""
+    kw = dict(width=width, height=height, trilinear=trilinear, aniso=aniso,
+              srgb_per_tap=srgb_per_tap, compute_dtype=compute_dtype)
+    return _dispatch("shade", shade_stack_plain, tid, row0, geom, vs, frame,
+                     materials, **kw)
+
+
+def alpha_stack(tid, row0, geom, vs, frame, materials, *, width: int,
+                height: int, trilinear: bool = True, aniso: int = 1,
+                srgb_per_tap: bool = False, compute_dtype=torch.float32):
+    """Masked alpha test inputs of a candidate stack: (alpha, cutoff), each
+    [..., h, w] f32, at every pixel (background pixels evaluate triangle 0,
+    as the plain version does). CPU tensors run alpha_stack_plain; CUDA
+    tensors launch S2 (csrc/shade.cu), which replaces the JAX package's
+    XLA-fused base_alpha (renderer_tpu/raster/shade.py:312)."""
+    kw = dict(width=width, height=height, trilinear=trilinear, aniso=aniso,
+              srgb_per_tap=srgb_per_tap, compute_dtype=compute_dtype)
+    return _dispatch("alpha", alpha_stack_plain, tid, row0, geom, vs, frame,
+                     materials, **kw)

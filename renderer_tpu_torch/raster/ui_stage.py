@@ -17,17 +17,34 @@ no perspective) and composited in order. UI coverage is evaluated at pixel
 centers by default and the same composite is applied to every MSAA sample;
 `RenderConfig.ui_msaa` evaluates coverage at the MSAA sample positions with
 per-sample accept chains, shading at pixel centers either way.
+
+`shade_ui_layer` dispatches on the tensors' device: CPU tensors run the
+plain version, CUDA tensors launch the hand-written kernel S3
+(csrc/shade.cu).
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from renderer_tpu_torch import kernels
 from renderer_tpu_torch.raster import binning, layers, setup
-from renderer_tpu_torch.raster.shade import _rows, make_sampler
+from renderer_tpu_torch.raster.shade import (
+    _dot3,
+    _rows,
+    atlas_fields,
+    check_tensor,
+    make_sampler,
+    stack_shape,
+)
 
 TEX_KIND_FONT = 1
 TEX_KIND_RGBA = 2
+
+#: launches of S3 in this process (the plain version does not count)
+launches = 0
 
 
 def bin_ui(ui: dict, *, config, local_tiles_y: int, tile_row_offset: int,
@@ -91,18 +108,9 @@ def rasterize_ui(
     return lt, overflow, aux
 
 
-def shade_ui_layer(
-    lt: torch.Tensor,  # [..., Hp, Wp] i32 layer tids (-1 empty)
-    ui: dict,
-    materials: dict,
-    *,
-    config,
-    row0,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """imgui.frag for captured layers at pixel centers. Returns
-    (rgb [..., H, W, 3], alpha [..., H, W]) ready for src-alpha compositing.
-    Leading-dim polymorphic: the pipeline shades ALL captured UI layers (and
-    MSAA sample sets under ui_msaa) in one stacked call."""
+def shade_ui_layer_plain(lt: torch.Tensor, ui: dict, materials: dict, *,
+                         row0) -> tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of S3 (shade_ui_layer)."""
     h, w = lt.shape[-2:]
     dev = lt.device
     covered = lt >= 0
@@ -126,24 +134,20 @@ def shade_ui_layer(
     g0, g1, g2 = g(1, 2), g(2, 0), g(0, 1)
     s = g0 + g1 + g2
     inv_s = torch.reciprocal(torch.where(torch.abs(s) > 1e-12, s, torch.ones_like(s)))
-    lam = torch.stack([g0, g1, g2], dim=-1) * inv_s[..., None]
+    lam = [g0 * inv_s, g1 * inv_s, g2 * inv_s]
 
     uvv = _rows(ui["uv"], vid)  # [...,H,W,3,2]
-    uv = torch.einsum("...v,...vk->...k", lam, uvv)
-    col = torch.einsum("...v,...vk->...k", lam, _rows(ui["col"], vid))
+    uv = _dot3(lam, uvv)
+    col = _dot3(lam, _rows(ui["col"], vid))
 
     # analytic UV derivatives of the affine map (∂lam_i/∂x = a_i / s with
     # a_i from the edge vectors; Σ a_i = 0)
-    a = torch.stack(
-        [p[..., 1, 1] - p[..., 2, 1], p[..., 2, 1] - p[..., 0, 1],
-         p[..., 0, 1] - p[..., 1, 1]], dim=-1,
-    ) * inv_s[..., None]
-    b = torch.stack(
-        [p[..., 2, 0] - p[..., 1, 0], p[..., 0, 0] - p[..., 2, 0],
-         p[..., 1, 0] - p[..., 0, 0]], dim=-1,
-    ) * inv_s[..., None]
-    duv_dx = torch.einsum("...v,...vk->...k", a, uvv)
-    duv_dy = torch.einsum("...v,...vk->...k", b, uvv)
+    a = [(p[..., 1, 1] - p[..., 2, 1]) * inv_s, (p[..., 2, 1] - p[..., 0, 1]) * inv_s,
+         (p[..., 0, 1] - p[..., 1, 1]) * inv_s]
+    b = [(p[..., 2, 0] - p[..., 1, 0]) * inv_s, (p[..., 0, 0] - p[..., 2, 0]) * inv_s,
+         (p[..., 1, 0] - p[..., 0, 0]) * inv_s]
+    duv_dx = _dot3(a, uvv)
+    duv_dy = _dot3(b, uvv)
 
     cmd = _rows(ui["tri_cmd"], t)  # [...,H,W]
     crect = _rows(ui["clip"], cmd)  # [...,H,W,4]
@@ -167,3 +171,52 @@ def shade_ui_layer(
                         col[..., 3] * tex[..., 3])
     live = covered & in_clip & ((kind == TEX_KIND_FONT) | (kind == TEX_KIND_RGBA))
     return rgb, torch.where(live, alpha, torch.zeros_like(alpha))
+
+
+def shade_ui_layer(
+    lt: torch.Tensor,  # [..., Hp, Wp] i32 layer tids (-1 empty)
+    ui: dict,
+    materials: dict,
+    *,
+    config,
+    row0,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """imgui.frag for captured layers at pixel centers. Returns
+    (rgb [..., H, W, 3], alpha [..., H, W]) ready for src-alpha compositing.
+    Leading-dim polymorphic: the pipeline shades ALL captured UI layers (and
+    MSAA sample sets under ui_msaa) in one stacked call. CPU tensors run
+    shade_ui_layer_plain; CUDA tensors launch S3 (csrc/shade.cu), which
+    replaces the JAX package's XLA-fused shade_ui_layer
+    (renderer_tpu/raster/ui_stage.py:89) and is bound by its texel gathers
+    and FP32 arithmetic."""
+    if lt.device.type == "cpu":
+        return shade_ui_layer_plain(lt, ui, materials, row0=row0)
+    if lt.device.type != "cuda":
+        raise ValueError(f"shade_ui_layer: unsupported device {lt.device}")
+    dev = lt.device
+    n_cand, h, w = stack_shape(lt, row0, "lt")
+    n_t, n_v, n_c = ui["tris"].shape[0], ui["pos"].shape[0], ui["clip"].shape[0]
+    check_tensor("tris", ui["tris"], torch.int32, (n_t, 3), dev)
+    check_tensor("tri_cmd", ui["tri_cmd"], torch.int32, (n_t,), dev)
+    for name, k in (("pos", 2), ("uv", 2), ("col", 4)):
+        check_tensor(name, ui[name], torch.float32, (n_v, k), dev)
+    check_tensor("clip", ui["clip"], torch.float32, (n_c, 4), dev, align=16)
+    for name in ("tex_kind", "tex_slot"):
+        check_tensor(name, ui[name], torch.int32, (n_c,), dev)
+    rgb = torch.empty((*lt.shape, 3), dtype=torch.float32, device=dev)
+    alpha = torch.empty(lt.shape, dtype=torch.float32, device=dev)
+    args = kernels.UiArgs(
+        lt=lt.data_ptr(), row0=row0.data_ptr(), tris=ui["tris"].data_ptr(),
+        pos=ui["pos"].data_ptr(), uv=ui["uv"].data_ptr(), col=ui["col"].data_ptr(),
+        tri_cmd=ui["tri_cmd"].data_ptr(), cliprect=ui["clip"].data_ptr(),
+        tex_kind=ui["tex_kind"].data_ptr(), tex_slot=ui["tex_slot"].data_ptr(),
+        rgb=rgb.data_ptr(), alpha=alpha.data_ptr(),
+        n_cand=n_cand, n_tris=n_t, n_verts=n_v, n_cmds=n_c,
+        h=h, w=w, **atlas_fields(materials, dev))
+    lib = kernels.load()
+    with torch.cuda.device(dev):
+        err = lib.rt_shade_ui(ctypes.addressof(args), kernels.current_stream())
+    kernels.check_launch("shade_ui_layer", err)
+    global launches
+    launches += 1
+    return rgb, alpha

@@ -9,9 +9,11 @@ Prints one JSON object: the CUDA-event time of the profiled frame and of
 the next, unprofiled one; the summed device time of the profiled frame's
 kernels and copies (device-side events only) and their count; the device
 idle share (1 − busy / unprofiled frame); the ten PyTorch ops with the most
-device time; and the UI pass's milliseconds (bin + K2 launch + stacked
-shade + composite of the frame's own DrawList). Needs CUDA; without it, it
-exits with an error.
+device time; the device time and share of the hand-written shading kernels
+S1-S3 (csrc/shade.cu) and of K1/K2; and the UI pass's milliseconds (bin +
+K2 launch + stacked shade + composite of the frame's own DrawList). Needs
+CUDA; without it, it exits with an error. `profile_frame` profiles any
+renderer's frame the same way (chip_smoke.py phase 12 runs it on scene B).
 """
 
 from __future__ import annotations
@@ -43,6 +45,53 @@ def _event_ms(fn, reps: int = 5) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+#: (namespace, function) of the hand-written kernels' device functions
+KERNEL_NAMES = {"S1": ("rs", "shade_kernel"), "S2": ("rs", "alpha_kernel"),
+                "S3": ("rs", "ui_kernel"), "K1": ("rt", "binned_kernel"),
+                "K2": ("rt", "layer_kernel")}
+
+
+def _is_kernel(key: str, ns: str, fn: str) -> bool:
+    """Whether a profiler key names ns::fn, demangled or mangled."""
+    return f"{ns}::{fn}" in key or f"{len(ns)}{ns}{len(fn)}{fn}" in key
+
+
+def profile_frame(renderer, scene, ui=None) -> dict:
+    """One render_frame_device call under torch.profiler: its CUDA-event ms,
+    the summed device time of its kernels and copies (device-side events
+    only) and their count, the ten PyTorch ops with the most device time,
+    and each hand-written kernel's device ms, launches and share of the
+    busy time."""
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        e0.record()
+        renderer.render_frame_device(scene, 0, ui=ui)
+        e1.record()
+        torch.cuda.synchronize()
+    # device-side events (kernels, copies) carry the device time once; a
+    # PyTorch op's own entry repeats its kernels' time
+    cuda = torch.autograd.DeviceType.CUDA
+    rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    kernels = [e for e in rows if e.device_type == cuda]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    top = sorted((e for e in rows if e.device_type != cuda),
+                 key=lambda e: -e.self_device_time_total)[:10]
+    own = {}
+    for name, (ns, fn) in KERNEL_NAMES.items():
+        hits = [e for e in kernels if _is_kernel(e.key, ns, fn)]
+        ms = sum(e.self_device_time_total for e in hits) / 1e3
+        own[name] = {"device_ms": ms, "launches": sum(e.count for e in hits),
+                     "share": ms / busy_ms if busy_ms else 0.0}
+    return {
+        "profiled_frame_ms": e0.elapsed_time(e1), "device_busy_ms": busy_ms,
+        "kernels_and_copies": sum(e.count for e in kernels),
+        "top_ops_device_ms": [[e.key, e.self_device_time_total / 1e3, e.count]
+                              for e in top],
+        "own_kernels": own,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("frame_profile: torch.cuda.is_available() is False")
@@ -57,24 +106,11 @@ def main() -> int:
     torch.cuda.synchronize()
 
     sc, dl = frames.next()
-    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
-        e0.record()
-        r.render_frame_device(sc, 0, ui=dl)
-        e1.record()
-        torch.cuda.synchronize()
-    profiled_ms = e0.elapsed_time(e1)
+    prof = profile_frame(r, sc, dl)
     sc, dl = frames.next()
     frame_ms = _event_ms(lambda: r.render_frame_device(sc, 0, ui=dl), reps=1)
-    # device-side events (kernels, copies) carry the device time once; a
-    # PyTorch op's own entry repeats its kernels' time
-    cuda = torch.autograd.DeviceType.CUDA
-    rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
-    kernels = [e for e in rows if e.device_type == cuda]
-    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
-    top = sorted((e for e in rows if e.device_type != cuda),
-                 key=lambda e: -e.self_device_time_total)[:10]
+    prof["frame_ms"] = frame_ms
+    prof["device_idle_share"] = 1.0 - prof["device_busy_ms"] / frame_ms
 
     # the UI pass alone on this frame's DrawList: bin, K2, stacked shade of
     # every layer, composite into the MSAA samples' HDR buffers
@@ -98,11 +134,7 @@ def main() -> int:
         return out
 
     print(json.dumps({
-        "card": card, "frame_ms": frame_ms, "profiled_frame_ms": profiled_ms,
-        "device_busy_ms": busy_ms, "device_idle_share": 1.0 - busy_ms / frame_ms,
-        "kernels_and_copies": sum(e.count for e in kernels),
-        "top_ops_device_ms": [[e.key, e.self_device_time_total / 1e3, e.count]
-                              for e in top],
+        "card": card, **prof,
         "ui_triangles": int(dl.pack()["counts"][0]),
         "ui_pass_ms": _event_ms(ui_pass),
         "config": {"mask_layers": cfg.mask_layers, "blend_layers": cfg.blend_layers,

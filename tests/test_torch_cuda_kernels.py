@@ -1,7 +1,10 @@
 """Card-only checks of the hand-written CUDA kernels: each kernel equals its
 plain PyTorch version EXACTLY on the card (ids, counts and the bits of every
 depth — the kernels are built without FMA contraction), and the port's
-Renderer on the card reproduces the golden images.
+Renderer on the card reproduces the golden images. The shading kernels S1,
+S2 and S3 are held to their plain versions within 2^-12 absolute, ≥ 99.9%
+of values within 2^-18, NaN where the plain version has NaN, and cutoffs
+equal (the differing counts are printed; on the scenes they are 0).
 
 These need an NVIDIA GPU with nvcc; without one every test skips. This file
 imports no jax, so it runs on a machine without it:
@@ -19,8 +22,9 @@ import torch
 import renderer_tpu_torch as trt
 from renderer_tpu_torch import kernels
 from renderer_tpu_torch.assets import demo_scenes
-from renderer_tpu_torch.raster import binning, layers, raster_kernel, setup, ui_stage
+from renderer_tpu_torch.raster import binning, layers, raster_kernel, setup, shade, ui_stage
 from renderer_tpu_torch.raster.pipeline import STANDARD_SAMPLE_POSITIONS
+from renderer_tpu_torch.tools.shade_check import compare, recorded_shading, run_shading
 from tests.torch_bins import (
     CASES,
     UI_CASES,
@@ -64,6 +68,12 @@ def soup_bins(device, n=4000, h=288, w=512, seed=0):
         zbuckets=16)
     assert int(ov.sum()) == 0 and int(row_ov) == 0
     return b, s, c, h, w
+
+
+def pipeline_launches():
+    from renderer_tpu_torch.raster import pipeline
+
+    return pipeline.launch_counts()
 
 
 def _bits_equal(a, b):
@@ -196,9 +206,10 @@ def test_renderer_on_card_matches_sandbox_goldens(cuda, key):
                                      "perfwin" if key.endswith("perfwin") else "hud")
     r = trt.Renderer(sandbox.registry, trt.RenderConfig(width=160, height=96,
                                                          msaa_samples=4), device=cuda)
-    before = layers.launches["ui"]
+    before = pipeline_launches()
     img = r.render_frame(sandbox.scene, 0, ui=ui)
-    assert layers.launches["ui"] > before
+    moved = {k: v - before[k] for k, v in pipeline_launches().items()}
+    assert all(moved[k] > 0 for k in ("ui", "shade", "alpha", "ui_shade")), moved
     expected = np.load(Path(__file__).parent / "golden" / "sandbox-golden.npz")[key]
     diff = np.abs(img.astype(int) - expected.astype(int)).max(axis=-1)
     assert (diff > 2).mean() < 0.005
@@ -214,7 +225,9 @@ def test_renderer_on_card_matches_goldens(cuda, case):
         msaa = 4 if case == "triangle-msaa4" else 1
         cfg, mode = trt.RenderConfig(width=160, height=96, msaa_samples=msaa), 3
     r = trt.Renderer(registry, cfg, device=cuda)
+    before = shade.launches["shade"]
     img = r.render_frame(scene, mode)
+    assert shade.launches["shade"] > before
     expected = np.load(GOLDEN)[case]
     diff = np.abs(img.astype(int) - expected.astype(int)).max(axis=-1)
     assert (diff > 2).mean() < 0.005
@@ -274,18 +287,22 @@ def test_eager_frame_syncs_nowhere(cuda):
     r.render_frame(scene)
     r.overflow_policy = "off"  # "auto" and "sync" read stats on the host
     torch.cuda.synchronize()
+    before = dict(shade.launches)
     torch.cuda.set_sync_debug_mode("error")
     try:
         img = r.render_frame_device(scene)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert img.shape == (96, 160, 3) and img.device.type == "cuda"
+    assert all(shade.launches[k] > before[k] for k in before), shade.launches
 
 
 def test_graph_replays_equal_eager_frames(cuda):
     r, scenes = _sandbox_batch(cuda)
     imgs, stats = r.render_frames_device(scenes)
     assert r.frame_graphs.graph is not None
+    replay = r.frame_graphs.graph.captured.launches
+    assert replay["shade"] > 0 and replay["alpha"] > 0, replay
     imgs, stats = imgs.cpu().numpy(), stats.cpu().numpy()
     assert len({im.tobytes() for im in imgs}) == len(scenes)  # re-skinned
     for k, scene in enumerate(scenes):
@@ -295,14 +312,16 @@ def test_graph_replays_equal_eager_frames(cuda):
 
 def test_replays_add_the_capture_launch_counts(cuda):
     """Each replay adds the launches its capture counted (K1 and both K2
-    scene modes once a frame); a second batch of the same key replays the
-    graph without capturing again."""
+    scene modes once a frame, S1 for the solid and the blended candidates,
+    S2 for the masked alpha test); a second batch of the same key replays
+    the graph without capturing again."""
     from renderer_tpu_torch.raster import pipeline
 
     r, scenes = _sandbox_batch(cuda)
     r.render_frames_device(scenes)
     graph = r.frame_graphs.graph
-    assert graph.captured.launches == {"k1": 1, "masked": 1, "blended": 1, "ui": 0}
+    assert graph.captured.launches == {"k1": 1, "masked": 1, "blended": 1, "ui": 0,
+                                       "shade": 2, "alpha": 1, "ui_shade": 0}
     before = pipeline.launch_counts()
     r.render_frames_device(scenes + scenes[:1])
     assert r.frame_graphs.graph is graph
@@ -401,3 +420,114 @@ def test_native_prologue_feeds_a_card_frame(cuda):
     np.testing.assert_array_equal(fa.pdf, fb.pdf)
     np.testing.assert_array_equal(fa.pdi, fb.pdi)
     np.testing.assert_array_equal(ia, ib)
+
+
+# -- the shading kernels S1, S2, S3 (csrc/shade.cu) ------------------------
+
+def assert_shading_close(got, want, what=""):
+    """shade_check.compare (the shading kernels' tolerance against their
+    plain versions), with the count of values whose bits differ printed."""
+    counts = compare(got, want)
+    print(f"{what}: {counts['differing']} values differ in bits")
+
+
+@pytest.mark.parametrize("scene", ["B", "C"])
+def test_shading_kernels_equal_plain_on_scenes(cuda, scene):
+    """Every shading call of a 4×MSAA frame of chip_smoke.py's scene B (all
+    three alpha classes) and C (the mini-sandbox with its "Performance
+    stats" window) at 320×192: S1, S2 and S3 against their plain versions,
+    cutoffs equal."""
+    cfg = trt.RenderConfig(width=320, height=192, msaa_samples=4)
+    if scene == "B":
+        registry, sc = demo_scenes.patch_wall_scene()
+        r = trt.Renderer(registry, cfg, overflow_policy="sync", device=cuda)
+        ui = None
+    else:
+        frames = demo_scenes.SandboxFrames()
+        r = trt.Renderer(frames.registry, cfg, profiler=frames.profiler,
+                         overflow_policy="sync", device=cuda)
+        sc, ui = frames.next()
+    r.render_frame(sc, 0, ui=ui)  # grows the capacities
+    with recorded_shading() as calls:
+        r.render_frame(sc, 0, ui=ui)
+    kinds = {kind for kind, _, _ in calls}
+    assert kinds == ({"S1", "S2"} if scene == "B" else {"S1", "S2", "S3"}), kinds
+    for i, (kind, args, kw) in enumerate(calls):
+        got = run_shading(kind, args, kw, plain=False)
+        want = run_shading(kind, args, kw, plain=True)
+        assert_shading_close(got, want, f"scene {scene} call {i} {kind}")
+        if kind == "S2":
+            assert torch.equal(got[1], want[1])  # cutoffs
+
+
+def _crafted_inputs(cuda, crafted):
+    """S1/S2 inputs on the card from tests/torch_parity.py's "sandbox-static"
+    scene with a stack of two random candidate maps (valid ids, -1 and -2),
+    broken as `crafted` says."""
+    from renderer_tpu_torch.raster import vertex_stage
+    from renderer_tpu_torch.scene import draw_stream
+    from tests.torch_parity import degenerate_triangles
+
+    registry, scene, cfg = build_scene("renderer_tpu_torch", "sandbox-static")
+    r = trt.Renderer(registry, cfg, overflow_policy="off", device=cuda)
+    fv = draw_stream.frame_view(scene)
+    gs, geom = r._geometry(scene, fv.order, fv.geom_key)
+    frame = draw_stream.unpack_frame(r._frame_arrays(scene, fv, gs),
+                                     morph_k=gs.morph_k, joint_cap=r._joint_cap(scene))
+    vs = vertex_stage.run_vertex_stage(geom, frame, gs.skin_start)
+    mats = dict(r._materials())
+    geom = dict(geom)
+    gen = torch.Generator().manual_seed(7)
+    n_t = gs.num_tris
+    tid = torch.randint(-2, n_t, (2, 64, 96), generator=gen, dtype=torch.int32)
+    if crafted == "nan-derivatives":
+        vs = dict(vs)
+        uv = vs["uv"].clone()
+        uv[::5] = float("nan")
+        uv[1::7, 0] = float("inf")
+        clip = vs["clip"].clone()
+        clip[2::11, 3] = 0.0  # w = 0: a zero denominator
+        vs["uv"], vs["clip"] = uv, clip
+    elif crafted == "degenerate":
+        clip, tri_v, _n, _w, _h, degenerate, _control = degenerate_triangles(cuda)
+        n_extra = clip.shape[0] - vs["clip"].shape[0]
+        vs = {k: torch.cat([v, v[:1].expand(n_extra, *v.shape[1:])]) for k, v in vs.items()}
+        vs["clip"] = clip
+        geom["tri_v"] = tri_v.contiguous()
+        ids = torch.from_numpy(np.asarray(degenerate, np.int32))
+        tid = ids[torch.randint(0, len(ids), (2, 64, 96), generator=gen)]
+    elif crafted == "out-of-range":
+        tex = mats["tex_indices"].clone()
+        tex.view(-1)[::3] = -1
+        tex.view(-1)[1::7] = -7
+        tex.view(-1)[2::5] = 1 << 20
+        tex.view(-1)[4::9] = 2**31 - 1
+        mats["tex_indices"] = tex
+        n_tex = mats["atlas_table"].shape[0]
+        mats["atlas_wrap"] = torch.tensor([[5, -1], [1, 2]], dtype=torch.int32,
+                                          device=cuda).repeat(n_tex // 2 + 1, 1)[:n_tex]
+    row0 = torch.zeros((64, 1), device=cuda)
+    return tid.to(cuda), row0, geom, vs, frame, mats, cfg
+
+
+@pytest.mark.parametrize("mode", [0, 1, 2, 3, 4, 5, 6])
+@pytest.mark.parametrize("crafted", ["nan-derivatives", "degenerate", "out-of-range",
+                                     "bf16"])
+def test_shading_kernels_on_crafted_inputs(cuda, crafted, mode):
+    """S1 and S2 against their plain versions on NaN and infinite UV
+    derivatives and a w = 0 vertex, degenerate (point and collinear)
+    triangles, texture slots out of range (negative, past the table) with
+    unknown address modes, and bf16 shading; every debug mode, both
+    samplers."""
+    tid, row0, geom, vs, frame, mats, cfg = _crafted_inputs(cuda, crafted)
+    frame = dict(frame)
+    frame["debug_mode"] = torch.full((), mode, dtype=torch.int32, device=cuda)
+    dt = torch.bfloat16 if crafted == "bf16" else torch.float32
+    for trilinear, aniso, per_tap in ((True, 16, True), (True, 4, False), (False, 1, False)):
+        kw = dict(width=96, height=64, trilinear=trilinear, aniso=aniso,
+                  srgb_per_tap=per_tap, compute_dtype=dt)
+        for kind in ("S1", "S2"):
+            args = (tid, row0, geom, vs, frame, mats)
+            got = run_shading(kind, args, kw, plain=False)
+            want = run_shading(kind, args, kw, plain=True)
+            assert_shading_close(got, want, f"{crafted} mode {mode} {kind} {kw}")
