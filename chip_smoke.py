@@ -125,9 +125,12 @@ absolute, ≥ 99.9% of values within 2^-18, NaN where the plain version has
 NaN, cutoffs equal (the differing counts are printed). Each (kernel, scene)
 gives one row of the kernels line for all of that frame's calls of the
 kernel: ms as issued and queued, the plain version's ms (its comparison
-run), and a bound counted from the code (shade_work: FP32 operations and
-texel taps of the covered pixels at 67 TFLOP/s, each input and output byte
-of the frame's calls once at 3.35 TB/s). It then replays frames A, B and C
+run), a bound counted from the code (shade_work: FP32 operations of the
+channels each sample uses and texel taps of the pixels each kernel shades
+at 67 TFLOP/s, each input and output byte of the frame's calls once at
+3.35 TB/s), and the kernel's registers, spills, local and shared bytes and
+the blocks an SM that the host computed for its launches
+(kernel_resources). It then replays frames A, B and C
 as CUDA graphs (engine.stats.fused_frame_ms; the multi-frame path has no UI
 pass) beside phase 6's eager frames, and profiles one eager frame of B and
 C with torch.profiler (tools.frame_profile.profile_frame): kernel count,
@@ -1406,33 +1409,51 @@ def phase11(dev, card) -> tuple[dict, dict]:
 
 
 def sampler_work(n: int, n_srgb: int, trilinear: bool, aniso: int,
-                 per_tap: bool) -> tuple[int, int]:
-    """(FP32 operations, texel taps) of one make_sampler sample at n pixels,
-    n_srgb of them on sRGB textures, counted from csrc/shade_common.cuh's
-    `sample`: 17 for the footprint and LOD, 4 a tap to accumulate and 4 to
-    scale; an anisotropic tap 4 (its uv) + 17 (LOD and the two-mip blend;
-    2 without trilinear); a mip 58 (address modes, texel coordinates, the
-    bilinear weights of four channels) and 4 texel reads. A decode after the
-    filter (not per tap) costs 3 × (5 + a pow counted as 8); a per-tap
-    decode reads the block's byte table."""
+                 per_tap: bool, channels: int = 4, decoded: int = 3) -> tuple[int, int]:
+    """(FP32 operations, texel taps) of one make_sampler sample of
+    `channels` channels at n pixels, n_srgb of them on sRGB textures with
+    `decoded` of those channels decoded, counted from
+    csrc/shade_common.cuh's `sample`, which filters only the channels its
+    caller uses:
+    - a sample: 17 for the footprint and LOD, 5 for the choice of mips and
+      their blend weights (2 without trilinear), and (aniso + 1) a channel
+      to accumulate and scale its taps;
+    - an anisotropic tap: 4 for its uv, 4 for the address modes, 3 a
+      channel for the two-mip blend (none without trilinear);
+    - a mip: 10 for the texel coordinates and bilinear weights, 11 a
+      channel for the bilinear blend, and 4 texel reads whatever the
+      channels;
+    - a decode after the filter (not per tap): 13 a decoded channel a mip
+      (5 + a pow counted as 8); a per-tap decode reads a table.
+    Each multiply and add is an instruction of its own: the kernels are
+    built with --fmad=false."""
     mips = 2 if trilinear else 1
-    ops = n * (17 + 4 * aniso + 4 + aniso * (4 + (17 if trilinear else 2) + mips * 58))
+    tap = 8 + (3 * channels if trilinear else 0) + mips * (10 + 11 * channels)
+    ops = n * (17 + (5 if trilinear else 2) + (aniso + 1) * channels + aniso * tap)
     if not per_tap:
-        ops += n_srgb * aniso * mips * 3 * (5 + 8)
+        ops += n_srgb * aniso * mips * decoded * 13
     return ops, n * aniso * mips * 4
+
+
+#: the channels of each sample S1 takes in a debug mode (csrc/shade.cu
+#: shade_one); every other mode is lit: base colour RGBA, emissive RGB,
+#: occlusion R, normal RGB
+S1_CHANNELS = {1: (4,), 2: (), 3: (3,), 4: (2,), 5: (3,), 6: (1,)}
+S1_LIT_CHANNELS = (4, 3, 1, 3)
 
 
 def shade_work(counter, args, kw, outs, tensors: dict) -> tuple[int, int]:
     """(FP32 operations, texel taps) one recorded call needs, counted from
     csrc/shade.cu on this call's data: S1 shades covered (candidate,
-    pixel)s only (115 operations of perspective interpolation, four samples
-    — base colour, emissive, occlusion, normal — and 60 of lighting; the
-    scenes run the lit mode); S2 every (candidate, pixel) (interpolation and
-    one sample); S3 every (layer, pixel) (70 of affine interpolation and the
-    clip test, one trilinear sample, decoded after the filter). Adds the
-    call's input tensors to `tensors` (address → bytes; the recorded calls
-    hold them, so each is counted once) and its outputs under their own
-    keys."""
+    pixel)s only (115 operations of perspective interpolation, then the
+    samples of its debug mode with the channels each uses, S1_CHANNELS —
+    lit: base colour 4, emissive 3, occlusion 1, normal 3, so 11 — and 60
+    of lighting when lit); S2 every (candidate, pixel) (interpolation and
+    one sample of one channel, alpha); S3 every (layer, pixel) (70 of
+    affine interpolation and the clip test, one trilinear sample of four
+    channels, decoded after the filter). Adds the call's input tensors to
+    `tensors` (address → bytes; the recorded calls hold them, so each is
+    counted once) and its outputs under their own keys."""
     for a in (*args, *kw.values()):
         for t in (a.values() if isinstance(a, dict) else [a]):
             if isinstance(t, torch.Tensor):
@@ -1446,11 +1467,33 @@ def shade_work(counter, args, kw, outs, tensors: dict) -> tuple[int, int]:
         ops, taps = sampler_work(lt.numel(), int(slot_srgb.sum()), True, 1, False)
         return ops + lt.numel() * 70, taps
     tid = args[0]
-    n = int((tid >= 0).sum()) if counter == "s1" else tid.numel()
-    samples = 4 if counter == "s1" else 1
-    ops, taps = sampler_work(n, 0, kw["trilinear"], kw["aniso"], kw["srgb_per_tap"])
-    ops = samples * ops + n * (115 + (60 if counter == "s1" else 0))
-    return ops, samples * taps
+    if counter == "s1":
+        mode = int(args[4]["debug_mode"])
+        lit = mode not in S1_CHANNELS
+        channels = S1_LIT_CHANNELS if lit else S1_CHANNELS[mode]
+        n = int((tid >= 0).sum())
+    else:
+        lit, channels, n = False, (1,), tid.numel()
+    ops, taps = n * (115 + (60 if lit else 0)), 0
+    for c in channels:
+        o, t = sampler_work(n, 0, kw["trilinear"], kw["aniso"], kw["srgb_per_tap"], c)
+        ops, taps = ops + o, taps + t
+    return ops, taps
+
+
+def kernel_resources(counter: str, kw: dict) -> dict:
+    """Registers, spills, local and shared bytes and the host-computed
+    blocks an SM of the kernel instantiation a phase-12 row ran
+    (kernels.shade_info and the build's ptxas report)."""
+    bf16 = kw.get("compute_dtype") == torch.bfloat16
+    per_tap = bool(kw.get("srgb_per_tap", False))
+    info = kernels.shade_info(counter, bf16, per_tap)
+    name = {"s1": f"shade_kernelILb{int(bf16)}ELb{int(per_tap)}E",
+            "s2": f"alpha_kernelILb{int(bf16)}E", "s3": "ui_kernel"}[counter]
+    ptx = [v for k, v in kernels.ptxas_report().items() if name in k]
+    if len(ptx) != 1:
+        raise RuntimeError(f"build.log: {len(ptx)} ptxas reports for {name}")
+    return dict(info, spill_stores=ptx[0]["spill_stores"], spill_loads=ptx[0]["spill_loads"])
 
 
 def shading_rows(scene, renderer, sc, ui, main_launches, card) -> list:
@@ -1486,6 +1529,7 @@ def shading_rows(scene, renderer, sc, ui, main_launches, card) -> list:
                 run_shading(kind, args, kw, plain=False)
 
         (ops, taps), n_bytes = work, sum(tensors.values())
+        res = kernel_resources(counter, mine[0][1])
         ops_ms, bytes_ms = ops / FLOPS_PER_S * 1e3, n_bytes / BYTES_PER_S * 1e3
         entry, replaces = SHADE_KERNELS[counter]
         counts = {k: sum(c[k] for c in checks) for k in ("values", "differing",
@@ -1503,7 +1547,7 @@ def shading_rows(scene, renderer, sc, ui, main_launches, card) -> list:
             bound_ms=max(ops_ms, bytes_ms),
             bound_by="operations" if ops_ms >= bytes_ms else "bytes",
             library_ms=None, launches_per_frame=None, operations=ops, bytes=n_bytes,
-            texel_taps=taps, scene=scene, counter=counter)
+            texel_taps=taps, resources=res, scene=scene, counter=counter)
         row["share"] = row["bound_ms"] / row["ms"]
         print(f"kernel: {row['name']}: vs plain max_abs_err {row['max_abs_err']:.3e}, "
               f"{counts['differing']} of {counts['values']} values differ in bits, "
@@ -1512,7 +1556,10 @@ def shading_rows(scene, renderer, sc, ui, main_launches, card) -> list:
               f"{plain_ms:.1f} ms | bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
               f"{ops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB, {taps / 1e9:.3f} G texel "
               f"taps), share {row['share']:.1%} ({row['bound_ms'] / row['ms_queued']:.1%} "
-              f"queued) | {card}", flush=True)
+              f"queued) | {res['registers']} registers, spills {res['spill_stores']} B "
+              f"stored / {res['spill_loads']} B loaded, {res['local_bytes']} B local, "
+              f"{res['shared_bytes']} B shared a block, {res['blocks_per_sm']} blocks an "
+              f"SM of {res['sms']} | {card}", flush=True)
         rows.append(row)
     return rows
 

@@ -25,7 +25,7 @@
 namespace rs {
 
 constexpr int MAX_MIPS = 12;         // materials/atlas.py MAX_MIPS
-constexpr int THREADS = 256;         // one (candidate, pixel) a thread
+constexpr int THREADS = 256;         // a block's threads (every kernel here)
 constexpr float INV_12_92 = 0x1.3d0722p-4f;  // f32(1) / f32(12.92)
 constexpr float INV_1_055 = 0x1.e54edep-1f;  // f32(1) / f32(1.055)
 constexpr float INV_SQRT3 = 0x1.279a74p-1f;  // f32(1) / sqrt(f32(3))
@@ -137,11 +137,19 @@ __device__ __forceinline__ float srgb_decode(float c) {
   const float base = R<BF>(R<BF>(c + 0.055f) * INV_1_055);
   // torch.pow on a bf16 tensor takes the exponent as bf16 too
   const float hi = R<BF>(powf(base, R<BF>(SRGB_GAMMA)));
-  return c <= SRGB_KNEE ? lo : hi;
+  // torch compares a bf16 tensor with the knee rounded to bf16 too
+  return c <= R<BF>(SRGB_KNEE) ? lo : hi;
 }
 
-// Per-block tables of a texel byte b: raw[b] = b / 255 in the compute type
-// and dec[b] = its sRGB decode (a per-tap decode depends on the byte alone,
+// The value of a texel byte b in the compute type: b / 255 as the plain
+// version's `byte * R(1/255)`, in registers.
+template <bool BF>
+__device__ __forceinline__ float byte_value(int b) {
+  return R<BF>(static_cast<float>(b) * R<BF>(static_cast<float>(1.0 / 255.0)));
+}
+
+// Per-block tables of a texel byte b (S3): raw[b] = byte_value(b) and
+// dec[b] = its sRGB decode (a per-tap decode depends on the byte alone,
 // so the taps read it instead of evaluating pow). Filled by the block's
 // first 256 threads; the caller synchronises.
 struct ByteLut {
@@ -153,11 +161,52 @@ template <bool BF>
 __device__ __forceinline__ void fill_lut(ByteLut& lut) {
   const int b = threadIdx.x;
   if (b < 256) {
-    const float c = R<BF>(static_cast<float>(b) *
-                          R<BF>(static_cast<float>(1.0 / 255.0)));
+    const float c = byte_value<BF>(b);
     lut.raw[b] = c;
     lut.dec[b] = srgb_decode<BF>(c);
   }
+}
+
+// S1's per-tap decode table, replicated once a lane: entry b of lane l at
+// b * 32 + l (32 KB), so the 32 lanes of a warp read 32 different banks
+// whatever bytes they hold. Each of the block's 256 threads decodes one
+// byte; each warp then writes its 32 bytes' rows, one row a store.
+constexpr int LANE_TABLE = 256 * 32;
+
+template <bool BF>
+__device__ __forceinline__ void fill_lane_table(float* tab) {
+  static_assert(THREADS == 256, "one byte a thread");
+  const float d = srgb_decode<BF>(byte_value<BF>(threadIdx.x));
+  const int lane = threadIdx.x & 31, first = threadIdx.x & ~31;
+#pragma unroll 4
+  for (int j = 0; j < 32; ++j) tab[(first + j) * 32 + lane] = __shfl_sync(0xffffffffu, d, j);
+}
+
+// Where a sampler takes a texel byte's value from: raw(b) for linear
+// channels, dec(b) for an sRGB channel decoded per tap.
+struct SharedBytes {  // S3: both of the block's ByteLut tables
+  const ByteLut& lut;
+  __device__ __forceinline__ float raw(int b) const { return lut.raw[b]; }
+  __device__ __forceinline__ float dec(int b) const { return lut.dec[b]; }
+};
+
+template <bool BF>
+struct LaneBytes {  // S1, S2: raw in registers, dec from the lane's column
+  const float* tab;  // fill_lane_table's table; null where nothing decodes per tap
+  int lane;
+  __device__ __forceinline__ float raw(int b) const { return byte_value<BF>(b); }
+  __device__ __forceinline__ float dec(int b) const { return tab[b * 32 + lane]; }
+};
+
+// The channels a caller uses (a template mask): the sampler extracts,
+// decodes and filters only those. Channels are independent in the plain
+// version, so each used channel keeps its bits; unused ones come back 0.
+constexpr int CH_R = 1, CH_G = 2, CH_B = 4, CH_A = 8;
+constexpr int CH_RGB = CH_R | CH_G | CH_B, CH_RGBA = CH_RGB | CH_A;
+
+template <int MASK>
+__device__ __forceinline__ constexpr bool uses(int ch) {
+  return ((MASK >> ch) & 1) != 0;
 }
 
 struct Atlas {
@@ -167,7 +216,27 @@ struct Atlas {
   const int* wrap;
   long long n_atlas, n_tex;
   int atlas_w;
+  int last_pair;  // min(n_atlas - 1, 2^31 - 1): i in [0, last_pair) has i + 1 in range
 };
+
+__device__ __forceinline__ Atlas make_atlas(const int* atlas, const int* table,
+                                            const int* srgb, const int* wrap,
+                                            long long n_atlas, long long n_tex, int atlas_w) {
+  const long long last = n_atlas - 1 < 0x7fffffffLL ? n_atlas - 1 : 0x7fffffffLL;
+  return Atlas{atlas, table, srgb, wrap, n_atlas, n_tex, atlas_w,
+               static_cast<int>(last < 0 ? 0 : last)};
+}
+
+// The texels at atlas indices take_idx(i) and take_idx(i + 1) (i32
+// arithmetic wrapping): a bilinear quad's two texels of one row. When both
+// lie inside the atlas (nearly always) neither index wraps or clamps, and
+// one unsigned compare stands for take_idx's four.
+__device__ __forceinline__ int2 texel_pair(const Atlas& a, int i) {
+  if (static_cast<unsigned>(i) < static_cast<unsigned>(a.last_pair))
+    return make_int2(__ldg(a.atlas + i), __ldg(a.atlas + i + 1));
+  return make_int2(__ldg(a.atlas + take_idx(i, a.n_atlas)),
+                   __ldg(a.atlas + take_idx(wrap_add(i, 1), a.n_atlas)));
+}
 
 // shade.make_sampler's apply_wrap for one axis (mode m: 0 repeat, 1 clamp
 // to edge, 2 mirrored repeat)
@@ -199,76 +268,112 @@ __device__ __forceinline__ Slot slot_info(const Atlas& a, int slot) {
   return s;
 }
 
-// one mip of one texture: bilinear over 4 taps (make_sampler.sample_mip)
-template <bool BF, bool PER_TAP>
-__device__ float4 sample_mip(const Atlas& a, const ByteLut& lut, const Slot& s,
-                             int lod, float u, float v) {
-  const float uu = wrap_axis(u, s.wm0, a.wrap != nullptr);
-  const float vv = wrap_axis(v, s.wm1, a.wrap != nullptr);
+// one mip's rectangle in the atlas (make_sampler.sample_mip's rect)
+struct MipRect {
+  int x, y;
+  float w, h;
+};
+
+__device__ __forceinline__ MipRect mip_rect(const Atlas& a, const Slot& s, int lod) {
   const long long ri = take_idx(wrap_add(wrap_mul(s.slot, MAX_MIPS), lod),
                                 a.n_tex * MAX_MIPS);
-  const int4 rect = __ldg(reinterpret_cast<const int4*>(a.table) + ri);
-  const float w = static_cast<float>(rect.z);
-  const float h = static_cast<float>(rect.w);
-  const float uf = uu * w - 0.5f;
-  const float vf = vv * h - 0.5f;
+  const int4 r = __ldg(reinterpret_cast<const int4*>(a.table) + ri);
+  return MipRect{r.x, r.y, static_cast<float>(r.z), static_cast<float>(r.w)};
+}
+
+// make_sampler.sample_filtered's choice of mips, the same for every
+// anisotropic tap of a sample: the nearest mip (m0), or two and their blend
+// weights
+struct Lod {
+  MipRect m0, m1;
+  float frac, om;
+};
+
+template <bool BF>
+__device__ __forceinline__ Lod lod_of(const Atlas& a, const Slot& s, float lodf,
+                                      bool trilinear) {
+  lodf = clamp_lohi(lodf, 0.0f, MAX_MIPS - 1.0f);
+  Lod L;
+  if (!trilinear) {
+    L.m0 = mip_rect(a, s, f2i(nearbyintf(lodf)));
+    L.m1 = L.m0;
+    L.frac = 0.0f;
+    L.om = 1.0f;
+    return L;
+  }
+  const float l0f = floorf(lodf);
+  L.frac = R<BF>(lodf - l0f);
+  const int l0 = f2i(l0f);
+  L.m0 = mip_rect(a, s, l0);
+  L.m1 = mip_rect(a, s, min(l0 + 1, MAX_MIPS - 1));
+  L.om = R<BF>(1.0f - L.frac);
+  return L;
+}
+
+// one mip of one texture at wrapped coordinates (uu, vv): bilinear over 4
+// taps (make_sampler.sample_mip)
+template <bool BF, bool PER_TAP, int MASK, class Bytes>
+__device__ __forceinline__ float4 sample_mip(const Atlas& a, const Bytes& by, const Slot& s,
+                                             const MipRect& m, float uu, float vv) {
+  const float uf = uu * m.w - 0.5f;
+  const float vf = vv * m.h - 0.5f;
   const float iuf = floorf(uf), ivf = floorf(vf);
   const float fu = R<BF>(uf - iuf), fv = R<BF>(vf - ivf);
   const int iu = f2i(iuf), iv = f2i(ivf);
-  float t[4][4];  // taps 00, 10, 01, 11; channels R, G, B, A
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int xx = wrap_add(wrap_add(rect.x, iu), k & 1);
-    const int yy = wrap_add(wrap_add(rect.y, iv), k >> 1);
-    const int texel =
-        __ldg(a.atlas + take_idx(wrap_add(wrap_mul(yy, a.atlas_w), xx), a.n_atlas));
-#pragma unroll
-    for (int ch = 0; ch < 4; ++ch) {
-      const int b = (texel >> (8 * ch)) & 0xFF;
-      t[k][ch] = (PER_TAP && s.decoded && ch < 3) ? lut.dec[b] : lut.raw[b];
-    }
-  }
+  // taps 00, 10 (row iv) and 01, 11 (row iv + 1)
+  const int xx = wrap_add(m.x, iu);
+  const int yy = wrap_add(m.y, iv);
+  const int2 top = texel_pair(a, wrap_add(wrap_mul(yy, a.atlas_w), xx));
+  const int2 bot = texel_pair(a, wrap_add(wrap_mul(wrap_add(yy, 1), a.atlas_w), xx));
+  const int texel[4] = {top.x, top.y, bot.x, bot.y};
   const float a0 = R<BF>(1.0f - fu), b0 = R<BF>(1.0f - fv);
-  float c[4];
+  float c[4] = {0.f, 0.f, 0.f, 0.f};
 #pragma unroll
   for (int ch = 0; ch < 4; ++ch) {
-    float x = R<BF>(R<BF>(R<BF>(t[0][ch] * a0) * b0) + R<BF>(R<BF>(t[1][ch] * fu) * b0));
-    x = R<BF>(x + R<BF>(R<BF>(t[2][ch] * a0) * fv));
-    x = R<BF>(x + R<BF>(R<BF>(t[3][ch] * fu) * fv));
-    c[ch] = (!PER_TAP && s.decoded && ch < 3) ? srgb_decode<BF>(x) : x;
+    if (!uses<MASK>(ch)) continue;
+    const bool decoded = s.decoded && ch < 3;
+    float t[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int b = (texel[k] >> (8 * ch)) & 0xFF;
+      t[k] = (PER_TAP && decoded) ? by.dec(b) : by.raw(b);
+    }
+    float x = R<BF>(R<BF>(R<BF>(t[0] * a0) * b0) + R<BF>(R<BF>(t[1] * fu) * b0));
+    x = R<BF>(x + R<BF>(R<BF>(t[2] * a0) * fv));
+    x = R<BF>(x + R<BF>(R<BF>(t[3] * fu) * fv));
+    c[ch] = (!PER_TAP && decoded) ? srgb_decode<BF>(x) : x;
   }
   return make_float4(c[0], c[1], c[2], c[3]);
 }
 
-// make_sampler.sample_filtered: nearest mip or the two-mip blend
-template <bool BF, bool PER_TAP>
-__device__ float4 sample_filtered(const Atlas& a, const ByteLut& lut,
-                                  const Slot& s, float lodf, float u, float v,
-                                  bool trilinear) {
-  lodf = clamp_lohi(lodf, 0.0f, MAX_MIPS - 1.0f);
-  if (!trilinear) {
-    return sample_mip<BF, PER_TAP>(a, lut, s, f2i(nearbyintf(lodf)), u, v);
+// make_sampler.sample_filtered at (u, v): the address modes, then the
+// nearest mip or the two-mip blend of L
+template <bool BF, bool PER_TAP, int MASK, class Bytes>
+__device__ __forceinline__ float4 sample_filtered(const Atlas& a, const Bytes& by,
+                                                  const Slot& s, const Lod& L, float u,
+                                                  float v, bool trilinear) {
+  const float uu = wrap_axis(u, s.wm0, a.wrap != nullptr);
+  const float vv = wrap_axis(v, s.wm1, a.wrap != nullptr);
+  if (!trilinear) return sample_mip<BF, PER_TAP, MASK>(a, by, s, L.m0, uu, vv);
+  const float4 s0 = sample_mip<BF, PER_TAP, MASK>(a, by, s, L.m0, uu, vv);
+  const float4 s1 = sample_mip<BF, PER_TAP, MASK>(a, by, s, L.m1, uu, vv);
+  const float p0[4] = {s0.x, s0.y, s0.z, s0.w}, p1[4] = {s1.x, s1.y, s1.z, s1.w};
+  float c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int ch = 0; ch < 4; ++ch) {
+    if (uses<MASK>(ch)) c[ch] = R<BF>(R<BF>(p0[ch] * L.om) + R<BF>(p1[ch] * L.frac));
   }
-  const float l0f = floorf(lodf);
-  const float frac = R<BF>(lodf - l0f);
-  const int l0 = f2i(l0f);
-  const int l1 = min(l0 + 1, MAX_MIPS - 1);
-  const float4 s0 = sample_mip<BF, PER_TAP>(a, lut, s, l0, u, v);
-  const float4 s1 = sample_mip<BF, PER_TAP>(a, lut, s, l1, u, v);
-  const float om = R<BF>(1.0f - frac);
-  return make_float4(R<BF>(R<BF>(s0.x * om) + R<BF>(s1.x * frac)),
-                     R<BF>(R<BF>(s0.y * om) + R<BF>(s1.y * frac)),
-                     R<BF>(R<BF>(s0.z * om) + R<BF>(s1.z * frac)),
-                     R<BF>(R<BF>(s0.w * om) + R<BF>(s1.w * frac)));
+  return make_float4(c[0], c[1], c[2], c[3]);
 }
 
 // make_sampler.sample with analytic UV derivatives: per-axis texel-space
 // footprint, LOD from the major (aniso <= 1) or clamped minor axis, and
-// `aniso` trilinear taps along the major axis averaged as sum x (1/aniso)
-template <bool BF, bool PER_TAP>
-__device__ float4 sample(const Atlas& a, const ByteLut& lut, int slot, float u,
-                         float v, float dxu, float dxv, float dyu, float dyv,
-                         bool trilinear, int aniso) {
+// `aniso` trilinear taps along the major axis averaged as sum x (1/aniso);
+// the channels of MASK only
+template <bool BF, bool PER_TAP, int MASK, class Bytes>
+__device__ float4 sample(const Atlas& a, const Bytes& by, int slot, float u, float v,
+                         float dxu, float dxv, float dyu, float dyv, bool trilinear,
+                         int aniso) {
   const Slot s = slot_info(a, slot);
   const int4 size = __ldg(reinterpret_cast<const int4*>(a.table) +
                           take_idx(slot, a.n_tex) * MAX_MIPS);
@@ -278,27 +383,31 @@ __device__ float4 sample(const Atlas& a, const ByteLut& lut, int slot, float u,
   const float ly = sqrtf(qy0 * qy0 + qy1 * qy1);
   const float rho_max = clamp_lo(nan_max(lx, ly), 1e-8f);
   if (aniso <= 1) {
-    return sample_filtered<BF, PER_TAP>(a, lut, s, log2f(rho_max), u, v, trilinear);
+    const Lod L = lod_of<BF>(a, s, log2f(rho_max), trilinear);
+    return sample_filtered<BF, PER_TAP, MASK>(a, by, s, L, u, v, trilinear);
   }
   const float rho_min = nan_max(nan_min(lx, ly), rho_max * (1.0f / static_cast<float>(aniso)));
-  const float lodf = log2f(rho_min);
+  const Lod L = lod_of<BF>(a, s, log2f(rho_min), trilinear);
   const bool x_major = lx >= ly;
   const float mu = x_major ? dxu : dyu, mv = x_major ? dxv : dyv;
-  float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+  float acc[4] = {0.f, 0.f, 0.f, 0.f};
   for (int i = 0; i < aniso; ++i) {
     const float t = static_cast<float>((i + 0.5) / aniso - 0.5);
-    const float4 q = sample_filtered<BF, PER_TAP>(a, lut, s, lodf, u + mu * t,
-                                                  v + mv * t, trilinear);
-    if (i == 0) {
-      acc = q;
-    } else {
-      acc = make_float4(R<BF>(acc.x + q.x), R<BF>(acc.y + q.y),
-                        R<BF>(acc.z + q.z), R<BF>(acc.w + q.w));
+    const float4 q = sample_filtered<BF, PER_TAP, MASK>(a, by, s, L, u + mu * t, v + mv * t,
+                                                        trilinear);
+    const float qc[4] = {q.x, q.y, q.z, q.w};
+#pragma unroll
+    for (int ch = 0; ch < 4; ++ch) {
+      if (uses<MASK>(ch)) acc[ch] = i == 0 ? qc[ch] : R<BF>(acc[ch] + qc[ch]);
     }
   }
   const float inv = R<BF>(static_cast<float>(1.0 / aniso));
-  return make_float4(R<BF>(acc.x * inv), R<BF>(acc.y * inv), R<BF>(acc.z * inv),
-                     R<BF>(acc.w * inv));
+  float c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+  for (int ch = 0; ch < 4; ++ch) {
+    if (uses<MASK>(ch)) c[ch] = R<BF>(acc[ch] * inv);
+  }
+  return make_float4(c[0], c[1], c[2], c[3]);
 }
 
 // shade.interpolants for one pixel: the candidate's three vertices, the

@@ -20,6 +20,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -57,6 +58,8 @@ _SIGNATURES = {
     "rt_shade_stack": (_P, _P),
     "rt_alpha_stack": (_P, _P),
     "rt_shade_ui": (_P, _P),
+    # kernel (1 S1, 2 S2, 3 S3), bf16, per_tap, long long out[6]
+    "rt_shade_info": (_I, _I, _I, _P),
 }
 
 
@@ -156,6 +159,39 @@ def load() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         _lib = lib
         return lib
+
+
+#: rt_shade_info's fields, in order
+SHADE_INFO = ("registers", "local_bytes", "shared_bytes", "blocks_per_sm", "sms",
+              "grid_cap")
+
+
+def shade_info(kernel: str, bf16: bool = False, per_tap: bool = True) -> dict:
+    """What the host knows of a shading kernel's instantiation on the
+    current device: kernel "s1", "s2" or "s3" (bf16 and per_tap pick S1's
+    and S2's template; S2 has no per-tap variant): its registers a thread,
+    local bytes a thread (stack frame and spills), static shared bytes a
+    block, the blocks an SM that its launches assume (from
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor), the SMs, and S1's most
+    blocks a launch (0 for the others)."""
+    out = (ctypes.c_longlong * len(SHADE_INFO))()
+    which = {"s1": 1, "s2": 2, "s3": 3}[kernel]
+    check_launch(f"shade_info({kernel})",
+                 load().rt_shade_info(which, int(bf16), int(per_tap), out))
+    return dict(zip(SHADE_INFO, (int(v) for v in out)))
+
+
+def ptxas_report(log: Path | None = None) -> dict:
+    """{mangled kernel name: {"registers", "stack", "spill_stores",
+    "spill_loads"}} from the `ptxas -v` output in the build's build.log."""
+    text = (log or BUILD_DIR / "build.log").read_text()
+    out = {}
+    for m in re.finditer(
+            r"Function properties for (\S+)\n\s*(\d+) bytes stack frame, (\d+) bytes "
+            r"spill stores, (\d+) bytes spill loads\n[^\n]*Used (\d+) registers", text):
+        out[m.group(1)] = dict(stack=int(m.group(2)), spill_stores=int(m.group(3)),
+                               spill_loads=int(m.group(4)), registers=int(m.group(5)))
+    return out
 
 
 def sample_xy(sample_positions) -> ctypes.Array:

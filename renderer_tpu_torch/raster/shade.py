@@ -617,8 +617,9 @@ def shade_stack(tid, row0, geom, vs, frame, materials, *, width: int,
     global pixel row) → linear HDR [..., h, w, 4] f32, background (0,0,0,0).
     CPU tensors run shade_stack_plain; CUDA tensors launch S1
     (csrc/shade.cu), which replaces the JAX package's XLA-fused
-    shade_interpolated (renderer_tpu/raster/shade.py:329) in render_shard
-    and is bound by FP32 arithmetic and texel gathers."""
+    shade_interpolated (renderer_tpu/raster/shade.py:329) in render_shard:
+    persistent blocks that shade only the covered elements, bound by issue
+    slots and texel gathers."""
     kw = dict(width=width, height=height, trilinear=trilinear, aniso=aniso,
               srgb_per_tap=srgb_per_tap, compute_dtype=compute_dtype)
     return _dispatch("shade", shade_stack_plain, tid, row0, geom, vs, frame,

@@ -4,7 +4,8 @@ depth — the kernels are built without FMA contraction), and the port's
 Renderer on the card reproduces the golden images. The shading kernels S1,
 S2 and S3 are held to their plain versions within 2^-12 absolute, ≥ 99.9%
 of values within 2^-18, NaN where the plain version has NaN, and cutoffs
-equal (the differing counts are printed; on the scenes they are 0).
+equal (the differing counts are printed; on the scenes they are 0); the
+tests of S1's compaction and S2's alpha-only sampler hold them bit for bit.
 
 These need an NVIDIA GPU with nvcc; without one every test skips. This file
 imports no jax, so it runs on a machine without it:
@@ -531,3 +532,142 @@ def test_shading_kernels_on_crafted_inputs(cuda, crafted, mode):
             got = run_shading(kind, args, kw, plain=False)
             want = run_shading(kind, args, kw, plain=True)
             assert_shading_close(got, want, f"{crafted} mode {mode} {kind} {kw}")
+
+
+# -- S1's compacted persistent blocks and S2's alpha-only sampler ----------
+
+def _assert_bits_equal(got: tuple, want: tuple, what: str = "") -> None:
+    """Every output value bit-equal to the plain version's, NaN at the same
+    values."""
+    for g, w in zip(got, want, strict=True):
+        nan = torch.isnan(w)
+        assert g.shape == w.shape and g.dtype == w.dtype, (what, g.shape, w.shape)
+        assert torch.equal(torch.isnan(g), nan), f"{what}: NaN at other values"
+        bad = (g.view(torch.int32) != w.view(torch.int32)) & ~nan
+        assert not bad.any(), f"{what}: {int(bad.sum())} values differ in bits"
+
+
+def _random_atlas(mats: dict, seed: int) -> dict:
+    """The materials with every atlas texel random (all 256 byte values in
+    every channel) and every other texture sRGB."""
+    mats = dict(mats)
+    gen = torch.Generator().manual_seed(seed)
+    atlas = mats["atlas"]
+    mats["atlas"] = torch.randint(-2**31, 2**31 - 1, atlas.shape, generator=gen,
+                                  dtype=torch.int32).to(atlas.device)
+    n_tex = mats["atlas_table"].shape[0]
+    mats["atlas_srgb"] = (torch.arange(n_tex, dtype=torch.int32) % 2).to(atlas.device)
+    return mats
+
+
+# (3, 61, 96): 17,568 elements, a multiple of neither 256 nor S1's span
+COVERAGE_SHAPE = (3, 61, 96)
+SAMPLERS = ((True, 16, True), (True, 4, False), (False, 1, False))
+
+
+def _coverage_tid(coverage: str, n_tris: int) -> torch.Tensor:
+    """A candidate stack of COVERAGE_SHAPE: "none" (no covered element),
+    "one-lane-a-warp" (element e covered where e % 32 == 5, so each warp
+    S1 scans holds one covered lane), "full" (every element), "ragged" (8%
+    covered at random, the rest -1 and -2)."""
+    gen = torch.Generator().manual_seed(3)
+    ids = torch.randint(0, n_tris, COVERAGE_SHAPE, generator=gen, dtype=torch.int32)
+    bg = torch.randint(-2, 0, COVERAGE_SHAPE, generator=gen, dtype=torch.int32)
+    if coverage == "none":
+        return bg
+    if coverage == "full":
+        return ids
+    if coverage == "one-lane-a-warp":
+        lane = (torch.arange(ids.numel()) % 32 == 5).reshape(COVERAGE_SHAPE)
+    else:
+        lane = torch.rand(COVERAGE_SHAPE, generator=gen) < 0.08
+    return torch.where(lane, ids, bg)
+
+
+def _eager_and_replayed(cuda, fn):
+    """fn()'s outputs run eagerly and from a CUDA graph it was captured in."""
+    from renderer_tpu_torch.raster.pipeline import CapturedGraph
+
+    eager = fn()
+    g = CapturedGraph(fn, cuda)
+    for t in (g.out if isinstance(g.out, tuple) else (g.out,)):
+        t.fill_(float("nan"))
+    g.replay()
+    torch.cuda.synchronize()
+    replayed = g.out
+    return ((eager if isinstance(eager, tuple) else (eager,)),
+            (replayed if isinstance(replayed, tuple) else (replayed,)))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("coverage", ["none", "one-lane-a-warp", "full", "ragged"])
+def test_s1_compaction_bit_equal(cuda, coverage, dtype):
+    """S1 (persistent blocks that compact the covered elements of each
+    span) against shade_stack_plain bit for bit on a strip with no covered
+    element, one covered lane in each warp, a fully covered strip and a
+    ragged 8% cover, at an element count that is a multiple of neither 256
+    nor the span: every debug mode, f32 and bf16, the exact and both fast
+    samplers, on a random atlas with sRGB and linear textures; eagerly and
+    replayed from a captured graph."""
+    _tid, _row0, geom, vs, frame, mats, _cfg = _crafted_inputs(cuda, "as-is")
+    mats = _random_atlas(mats, seed=5)
+    tid = _coverage_tid(coverage, geom["tri_v"].shape[0]).to(cuda)
+    row0 = torch.full((COVERAGE_SHAPE[1], 1), 3.0, device=cuda)
+    before = shade.launches["shade"]
+    for mode in range(7):
+        fr = dict(frame)
+        fr["debug_mode"] = torch.full((), mode, dtype=torch.int32, device=cuda)
+        for trilinear, aniso, per_tap in SAMPLERS:
+            kw = dict(width=96, height=64, trilinear=trilinear, aniso=aniso,
+                      srgb_per_tap=per_tap, compute_dtype=dtype)
+            args = (tid, row0, geom, vs, fr, mats)
+            want = (shade.shade_stack_plain(*args, **kw),)
+            eager, replayed = _eager_and_replayed(
+                cuda, lambda args=args, kw=kw: shade.shade_stack(*args, **kw))
+            what = f"{coverage} mode {mode} {kw}"
+            _assert_bits_equal(eager, want, what + " eager")
+            _assert_bits_equal(replayed, want, what + " replayed")
+            if coverage == "none":
+                assert not eager[0].any()
+    assert shade.launches["shade"] > before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_s2_alpha_only_bit_equal(cuda, dtype):
+    """S2 (the alpha channel alone, no shared memory) against
+    alpha_stack_plain bit for bit on sRGB textures, whose alpha must stay
+    linear, with random texels, NaN and infinite UV derivatives and a w = 0
+    vertex, every element (background included) at a count that is not a
+    multiple of 256; both samplers; eagerly and replayed from a captured
+    graph. Cutoffs equal."""
+    _tid, _row0, geom, vs, frame, mats, _cfg = _crafted_inputs(cuda, "nan-derivatives")
+    mats = _random_atlas(mats, seed=9)
+    mats["atlas_srgb"] = torch.ones_like(mats["atlas_srgb"])
+    tid = _coverage_tid("ragged", geom["tri_v"].shape[0]).to(cuda)
+    row0 = torch.zeros((COVERAGE_SHAPE[1], 1), device=cuda)
+    for trilinear, aniso, per_tap in SAMPLERS:
+        kw = dict(width=96, height=64, trilinear=trilinear, aniso=aniso,
+                  srgb_per_tap=per_tap, compute_dtype=dtype)
+        args = (tid, row0, geom, vs, frame, mats)
+        want = shade.alpha_stack_plain(*args, **kw)
+        eager, replayed = _eager_and_replayed(
+            cuda, lambda args=args, kw=kw: shade.alpha_stack(*args, **kw))
+        _assert_bits_equal(eager, want, f"{kw} eager")
+        _assert_bits_equal(replayed, want, f"{kw} replayed")
+        assert torch.isnan(want[0]).any() and (want[0][~torch.isnan(want[0])] < 1).any()
+
+
+def test_shade_info_on_the_card(cuda):
+    """kernels.shade_info: every shading kernel's registers and the blocks
+    an SM its launches assume; S1's grid is SMs × those blocks."""
+    for kernel, bf16, per_tap in (("s1", False, True), ("s1", True, False),
+                                  ("s2", False, False), ("s2", True, False),
+                                  ("s3", False, False)):
+        info = kernels.shade_info(kernel, bf16, per_tap)
+        assert 0 < info["registers"] <= 255 and info["blocks_per_sm"] >= 1, info
+        assert info["sms"] == torch.cuda.get_device_properties(0).multi_processor_count
+        assert info["grid_cap"] == (info["sms"] * info["blocks_per_sm"] if kernel == "s1"
+                                    else 0)
+        assert info["shared_bytes"] == 0 if kernel == "s2" else info["shared_bytes"] > 0
+    report = kernels.ptxas_report()
+    assert any("shade_kernel" in k for k in report) and any("alpha_kernel" in k for k in report)
