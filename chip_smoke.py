@@ -95,8 +95,9 @@ four ranks spawned on the one card over gloo with CUDA tensors, at
 1920×1024, render scene A's stress field at sp=2 (contiguous and
 interleaved) and the mini-sandbox at dp=2 × sp=2 (1×MSAA, game times
 MESH_TIMES), each against the single-device pipeline.render_frame on the
-same inputs: stats equal, pixel agreement ≥ 0.999 (the differing pixels
-are printed). The ranks' K1/K2 launches go into the kernels line as
+same inputs: stats equal and every pixel equal (the vertex stage gives a
+rank's slice of the vertex stream the whole stream's bits), each rank on
+the host library. The ranks' K1/K2 launches go into the kernels line as
 "10 mesh". Ranks sharing one card time nothing useful: the wall-clock is a
 smoke figure.
 
@@ -113,28 +114,40 @@ launches go into the kernels line as "11 glb"), and again at GLB_SMALL on
 the card and on the CPU, which must agree to the golden tolerance; (c)
 tools.make_ntex's CLI on that JPEG and on a PNG of the port's decode of
 it: the two .ntex files must be byte-equal, and the card's BC7 decode of
-them equal to the CPU's.
+them equal to the CPU's; (d) a YCCK (Adobe transform 2) and a 4:1:1 JPEG of
+the vectors file (tests/torch_jpeg_writer.py's, as Pillow cannot write
+them) each embedded in that GLB and loaded by load_gltf onto the card,
+mip 0 equal to Pillow's stored decode.
 
 Phase 12 ("shading") holds the deferred-shading kernels (csrc/shade.cu)
 against their plain versions on the real frames: renderers for scenes A, B
 and C are built afresh, and every call one 1920×1080 frame of each makes to
-shade.shade_stack (S1), shade.alpha_stack (S2) and ui_stage.shade_ui_layer
-(S3) — every candidate stack and strip, with its own row0 — is recorded
-and run again through the kernel and through its plain version: ≤ 2^-12
+shade.shade_stack (S1), shade.alpha_stack (S2) and
+ui_stage.shade_composite_ui (the fused S3: the UI shade and its composite
+into the HDR samples, in place) — every candidate stack and strip, with its
+own row0, and the fused S3's samples as it found them — is recorded and
+run again through the kernel and through its plain version: ≤ 2^-12
 absolute, ≥ 99.9% of values within 2^-18, NaN where the plain version has
-NaN, cutoffs equal (the differing counts are printed). Each (kernel, scene)
-gives one row of the kernels line for all of that frame's calls of the
-kernel: ms as issued and queued, the plain version's ms (its comparison
-run), a bound counted from the code (shade_work: FP32 operations of the
-channels each sample uses and texel taps of the pixels each kernel shades
-at 67 TFLOP/s, each input and output byte of the frame's calls once at
-3.35 TB/s), and the kernel's registers, spills, local and shared bytes and
-the blocks an SM that the host computed for its launches
-(kernel_resources). It then replays frames A, B and C
+NaN, cutoffs equal (the differing counts are printed). S3
+(ui_stage.shade_ui_layer, which the pipeline no longer calls) runs on the
+fused S3's layers. S3 and the fused S3 must be bit-equal (0 values
+differing), on C and on C under RenderConfig.ui_msaa (checked, not
+timed). Each (kernel, scene) gives one row of the kernels line for all of
+that frame's calls of the kernel: ms as issued and queued, the plain
+version's ms (its comparison run), a bound counted from the code
+(shade_work: FP32 operations of the channels each sample uses and texel
+taps of the pixels each kernel shades at 67 TFLOP/s — for the fused S3
+its live elements alone —, each input and output byte of the frame's calls
+once at 3.35 TB/s — for the fused S3 the HDR samples read once and written
+where their bits change), and the kernel's
+registers, spills, local and shared bytes and the blocks an SM that the
+host computed for its launches (kernel_resources). It times scene C's UI
+pass piece by piece (tools.frame_profile.ui_pass_ms: the fused S3 against
+S3 plus the composite loop it replaced), then replays frames A, B and C
 as CUDA graphs (engine.stats.fused_frame_ms; the multi-frame path has no UI
 pass) beside phase 6's eager frames, and profiles one eager frame of B and
 C with torch.profiler (tools.frame_profile.profile_frame): kernel count,
-top ops, and the device share of S1-S3 and K1/K2.
+top ops, and the device share of S1-S3, the fused S3 and K1/K2.
 
 Each phase prints one line; any failure raises (exit code ≠ 0). The line
 before the last is a JSON object with one entry per kernel (with its
@@ -226,7 +239,6 @@ CAPTURE_W, CAPTURE_H = 1280, 720
 BINNING_REPS = 5
 MESH_W, MESH_H = 1920, 1024  # the JAX package's multichip shape (32 tile rows)
 MESH_TIMES = (0.4, 1.0)  # the mini-sandbox's dp=2 batch
-MESH_AGREEMENT = 0.999  # tests/test_multichip.py's floor
 NATIVE_TIMES = (0.4, 1.0, 1.02, 1.5)
 # the joint palettes' last-bit drift between the library and the numpy
 # path: one f32 ULP at the palettes' magnitude (< 2), as in the JAX package
@@ -242,13 +254,19 @@ REPLAYS = 4  # phase 12's graph replays a scene
 FLOPS_PER_S = 67e12  # H100 SXM FP32 outside the tensor cores (data sheet)
 # pipeline.launch_counts' keys → this script's counter names
 PIPELINE_KEYS = {"k1": "k1", "masked": "k2_masked", "blended": "k2_blended",
-                 "ui": "k2_ui", "shade": "s1", "alpha": "s2", "ui_shade": "s3"}
+                 "ui": "k2_ui", "shade": "s1", "alpha": "s2", "ui_shade": "s3",
+                 "ui_composite": "s3c"}
 # the shading kernels: (entry point, what it replaces in the JAX package)
 SHADE_KERNELS = {
     "s1": ("S1 shade_stack", "renderer_tpu/raster/shade.py:329"),
     "s2": ("S2 alpha_stack", "renderer_tpu/raster/shade.py:312"),
     "s3": ("S3 shade_ui_layer", "renderer_tpu/raster/ui_stage.py:89"),
+    "s3c": ("S3 fused shade_composite_ui (UI shade + composite)",
+            "renderer_tpu/raster/ui_stage.py:89"),
 }
+# phase 11's JPEG layouts that Pillow reads but does not write, decoded
+# through load_gltf (the vectors file's "written-*" entries)
+JPEG_LAYOUTS = ("written-ycck", "written-411")
 
 
 def scene_a():
@@ -672,7 +690,7 @@ def _asset_checks_in(tmp: Path, dev, z, chain, shapes, registries) -> dict:
     loop_launches = counters()
     fs = loop["frame_stats"]
     bad = {k: fs[k] for k in OVERFLOW_STATS if fs[k]}
-    missing = [k for k in ("k1", "k2_masked", "k2_ui", "s1", "s2", "s3")
+    missing = [k for k in ("k1", "k2_masked", "k2_ui", "s1", "s2", "s3c")
                if loop_launches[k] < 1]
     if bad or missing or fs["masked_demand_max"] < 1:
         raise RuntimeError(f"assets: run_loop overflow {bad}, not launched {missing}, "
@@ -1042,7 +1060,7 @@ def mesh_rank(rank: int, configs: dict, device_type: str) -> dict:
     seconds = time.perf_counter() - t0
     after = pipeline.launch_counts()
     return {"runs": {k: (img.cpu().numpy(), st.cpu().numpy()) for k, (img, st) in runs.items()},
-            "seconds": seconds,
+            "seconds": seconds, "native": native.status()["path"],
             "launches": {k: after[k] - before[k] for k in after}}
 
 
@@ -1177,10 +1195,12 @@ def mesh_checks(dev, tmp: Path, card) -> tuple[dict, dict]:
             if gi.shape != wi.shape or (wst[:4] != 0).any():
                 raise RuntimeError(f"mesh: {run}: shape {gi.shape} stats {wst.tolist()}")
             differing.append(int((gi != wi).any(axis=-1).sum()))
-        agree = 1.0 - max(differing) / (MESH_W * MESH_H)
-        if agree < MESH_AGREEMENT:
-            raise RuntimeError(f"mesh: {run}: agreement {agree}")
-        result["runs"][run] = {"pixels_differing": differing, "agreement": agree,
+        # bit-equal to one device: every vertex-stage contraction is written
+        # out in a fixed order (raster/vertex_stage.py), so a rank's slice of
+        # the vertex stream gives the whole stream's bits
+        if max(differing) != 0:
+            raise RuntimeError(f"mesh: {run}: {differing} pixels differ from one device")
+        result["runs"][run] = {"pixels_differing": differing,
                                "total_pairs": [int(st[STAT_NAMES.index("total_pairs")])
                                                for _, st in got]}
     launches = dict.fromkeys(PIPELINE_KEYS.values(), 0)
@@ -1189,11 +1209,14 @@ def mesh_checks(dev, tmp: Path, card) -> tuple[dict, dict]:
             launches[PIPELINE_KEYS[k]] += v
     if min(launches["k1"], launches["k2_masked"], launches["k2_blended"]) < 4:
         raise RuntimeError(f"mesh: the ranks' launches {[o['launches'] for o in outs]}")
+    result["rank_host_library"] = [o["native"] for o in outs]
+    if set(result["rank_host_library"]) != {"native"}:
+        raise RuntimeError(f"mesh: the ranks' host library paths {result['rank_host_library']}")
     result["launches_by_rank"] = [o["launches"] for o in outs]
     print(f"mesh: 4 ranks on one card over gloo (CUDA tensors), {MESH_W}x{MESH_H}: "
-          + " | ".join(f"{k}: stats = single, {v['pixels_differing']} px differ "
-                       f"(agreement {v['agreement']:.6f}), total_pairs {v['total_pairs']}"
-                       for k, v in result["runs"].items())
+          + " | ".join(f"{k}: stats = single, {v['pixels_differing']} px differ, "
+                       f"total_pairs {v['total_pairs']}" for k, v in result["runs"].items())
+          + f" | ranks' host library {result['rank_host_library']}"
           + f" | launches by rank {result['launches_by_rank']} | wall {wall:.1f} s, in-rank "
           f"{[round(s, 2) for s in result['rank_s']]} s (smoke, ranks share one card) "
           f"| {card}", flush=True)
@@ -1367,6 +1390,29 @@ def glb_checks(dev, tmp: Path, data: bytes, card) -> tuple[dict, dict]:
     return out, launches
 
 
+def jpeg_layout_checks(dev, tmp: Path, z, card) -> dict:
+    """Phase 11 (d): each JPEG_LAYOUTS vector (YCCK under Adobe transform 2,
+    4:1:1; tests/torch_jpeg_writer.py's files, which Pillow reads but does
+    not write) embedded in jpeg_glb's GLB and loaded by load_gltf onto the
+    card: the texture's mip 0 equal to Pillow's decode stored beside it."""
+    out = {}
+    for name in JPEG_LAYOUTS:
+        path = tmp / f"{name}.glb"
+        path.write_bytes(jpeg_glb(z[f"{name}_jpeg"].tobytes()))
+        registry, builder = trt.MaterialRegistry(), trt.VertexLibraryBuilder()
+        t0 = time.perf_counter()
+        gltf = load_gltf(path, builder, registry, device=dev)
+        ms = (time.perf_counter() - t0) * 1e3
+        got, want = np.asarray(gltf.textures[0].mips[0]), z[f"{name}_rgba"]
+        if got.shape != want.shape or not np.array_equal(got, want):
+            raise RuntimeError(f"jpeg: {name} through load_gltf differs from Pillow's decode")
+        out[name] = {"shape": list(got.shape), "load_ms": ms}
+    loads = ", ".join(f"{k} {v['load_ms']:.1f} ms" for k, v in out.items())
+    print(f"jpeg: {', '.join(JPEG_LAYOUTS)} in a GLB through load_gltf on the card: mip 0 "
+          f"equal to Pillow's decode (load {loads}) | {card}", flush=True)
+    return out
+
+
 def jpeg_ntex_checks(dev, tmp: Path, data: bytes, card) -> dict:
     """Phase 11 (c): make_ntex's CLI on the JPEG and on a PNG of the port's
     decode of it (png.py's encoder) writes the same .ntex bytes; the card's
@@ -1402,6 +1448,7 @@ def phase11(dev, card) -> tuple[dict, dict]:
     with tempfile.TemporaryDirectory() as tmp:
         tmp = Path(tmp)
         out["glb"], launches = glb_checks(dev, tmp, data, card)
+        out["layouts"] = jpeg_layout_checks(dev, tmp, z, card)
         out["make_ntex"] = jpeg_ntex_checks(dev, tmp, data, card)
     out["seconds"] = time.perf_counter() - t0
     print(f"phase 11 took {out['seconds']:.1f} s", flush=True)
@@ -1442,6 +1489,26 @@ S1_CHANNELS = {1: (4,), 2: (), 3: (3,), 4: (2,), 5: (3,), 6: (1,)}
 S1_LIT_CHANNELS = (4, 3, 1, 3)
 
 
+#: the DrawList tensors the UI kernels read
+UI_INPUTS = ("tris", "pos", "uv", "col", "tri_cmd", "clip", "tex_kind", "tex_slot")
+
+
+def ui_live(lt: torch.Tensor, ui: dict, row0) -> tuple[torch.Tensor, torch.Tensor]:
+    """(live, kind) of every (layer, pixel) of `lt` as shade_ui_layer
+    computes them: covered, inside its command's clip rect and of
+    tex_kind 1 or 2; kind is the command's tex_kind."""
+    h, w = lt.shape[-2:]
+    t = lt.clamp(min=0, max=ui["tri_cmd"].shape[0] - 1).long()
+    cmd = ui["tri_cmd"][t].long().clamp(0, ui["clip"].shape[0] - 1)
+    cr = ui["clip"][cmd]
+    px = torch.arange(w, dtype=torch.float32, device=lt.device) + 0.5
+    py = (torch.arange(h, dtype=torch.float32, device=lt.device)[:, None] + 0.5
+          + row0.reshape(h, 1))
+    in_clip = (cr[..., 0] < px) & (cr[..., 2] >= px) & (cr[..., 1] < py) & (cr[..., 3] >= py)
+    kind = ui["tex_kind"][cmd]
+    return (lt >= 0) & in_clip & ((kind == 1) | (kind == 2)), kind
+
+
 def shade_work(counter, args, kw, outs, tensors: dict) -> tuple[int, int]:
     """(FP32 operations, texel taps) one recorded call needs, counted from
     csrc/shade.cu on this call's data: S1 shades covered (candidate,
@@ -1453,7 +1520,38 @@ def shade_work(counter, args, kw, outs, tensors: dict) -> tuple[int, int]:
     affine interpolation and the clip test, one trilinear sample of four
     channels, decoded after the filter). Adds the call's input tensors to
     `tensors` (address → bytes; the recorded calls hold them, so each is
-    counted once) and its outputs under their own keys."""
+    counted once) and its outputs under their own keys.
+
+    The fused S3 counts its live (layer, pixel)s alone (ui_live), the only
+    ones whose shade the composite sees: 70 of interpolation and the clip
+    test, the sample of the channels each uses (a font layer R, an RGBA
+    one RGBA; decoded after the filter where the texture is sRGB) and 10 a
+    sample it composites into (1 − a, then 2 multiplies and an add a
+    channel). Its bytes are the layer ids, row0 and the DrawList's
+    tensors (UI_INPUTS) once by address, the HDR samples read once, and
+    written only where `outs` (the call's result) differs from them in
+    bits, as the kernel stores them; texels count as taps."""
+    if counter == "s3c":
+        hdr, lt, ui, mats = args
+        live, kind = ui_live(lt, ui, kw["row0"])
+        for t in (lt, kw["row0"], *(ui[k] for k in UI_INPUTS)):
+            tensors[t.data_ptr()] = t.numel() * t.element_size()
+        for i, (t, new) in enumerate(zip(hdr, outs, strict=True)):
+            changed = int((t.view(torch.int32) != new.view(torch.int32)).sum())
+            tensors[("hdr", len(tensors), i)] = (t.numel() + changed) * t.element_size()
+        n_live = int(live.sum())
+        n_srgb = mats["atlas_srgb"].shape[0]
+        t = lt.clamp(min=0, max=ui["tri_cmd"].shape[0] - 1).long()
+        slot = ui["tex_slot"][ui["tri_cmd"][t].long().clamp(0, ui["clip"].shape[0] - 1)]
+        srgb = mats["atlas_srgb"][slot.long().clamp(0, n_srgb - 1)] > 0
+        ops = n_live * (70 + 10 * (len(hdr) if lt.dim() == 3 else 1))
+        taps = 0
+        for k, channels, decoded in ((1, 1, 1), (2, 4, 3)):
+            mask = live & (kind == k)
+            o, tp = sampler_work(int(mask.sum()), int((mask & srgb).sum()), True, 1, False,
+                                 channels, decoded)
+            ops, taps = ops + o, taps + tp
+        return ops, taps
     for a in (*args, *kw.values()):
         for t in (a.values() if isinstance(a, dict) else [a]):
             if isinstance(t, torch.Tensor):
@@ -1489,11 +1587,71 @@ def kernel_resources(counter: str, kw: dict) -> dict:
     per_tap = bool(kw.get("srgb_per_tap", False))
     info = kernels.shade_info(counter, bf16, per_tap)
     name = {"s1": f"shade_kernelILb{int(bf16)}ELb{int(per_tap)}E",
-            "s2": f"alpha_kernelILb{int(bf16)}E", "s3": "ui_kernel"}[counter]
+            "s2": f"alpha_kernelILb{int(bf16)}E", "s3": "ui_kernel",
+            "s3c": "ui_composite_kernel"}[counter]
     ptx = [v for k, v in kernels.ptxas_report().items() if name in k]
     if len(ptx) != 1:
         raise RuntimeError(f"build.log: {len(ptx)} ptxas reports for {name}")
     return dict(info, spill_stores=ptx[0]["spill_stores"], spill_loads=ptx[0]["spill_loads"])
+
+
+def frame_shading_calls(renderer, sc, ui) -> dict:
+    """Every shading call one frame of `sc` makes (after a frame that grows
+    the capacities), by kind: {kind: [(args, kwargs)]}. The pipeline calls
+    the fused S3 (S3C); S3 (shade_ui_layer) is called on the same layers
+    as each fused call, since its row is held to its plain version too."""
+    renderer.render_frame_device(sc, 0, ui=ui)  # grows the capacities
+    with recorded_shading() as calls:
+        renderer.render_frame_device(sc, 0, ui=ui)
+    torch.cuda.synchronize()
+    calls += [("S3", args[1:], kw) for kind, args, kw in calls if kind == "S3C"]
+    return {kind: [(a, k) for c, a, k in calls if c == kind]
+            for kind in sorted({c for c, _, _ in calls})}
+
+
+def timed_shading(kind: str, mine: list):
+    """A function that runs the recorded calls `mine` through their kernel,
+    as phase 12 times them; the fused S3 updates copies of its HDR samples
+    made once, here, so that no copy is timed."""
+    if kind == "S3C":
+        work = [([t.clone() for t in args[0]], args[1:], kw) for args, kw in mine]
+
+        def run_fused():
+            for hdr, rest, kw in work:
+                ui_stage.shade_composite_ui(hdr, *rest, **kw)
+        return run_fused
+
+    def run():
+        for args, kw in mine:
+            run_shading(kind, args, kw, plain=False)
+    return run
+
+
+def ui_msaa_checks(frames_c, cfg_c, pol_c, dev, card) -> dict:
+    """Phase 12 on scene C under RenderConfig.ui_msaa (the UI's coverage at
+    the MSAA sample positions, layers [S, K, H, W]): the fused S3 and S3
+    on the frame's UI layers, each bit-equal to its plain version."""
+    r = trt.Renderer(frames_c.registry, replace(cfg_c, ui_msaa=True),
+                     profiler=frames_c.profiler, overflow_policy=pol_c, device=dev)
+    sc, ui = frames_c.next()
+    out = {}
+    for kind, mine in frame_shading_calls(r, sc, ui).items():
+        if kind not in ("S3", "S3C"):
+            continue
+        counts = [compare(run_shading(kind, a, k, plain=False),
+                          run_shading(kind, a, k, plain=True)) for a, k in mine]
+        out[kind] = {"calls": len(mine), "shapes": [list(a[1 if kind == "S3C" else 0].shape)
+                                                    for a, _ in mine],
+                     **{c: sum(x[c] for x in counts) for c in ("values", "differing", "nan")}}
+        if out[kind]["differing"]:
+            raise RuntimeError(f"{kind} under ui_msaa: {out[kind]} differ from the plain version")
+    if set(out) != {"S3", "S3C"}:
+        raise RuntimeError(f"ui_msaa: the frame made no UI shade call: {sorted(out)}")
+    print(f"shading: scene C under ui_msaa, {W}x{H}: "
+          + " | ".join(f"{k} {v['shapes']}: {v['differing']} of {v['values']} values differ "
+                       f"in bits" for k, v in out.items()) + f" | {card}", flush=True)
+    del r
+    return out
 
 
 def shading_rows(scene, renderer, sc, ui, main_launches, card) -> list:
@@ -1501,14 +1659,9 @@ def shading_rows(scene, renderer, sc, ui, main_launches, card) -> list:
     against its plain version (timed: plain_ms is that run's CUDA-event ms),
     and returns one kernels-line row a kernel with the frame's calls timed
     together."""
-    renderer.render_frame_device(sc, 0, ui=ui)  # grows the capacities
-    with recorded_shading() as calls:
-        renderer.render_frame_device(sc, 0, ui=ui)
-    torch.cuda.synchronize()
     rows = []
-    for kind in sorted({k for k, _, _ in calls}):
+    for kind, mine in frame_shading_calls(renderer, sc, ui).items():
         counter = kind.lower()
-        mine = [(a, k) for c, a, k in calls if c == kind]
         checks, plain_ms, work, tensors = [], 0.0, [0, 0], {}
         for args, kw in mine:
             got = run_shading(kind, args, kw, plain=False)
@@ -1521,12 +1674,12 @@ def shading_rows(scene, renderer, sc, ui, main_launches, card) -> list:
             checks.append(compare(got, want))
             if counter == "s2" and not torch.equal(got[1], want[1]):
                 raise RuntimeError(f"S2 cutoffs differ on scene {scene}")
+            if counter in ("s3", "s3c") and checks[-1]["differing"]:
+                raise RuntimeError(f"{kind} on scene {scene}: {checks[-1]['differing']} "
+                                   f"values differ in bits from the plain version")
             work = [x + y for x, y in zip(work, shade_work(counter, args, kw, got, tensors))]
             del got, want
-
-        def run(mine=mine, kind=kind):
-            for args, kw in mine:
-                run_shading(kind, args, kw, plain=False)
+        run = timed_shading(kind, mine)
 
         (ops, taps), n_bytes = work, sum(tensors.values())
         res = kernel_resources(counter, mine[0][1])
@@ -1536,7 +1689,7 @@ def shading_rows(scene, renderer, sc, ui, main_launches, card) -> list:
                                                          "over_fine", "nan")}
         row = dict(
             name=f"{entry} (scene {scene}, {W}x{H}, the frame's {len(mine)} calls, "
-                 f"shapes {[tuple(a[0].shape) for a, _ in mine]})",
+                 f"shapes {[tuple(a[1 if kind == 'S3C' else 0].shape) for a, _ in mine]})",
             route="cuda", source="renderer_tpu_torch/csrc/shade.cu", replaces=replaces,
             launches=main_launches[counter],
             max_abs_err=max(c["max_abs_err"] for c in checks), **counts,
@@ -1581,12 +1734,21 @@ def phase12(dev, card, main_launches, frame_ms) -> tuple[list, dict]:
     for name, r, sc, ui in (("A", ra, sc_a, None), ("B", rb, sc_b, None),
                             ("C", rc, sc_c, ui_c)):
         rows += shading_rows(name, r, sc, ui, main_launches, card)
+    ui_msaa = ui_msaa_checks(frames_c, cfg_c, pol_c, dev, card)
+    reset_counters()  # the tool's own launches (S3 among them)
+    ui_pass = frame_profile.ui_pass_ms(rc, ui_c)
+    ui_pass_launches = counters()
+    print(f"shading: scene C's UI pass: raster {ui_pass['raster']:.3f} ms (host-paced), "
+          f"device ms (queued): fused S3 {ui_pass['fused']:.3f} against S3 "
+          f"{ui_pass['shade']:.3f} + the composite loop {ui_pass['composite_loop']:.3f} = "
+          f"{ui_pass['unfused']:.3f} | {card}", flush=True)
     replay = {name: engine_stats.fused_frame_ms(r, sc, iters=REPLAYS)
               for name, r, sc in (("A", ra, sc_a), ("B", rb, sc_b), ("C", rc, sc_c))}
     profiles = {"B": frame_profile.profile_frame(rb, sc_b),
                 "C": frame_profile.profile_frame(rc, sc_c, ui_c)}
     out = {"replayed_frame_ms": replay, "eager_frame_ms": frame_ms,
-           "profiles": profiles, "seconds": time.perf_counter() - t0}
+           "profiles": profiles, "ui_msaa": ui_msaa, "ui_pass_ms": ui_pass,
+           "ui_pass_launches": ui_pass_launches, "seconds": time.perf_counter() - t0}
     print(f"shading: frames replayed as CUDA graphs (median of {REPLAYS}, no UI pass) "
           + ", ".join(f"{k} {v:.2f} ms" for k, v in replay.items())
           + " vs eager (phase 6) " + ", ".join(f"{k} {v:.2f} ms" for k, v in frame_ms.items())
@@ -1699,8 +1861,8 @@ def main() -> int:
     for name, moved in (("B", moved_b), ("C", moved_c)):
         if moved["k2_masked"] < 1 or moved["k2_blended"] < 1 or moved["s2"] < 1:
             raise RuntimeError(f"K2 (both modes) or S2 not launched for {name}: {moved}")
-    if moved_c["k2_ui"] < 1 or moved_c["s3"] < 1:
-        raise RuntimeError(f"K2's UI launch or S3 not made for C: {moved_c}")
+    if moved_c["k2_ui"] < 1 or moved_c["s3c"] < 1:
+        raise RuntimeError(f"K2's UI launch or the fused S3 not made for C: {moved_c}")
     print(f"main path: A {moved_a} B {moved_b} C {moved_c} first frames "
           f"{first_s:.1f} s | A total_pairs {stats_a['total_pairs']} | B total_pairs "
           f"{stats_b['total_pairs']} masked_demand {stats_b['masked_demand_max']} "
@@ -1783,7 +1945,8 @@ def main() -> int:
 
     phases = {"3 main path": main_launches, "7 run_loop": assets["run_loop_launches"],
               "8 flythrough": frames["launches"], **tool_launches,
-              "10 mesh": mesh_launches, "11 glb": glb_launches}
+              "10 mesh": mesh_launches, "11 glb": glb_launches,
+              "12 frame_profile.ui_pass_ms": shading["ui_pass_launches"]}
     for row in results:
         counter = row.pop("counter")
         row["launches_per_frame"] = per_frame[row.pop("scene")][counter]

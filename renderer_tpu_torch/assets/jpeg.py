@@ -11,26 +11,32 @@ which Pillow does not change —
   16-bit tables, each latched by a component at its first scan);
 - dequantisation and the `islow` inverse DCT (jidctint.c: CONST_BITS 13,
   PASS1_BITS 2, the range-limit table of jdmaster.c);
-- the "fancy" triangle upsampling of jdsample.c (h2v1, h2v2; libjpeg-turbo
-  takes the merged upsampler of jdmerge.c only without fancy upsampling),
-  clamped at the component's real edges as jdmainct.c pads them, and box
-  replication where the component is at most two samples wide;
+- the upsampler jdsample.c picks for each component's ratio to the
+  largest factors: the "fancy" triangle filters h2v1 and h2v2 (clamped at
+  the component's real edges as jdmainct.c pads them; box replication
+  where the component is at most two samples wide) and h1v2 (at any
+  width), and box replication (int_upsample) for every other whole-number
+  ratio, such as 4:1:1 or 4:1:0; libjpeg-turbo takes the merged
+  upsampler of jdmerge.c only without fancy upsampling;
 - YCbCr → RGB with jdcolor.c's fixed-point tables (SCALEBITS 16).
 
 Colour spaces as libjpeg-turbo reads them (jdapimin.c): one component is
 grey (Pillow's "L"); three are YCbCr under a JFIF marker, RGB under an
 Adobe marker with transform 0 or with component ids 'R', 'G', 'B' (what
-Pillow's `keep_rgb=True` writes), YCbCr otherwise; four are CMYK, stored
-inverted as Adobe writes them, and converted as Pillow's CMYK → RGB does.
+Pillow's `keep_rgb=True` writes), YCbCr otherwise; four are CMYK under no
+Adobe marker or transform 0, stored inverted as Adobe writes them, and
+YCCK under any other transform (jdcolor.c ycck_cmyk_convert: YCbCr → RGB,
+inverted, K as stored); either is converted as Pillow's CMYK → RGB does.
 APPn and COM segments are skipped; EXIF orientation is ignored, as
 `Image.open` ignores it.
 
-Sampling: every component at the frame's maximum factors (4:4:4) or at
-half of them horizontally (4:2:2) or in both directions (4:2:0) — what
-Pillow writes. Anything else raises ValueError naming it, as do arithmetic
-coding, 12-bit samples, lossless and hierarchical frames, YCCK, and
-truncated or corrupt data (with the byte offset where it was found); no
-partial image is ever returned.
+Sampling: any factors 1-4 whose ratios to the largest are whole numbers.
+What libjpeg-turbo refuses raises ValueError naming it: a ratio that is
+not a whole number (JERR_FRACT_SAMPLE_NOTIMPL) and an interleaved scan of
+more than 10 blocks an MCU (JERR_BAD_MCU_SIZE). So do arithmetic coding
+(which libjpeg-turbo reads), 12-bit samples, lossless and hierarchical
+frames, and truncated or corrupt data (with the byte offset where it was
+found); no partial image is ever returned.
 
 Entropy decoding is sequential Python over a table of every 16-bit
 lookahead; the inverse DCT, upsampling and colour conversion run on numpy
@@ -490,22 +496,38 @@ def _upsample_h2v2(x: np.ndarray, width: int, height: int) -> np.ndarray:
     return out
 
 
+def _upsample_v2(x: np.ndarray, width: int, height: int) -> np.ndarray:
+    """jdsample.c h1v2_fancy_upsample over the component's real samples
+    [height, width]: each output row weighs its nearer input row 3:1 with
+    the next nearer (rows clamped at the edges), rounding with 1 above and
+    2 below."""
+    x = x[:height, :width].astype(np.int64)
+    up = np.concatenate([x[:1], x[:-1]], axis=0)
+    down = np.concatenate([x[1:], x[-1:]], axis=0)
+    out = np.empty((2 * height, width), np.int64)
+    out[0::2] = (3 * x + up + 1) >> 2
+    out[1::2] = (3 * x + down + 2) >> 2
+    return out
+
+
 def _full_plane(c: _Component, samples: np.ndarray, hmax: int, vmax: int,
                 width: int, height: int) -> np.ndarray:
     """The component's samples ([bh*8, bw*8] u8) brought to the image's full
-    [height, width]."""
+    [height, width], by the upsampler jdsample.c's jinit_upsampler picks
+    for the ratio: fancy (triangle) for 2:1 horizontally, vertically or
+    both, box replication otherwise."""
     ex, ey = hmax // c.h, vmax // c.v
     if (ex, ey) == (1, 1):
         return samples[:height, :width]
-    if c.width > 2:  # jdsample.c: fancy only for components over 2 wide
+    if (ex, ey) == (1, 2):  # h1v2 fancy at any width
+        out = _upsample_v2(samples, c.width, c.height)
+    elif (ex, ey) in ((2, 1), (2, 2)) and c.width > 2:  # fancy only over 2 wide
         if ey == 1:
             out = _upsample_h2(samples[:c.height], c.width)
         else:
             out = _upsample_h2v2(samples, c.width, c.height)
-    else:  # box replication (h2v1_upsample / h2v2_upsample)
-        out = np.repeat(samples[:c.height, :c.width], 2, axis=1)
-        if ey == 2:
-            out = np.repeat(out, 2, axis=0)
+    else:  # box replication (h2v1_upsample, h2v2_upsample, int_upsample)
+        out = np.repeat(np.repeat(samples[:c.height, :c.width], ex, axis=1), ey, axis=0)
     return out[:height, :width]
 
 
@@ -516,6 +538,12 @@ def _ycc_to_rgb(y, cb, cr) -> np.ndarray:
     g = y + ((_CB_G[cb] + _CR_G[cr]) >> 16)
     b = y + _CB_B[cb]
     return np.clip(np.stack([r, g, b], axis=-1), 0, 255).astype(np.uint8)
+
+
+def _ycck_to_cmyk(y, cb, cr, k) -> np.ndarray:
+    """jdcolor.c ycck_cmyk_convert: YCbCr → RGB, inverted, K as stored
+    (the inverted CMYK samples of an Adobe file)."""
+    return np.concatenate([255 - _ycc_to_rgb(y, cb, cr), k[..., None]], axis=-1)
 
 
 def _cmyk_to_rgb(cmyk) -> np.ndarray:
@@ -628,15 +656,11 @@ def _setup(comps, frame, jfif, adobe) -> None:
     """Checks the colour space and sampling before the first scan, and
     sizes each component's block grid (padded to whole MCUs)."""
     _, width, height = frame
-    if len(comps) == 4 and adobe not in (None, 0):
-        # jdapimin.c: four components under any Adobe transform but 0
-        _refuse(f"YCCK colour (Adobe transform {adobe})")
     hmax, vmax = max(c.h for c in comps), max(c.v for c in comps)
-    for c in comps:
-        ex, ey = hmax // c.h, vmax // c.v
-        if hmax % c.h or vmax % c.v or (ex, ey) not in ((1, 1), (2, 1), (2, 2)):
-            factors = ", ".join(f"{k.h}x{k.v}" for k in comps)
-            _refuse(f"sampling factors {factors} (only 4:4:4, 4:2:2 and 4:2:0)")
+    factors = ", ".join(f"{k.h}x{k.v}" for k in comps)
+    if any(hmax % c.h or vmax % c.v for c in comps):
+        # jdsample.c jinit_upsampler: JERR_FRACT_SAMPLE_NOTIMPL
+        _refuse(f"sampling factors {factors} (a ratio that is not a whole number)")
     mcux, mcuy = -(-width // (8 * hmax)), -(-height // (8 * vmax))
     for c in comps:
         c.width = -(-width * c.h // hmax)
@@ -671,6 +695,10 @@ def _scan(data, mpos, body, pos, frame, comps, qtables, dc_tables, ac_tables,
         bad = ss != 0 or se != 63 or ah or al
     if bad or not 1 <= ns <= 4 or len(set(scomps)) != ns:
         _corrupt(mpos, f"a scan with Ss={ss} Se={se} Ah={ah} Al={al} over {ns} components")
+    if ns > 1 and sum(comps[ci].h * comps[ci].v for ci in scomps) > 10:
+        # jdinput.c per_scan_setup: JERR_BAD_MCU_SIZE (D_MAX_BLOCKS_IN_MCU)
+        factors = ", ".join(f"{comps[ci].h}x{comps[ci].v}" for ci in scomps)
+        _refuse(f"sampling factors {factors} in one scan (an MCU of more than 10 blocks)")
     for ci in scomps:  # jdinput.c latch_quant_tables: at a component's first scan
         c = comps[ci]
         if c.qtable is None:
@@ -711,7 +739,10 @@ def _output(comps, frame, jfif, adobe) -> np.ndarray:
     if len(comps) == 1:
         out[..., :3] = planes[0][..., None]
     elif len(comps) == 4:
-        out[..., :3] = _cmyk_to_rgb(np.stack(planes, axis=-1))
+        # jdapimin.c: four components are YCCK under an Adobe marker with
+        # any transform but 0, CMYK otherwise
+        cmyk = (np.stack(planes, axis=-1) if adobe in (None, 0) else _ycck_to_cmyk(*planes))
+        out[..., :3] = _cmyk_to_rgb(cmyk)
     elif _is_rgb(comps, jfif, adobe):
         out[..., :3] = np.stack(planes, axis=-1)
     else:

@@ -11,6 +11,10 @@
 //   alpha test; plain version shade.alpha_stack_plain.
 // - S3 rt_shade_ui: renderer_tpu/raster/ui_stage.py `shade_ui_layer` (:89);
 //   plain version raster/ui_stage.py shade_ui_layer_plain.
+// - the fused S3 rt_shade_composite_ui: shade_ui_layer and the src-alpha
+//   composite of its layers into the HDR samples
+//   (renderer_tpu/raster/pipeline.py:513-528), which XLA fuses there;
+//   plain version ui_stage.shade_composite_ui_plain.
 //
 // What bounds them on an H100: issue slots and texel gathers, not device
 // memory. With the default sampler (trilinear, 16 anisotropic taps, sRGB
@@ -49,8 +53,16 @@
 // the minimum, leaving L1 to the atlas). Every element is computed,
 // background included: the plain version does not mask base_alpha.
 //
-// S3 keeps one element a thread with both byte tables in shared memory;
-// it shares the sampler above.
+// S3 and the fused S3 design. A UI layer is live (covered, inside its clip
+// rect, of a textured kind) only under the UI's windows, a small part of
+// a 1080p frame's [4, 1088, 1920] (layer, pixel) elements, while its four
+// HDR samples are 100 MB. The fused S3 is bound by those bytes: it
+// reads the layer ids, shades only the elements whose value the composite
+// can see (compacted in shared memory, as S1 does), and reads each HDR
+// sample once, writing in place only the values that change, instead of
+// the plain loop's 16 passes over them. See ui_composite_kernel. Both sample only the channels an
+// element uses with the byte's value in registers (no table: S3 decodes
+// after the filter, so a per-tap table was never read).
 //
 // The debug mode is read on the device (a host read would break the
 // frame's graph capture) and only the selected output is computed.
@@ -273,32 +285,28 @@ __global__ void __launch_bounds__(THREADS) alpha_kernel(const ShadeArgs A) {
   A.out2[idx] = __ldg(A.arm + 4 * mat);
 }
 
-// imgui.frag at pixel centres: 2D affine barycentrics, the clip-rect
-// discard, one trilinear sample (aniso 1, sRGB decoded after the filter)
-__global__ void __launch_bounds__(THREADS) ui_kernel(const UiArgs A) {
-  __shared__ ByteLut lut;
-  fill_lut<false>(lut);
-  __syncthreads();
-  const long long n = A.n_cand * A.h * A.w;
-  const long long idx = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
-  if (idx >= n) return;
-  const int x = static_cast<int>(idx % A.w);
-  const int y = static_cast<int>((idx / A.w) % A.h);
-  const int tr = __ldg(A.lt + idx);
-  const bool covered = tr >= 0;
-  const long long t = row_idx(covered ? tr : 0, A.n_tris);
+// ---- S3 and the fused S3: imgui.frag at pixel centres --------------------
+
+// The affine interpolation of UI triangle t at the pixel centre (px, py):
+// 2D barycentrics (w = 1), uv, the vertex colour and uv's screen derivatives
+struct UiInterp {
   int v[3];
+  float u, v_, dxu, dxv, dyu, dyv;
+  float col[4];
+};
+
+__device__ __forceinline__ UiInterp ui_interp(const UiArgs& A, long long t, float px,
+                                              float py) {
+  UiInterp it;
   float P[3][2], U[3], V[3];
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
-    v[i] = static_cast<int>(row_idx(__ldg(A.tris + 3 * t + i), A.n_verts));
-    P[i][0] = __ldg(A.pos + 2 * v[i]);
-    P[i][1] = __ldg(A.pos + 2 * v[i] + 1);
-    U[i] = __ldg(A.uv + 2 * v[i]);
-    V[i] = __ldg(A.uv + 2 * v[i] + 1);
+    it.v[i] = static_cast<int>(row_idx(__ldg(A.tris + 3 * t + i), A.n_verts));
+    P[i][0] = __ldg(A.pos + 2 * it.v[i]);
+    P[i][1] = __ldg(A.pos + 2 * it.v[i] + 1);
+    U[i] = __ldg(A.uv + 2 * it.v[i]);
+    V[i] = __ldg(A.uv + 2 * it.v[i] + 1);
   }
-  const float px = static_cast<float>(x) + 0.5f;
-  const float py = (static_cast<float>(y) + 0.5f) + __ldg(A.row0 + y);
   float g[3];
 #pragma unroll
   for (int i = 0; i < 3; ++i) {
@@ -312,42 +320,252 @@ __global__ void __launch_bounds__(THREADS) ui_kernel(const UiArgs A) {
   float lam[3];
 #pragma unroll
   for (int i = 0; i < 3; ++i) lam[i] = g[i] * inv;
-  const float u = (lam[0] * U[0] + lam[1] * U[1]) + lam[2] * U[2];
-  const float vv = (lam[0] * V[0] + lam[1] * V[1]) + lam[2] * V[2];
-  float col[4];
+  it.u = (lam[0] * U[0] + lam[1] * U[1]) + lam[2] * U[2];
+  it.v_ = (lam[0] * V[0] + lam[1] * V[1]) + lam[2] * V[2];
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
-    col[c] = (lam[0] * __ldg(A.col + 4 * v[0] + c) + lam[1] * __ldg(A.col + 4 * v[1] + c)) +
-             lam[2] * __ldg(A.col + 4 * v[2] + c);
+    it.col[c] = (lam[0] * __ldg(A.col + 4 * it.v[0] + c) +
+                 lam[1] * __ldg(A.col + 4 * it.v[1] + c)) +
+                lam[2] * __ldg(A.col + 4 * it.v[2] + c);
   }
   const float ea[3] = {(P[1][1] - P[2][1]) * inv, (P[2][1] - P[0][1]) * inv,
                        (P[0][1] - P[1][1]) * inv};
   const float eb[3] = {(P[2][0] - P[1][0]) * inv, (P[0][0] - P[2][0]) * inv,
                        (P[1][0] - P[0][0]) * inv};
-  const float dxu = (ea[0] * U[0] + ea[1] * U[1]) + ea[2] * U[2];
-  const float dxv = (ea[0] * V[0] + ea[1] * V[1]) + ea[2] * V[2];
-  const float dyu = (eb[0] * U[0] + eb[1] * U[1]) + eb[2] * U[2];
-  const float dyv = (eb[0] * V[0] + eb[1] * V[1]) + eb[2] * V[2];
+  it.dxu = (ea[0] * U[0] + ea[1] * U[1]) + ea[2] * U[2];
+  it.dxv = (ea[0] * V[0] + ea[1] * V[1]) + ea[2] * V[2];
+  it.dyu = (eb[0] * U[0] + eb[1] * U[1]) + eb[2] * U[2];
+  it.dyv = (eb[0] * V[0] + eb[1] * V[1]) + eb[2] * V[2];
+  return it;
+}
+
+__device__ __forceinline__ float ui_py(const UiArgs& A, int y) {
+  return (static_cast<float>(y) + 0.5f) + __ldg(A.row0 + y);
+}
+
+// Whether (col·tex)·0 equals col·0 in bits for every texel the sampler can
+// give here without sampling: the sample is finite, >= +0 and at most
+// 1 + 2^-20 when uv and its derivatives are finite (bytes over 255, weights
+// in [0, 1]), so col·tex keeps col's sign and finiteness unless |col| is
+// within a factor of two of FLT_MAX.
+__device__ __forceinline__ bool is_finite_f(float x) { return fabsf(x) <= 0x1.fffffep127f; }
+
+__device__ __forceinline__ bool ui_tex_sign_known(const UiInterp& it) {
+  bool ok = is_finite_f(it.u) && is_finite_f(it.v_) && is_finite_f(it.dxu) &&
+            is_finite_f(it.dxv) && is_finite_f(it.dyu) && is_finite_f(it.dyv);
+#pragma unroll
+  for (int c = 0; c < 3; ++c)
+    ok = ok && !(fabsf(it.col[c]) >= 0x1p126f && is_finite_f(it.col[c]));
+  return ok;
+}
+
+// One (layer, pixel) element of shade_ui_layer: rgb unmasked and the alpha
+// masked to the live elements (covered, inside the clip rect, tex_kind 1 or
+// 2). The sampler takes the channels the element uses, with the byte's
+// value in registers (S3 decodes after the filter): R for a live font
+// element, RGBA for a live TEX_KIND_RGBA one, RGB for a TEX_KIND_RGBA one
+// that is not live (its rgb is unmasked), none for any other. EXACT = false
+// (the fused composite, which multiplies a non-live element's rgb by 0)
+// skips that last sample where ui_tex_sign_known says (col·tex)·0 = col·0.
+struct UiShade {
+  float r, g, b, a;
+};
+
+template <bool EXACT>
+__device__ __forceinline__ UiShade ui_shade(const UiArgs& A, int tr, int x, int y) {
+  const float px = static_cast<float>(x) + 0.5f;
+  const float py = ui_py(A, y);
+  const bool covered = tr >= 0;
+  const long long t = row_idx(covered ? tr : 0, A.n_tris);
+  const UiInterp it = ui_interp(A, t, px, py);
   const long long cmd = row_idx(__ldg(A.tri_cmd + t), A.n_cmds);
   const float4 cr = __ldg(reinterpret_cast<const float4*>(A.cliprect) + cmd);
   const bool in_clip = (cr.x < px) & (cr.z >= px) & (cr.y < py) & (cr.w >= py);
   const int kind = __ldg(A.tex_kind + cmd);
-  const Atlas a = make_atlas(A.atlas, A.table, A.srgb, A.wrap, A.n_atlas, A.n_tex, A.atlas_w);
-  const float4 tex = sample<false, false, CH_RGBA>(a, SharedBytes{lut}, __ldg(A.tex_slot + cmd),
-                                                   u, vv, dxu, dxv, dyu, dyv, true, 1);
-  float* rgb = A.rgb + 3 * idx;
-  if (kind == 2) {  // TEX_KIND_RGBA: full modulate
-    rgb[0] = col[0] * tex.x;
-    rgb[1] = col[1] * tex.y;
-    rgb[2] = col[2] * tex.z;
-  } else {
-    rgb[0] = col[0];
-    rgb[1] = col[1];
-    rgb[2] = col[2];
-  }
-  const float alpha = kind == 1 ? col[3] * tex.x : col[3] * tex.w;  // 1: font
   const bool live = covered & in_clip & ((kind == 1) | (kind == 2));
-  A.alpha[idx] = live ? alpha : 0.0f;
+  UiShade out{it.col[0], it.col[1], it.col[2], 0.0f};
+  if (kind != 1 && kind != 2) return out;
+  if (kind == 1 && !live) return out;
+  if (kind == 2 && !live && !EXACT && ui_tex_sign_known(it)) return out;
+  const Atlas a = make_atlas(A.atlas, A.table, A.srgb, A.wrap, A.n_atlas, A.n_tex, A.atlas_w);
+  const LaneBytes<false> by{nullptr, 0};
+  const int slot = __ldg(A.tex_slot + cmd);
+  if (kind == 1) {  // live font: alpha = vertex alpha · tex.r (R8 font)
+    const float4 tex = sample<false, false, CH_R>(a, by, slot, it.u, it.v_, it.dxu, it.dxv,
+                                                  it.dyu, it.dyv, true, 1);
+    out.a = it.col[3] * tex.x;
+    return out;
+  }
+  float4 tex;  // TEX_KIND_RGBA: full modulate
+  if (live) {
+    tex = sample<false, false, CH_RGBA>(a, by, slot, it.u, it.v_, it.dxu, it.dxv, it.dyu,
+                                        it.dyv, true, 1);
+    out.a = it.col[3] * tex.w;
+  } else {
+    tex = sample<false, false, CH_RGB>(a, by, slot, it.u, it.v_, it.dxu, it.dxv, it.dyu,
+                                       it.dyv, true, 1);
+  }
+  out.r = it.col[0] * tex.x;
+  out.g = it.col[1] * tex.y;
+  out.b = it.col[2] * tex.z;
+  return out;
+}
+
+// S3 (shade_ui_layer): one element a thread, every element shaded
+__global__ void __launch_bounds__(THREADS) ui_kernel(const UiArgs A) {
+  const long long n = A.n_cand * A.h * A.w;
+  const long long idx = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
+  if (idx >= n) return;
+  const int x = static_cast<int>(idx % A.w);
+  const int y = static_cast<int>((idx / A.w) % A.h);
+  const UiShade sh = ui_shade<true>(A, __ldg(A.lt + idx), x, y);
+  float* rgb = A.rgb + 3 * idx;
+  rgb[0] = sh.r;
+  rgb[1] = sh.g;
+  rgb[2] = sh.b;
+  A.alpha[idx] = sh.a;
+}
+
+// The fused S3's queue: (plane, pixel) elements waiting to be shaded in a
+// round, and their shades
+constexpr int UI_QUEUE = 1024;
+// Coordinates and vertex values within 2^20 keep every interpolant of a
+// triangle finite at any pixel within 2^20 (|lam| < 2^83, |uv|, |col| <
+// 2^105, derivatives < 2^83), so ui_tex_sign_known holds
+constexpr float UI_SANE = 1048576.0f;
+
+__device__ __forceinline__ bool ui_sane(float x) { return fabsf(x) <= UI_SANE; }
+
+// Whether UI triangle 0, which every uncovered element shades, has
+// vertices within UI_SANE
+__device__ __forceinline__ bool ui_triangle0_sane(const UiArgs& A) {
+  if (A.n_tris < 1 || A.n_verts < 1) return false;
+  bool ok = true;
+  for (int i = 0; i < 3; ++i) {
+    const long long v = row_idx(__ldg(A.tris + i), A.n_verts);
+    for (int c = 0; c < 2; ++c)
+      ok = ok && ui_sane(__ldg(A.pos + 2 * v + c)) && ui_sane(__ldg(A.uv + 2 * v + c));
+    for (int c = 0; c < 4; ++c) ok = ok && ui_sane(__ldg(A.col + 4 * v + c));
+  }
+  return ok;
+}
+
+__device__ __forceinline__ float* ui_hdr(const UiArgs& A, int s) {
+  switch (s) {  // a constant index into the parameters, no local copy
+    case 0: return A.hdr[0];
+    case 1: return A.hdr[1];
+    case 2: return A.hdr[2];
+    case 3: return A.hdr[3];
+    case 4: return A.hdr[4];
+    case 5: return A.hdr[5];
+    case 6: return A.hdr[6];
+    default: return A.hdr[7];
+  }
+}
+
+__device__ __forceinline__ bool neg_zero(float x) { return __float_as_uint(x) == 0x80000000u; }
+
+// The fused S3 (shade_composite_ui): persistent blocks; block b walks rounds
+// b, b + grid, ... of round_px consecutive pixels, a thread a pixel.
+// (1) Each pixel's planes are classed: an uncovered element over a sane
+// triangle 0 (see below) needs no shade; every other one is queued in
+// order in shared memory (a warp scan and the eight warps' counts).
+// (2) Every thread shades queued elements (ui_shade<false>), so warps
+// sample 32 live elements at a time. (3) Each pixel then composites its
+// planes into its samples' HDR values in the plain loop's order:
+// hdr · (1 − a) + rgb · a, one rounding an op (--fmad=false), and stores
+// a value only where its bits changed (the samples under no live layer,
+// most of a frame, are read and not written).
+// An element that was not shaded has a = 0 and rgb·0 = ±0 with the sign of
+// its vertex colour (which is finite there): hdr · 1 + (±0) is hdr, except
+// that −0 turns +0 when that colour is >= +0, and NaN stays NaN. So the
+// colour is interpolated only where the sample holds −0.
+__global__ void __launch_bounds__(THREADS) ui_composite_kernel(const UiArgs A) {
+  __shared__ float4 shades[UI_QUEUE];
+  __shared__ int queue[UI_QUEUE];
+  __shared__ int warp_n[THREADS / 32];
+  __shared__ int sane0_s;
+  if (threadIdx.x == 0) sane0_s = ui_triangle0_sane(A);
+  __syncthreads();
+  const bool sane0 = sane0_s != 0;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long n_px = static_cast<long long>(A.h) * A.w;
+  const int planes = static_cast<int>(A.n_cand), rpx = A.round_px;
+  const long long rounds = (n_px + rpx - 1) / rpx;
+  for (long long r = blockIdx.x; r < rounds; r += gridDim.x) {
+    const long long p = r * rpx + threadIdx.x;
+    const bool mine = static_cast<int>(threadIdx.x) < rpx && p < n_px;
+    int x = 0, y = 0;
+    bool skip_ok = false;  // an uncovered element here needs no shade
+    int n = 0;
+    if (mine) {
+      x = static_cast<int>(p % A.w);
+      y = static_cast<int>(p / A.w);
+      skip_ok = sane0 && ui_sane(static_cast<float>(x) + 0.5f) && ui_sane(ui_py(A, y));
+      for (int j = 0; j < planes; ++j) n += !(skip_ok && __ldg(A.lt + j * n_px + p) < 0);
+    }
+    int incl = n;  // the block's exclusive scan of n
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, o);
+      if (lane >= o) incl += v;
+    }
+    if (lane == 31) warp_n[warp] = incl;
+    __syncthreads();
+    int first = incl - n, total = 0;
+#pragma unroll
+    for (int i = 0; i < THREADS / 32; ++i) {
+      const int k = warp_n[i];
+      first += i < warp ? k : 0;
+      total += k;
+    }
+    if (mine && n) {
+      int q = first;
+      for (int j = 0; j < planes; ++j)
+        if (!(skip_ok && __ldg(A.lt + j * n_px + p) < 0))
+          queue[q++] = (static_cast<int>(threadIdx.x) << 11) | j;
+    }
+    __syncthreads();
+    for (int i = static_cast<int>(threadIdx.x); i < total; i += THREADS) {
+      const int e = queue[i];
+      const long long pe = r * rpx + (e >> 11);
+      const UiShade sh = ui_shade<false>(A, __ldg(A.lt + (e & 2047) * n_px + pe),
+                                         static_cast<int>(pe % A.w),
+                                         static_cast<int>(pe / A.w));
+      shades[i] = make_float4(sh.r, sh.g, sh.b, sh.a);
+    }
+    __syncthreads();
+    if (mine) {
+      int q = first;
+      for (int s = 0; s < A.n_samples; ++s) {
+        if (!A.per_sample) q = first;  // every sample takes the same planes
+        float* hp = ui_hdr(A, s) + 3 * p;
+        const float h0[3] = {hp[0], hp[1], hp[2]};
+        float h[3] = {h0[0], h0[1], h0[2]};
+        for (int k = 0; k < A.n_layers; ++k) {
+          const int j = A.per_sample ? s * A.n_layers + k : k;
+          float4 sh;
+          if (skip_ok && __ldg(A.lt + j * n_px + p) < 0) {
+            sh = make_float4(0.0f, 0.0f, 0.0f, 0.0f);  // a = 0; rgb·0 = +0 unless ...
+            if (neg_zero(h[0]) | neg_zero(h[1]) | neg_zero(h[2])) {  // ... its sign counts
+              const UiInterp it = ui_interp(A, 0, static_cast<float>(x) + 0.5f, ui_py(A, y));
+              sh = make_float4(it.col[0], it.col[1], it.col[2], 0.0f);
+            }
+          } else {
+            sh = shades[q++];
+          }
+          const float om = __fsub_rn(1.0f, sh.w);
+          h[0] = __fadd_rn(__fmul_rn(h[0], om), __fmul_rn(sh.x, sh.w));
+          h[1] = __fadd_rn(__fmul_rn(h[1], om), __fmul_rn(sh.y, sh.w));
+          h[2] = __fadd_rn(__fmul_rn(h[2], om), __fmul_rn(sh.z, sh.w));
+        }
+#pragma unroll
+        for (int c = 0; c < 3; ++c)  // the plain loop's result, storing only new bits
+          if (__float_as_uint(h[c]) != __float_as_uint(h0[c])) hp[c] = h[c];
+      }
+    }
+    __syncthreads();  // the composite has read the shades and the queue
+  }
 }
 
 inline unsigned blocks_for(long long n) {
@@ -407,6 +625,7 @@ cudaError_t s2_occupancy(Occupancy* out) {
 }
 
 Occupancy s3_occupancy_cache[64];
+Occupancy s3c_occupancy_cache[64];
 
 template <bool BF, bool PT>
 cudaError_t launch_shade(const rs::ShadeArgs& a, cudaStream_t st, bool alpha) {
@@ -462,11 +681,11 @@ int kernel_info(K kernel, const Occupancy& o, long long grid_cap, long long* out
 }  // namespace
 
 // What the host knows of one kernel instantiation (kernel 1 = S1, 2 = S2,
-// 3 = S3; bf16 and per_tap pick S1's and S2's template): out[0..5] =
-// registers a thread, local bytes a thread (stack frame and spills),
-// static shared bytes a block, blocks an SM (the occupancy the launches
-// use), SMs, and S1's most blocks a launch (0 for S2 and S3, whose grid is
-// one thread an element).
+// 3 = S3, 4 = the fused S3; bf16 and per_tap pick S1's and S2's template):
+// out[0..5] = registers a thread, local bytes a thread (stack frame and
+// spills), static shared bytes a block, blocks an SM (the occupancy the
+// launches use), SMs, and the most blocks a launch of a persistent kernel
+// (S1, the fused S3; 0 for S2 and S3, whose grid is one thread an element).
 extern "C" int rt_shade_info(int kernel, int bf16, int per_tap, long long* out) {
   Occupancy o;
   cudaError_t err = cudaSuccess;
@@ -496,6 +715,12 @@ extern "C" int rt_shade_info(int kernel, int bf16, int per_tap, long long* out) 
     if (err != cudaSuccess) return static_cast<int>(err);
     return kernel_info(rs::ui_kernel, o, 0, out);
   }
+  if (kernel == 4) {
+    err = occupancy(rs::ui_composite_kernel, s3c_occupancy_cache, &o);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const long long cap = static_cast<long long>(o.sms) * std::max(o.blocks_per_sm, 1);
+    return kernel_info(rs::ui_composite_kernel, o, cap, out);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
@@ -514,5 +739,27 @@ extern "C" int rt_shade_ui(const rs::UiArgs* args, void* stream) {
     return static_cast<int>(cudaErrorInvalidValue);
   rs::ui_kernel<<<rs::blocks_for(n), rs::THREADS, 0,
                   static_cast<cudaStream_t>(stream)>>>(*args);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The fused S3: args->n_cand planes of [h, w] composited into n_samples
+// HDR buffers; round_px * n_cand must fit the queue.
+extern "C" int rt_shade_composite_ui(const rs::UiArgs* args, void* stream) {
+  const long long n_px = static_cast<long long>(args->h) * args->w;
+  if (n_px <= 0 || args->n_cand <= 0) return 0;
+  if (args->n_samples < 1 || args->n_samples > rs::MAX_HDR || args->n_layers < 1 ||
+      args->round_px < 1 || args->round_px > rs::THREADS ||
+      args->round_px * args->n_cand > rs::UI_QUEUE ||
+      args->n_cand != (args->per_sample ? args->n_samples : 1) * args->n_layers ||
+      args->n_cand * n_px > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidValue);
+  Occupancy o;
+  const cudaError_t err = occupancy(rs::ui_composite_kernel, s3c_occupancy_cache, &o);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long rounds = (n_px + args->round_px - 1) / args->round_px;
+  const long long grid = std::min(rounds, static_cast<long long>(o.sms) *
+                                              std::max(o.blocks_per_sm, 1));
+  rs::ui_composite_kernel<<<static_cast<unsigned>(grid), rs::THREADS, 0,
+                            static_cast<cudaStream_t>(stream)>>>(*args);
   return static_cast<int>(cudaGetLastError());
 }

@@ -61,10 +61,12 @@ struct ShadeArgs {
   int h, w, width, height, atlas_w, trilinear, aniso, srgb_per_tap, bf16;
 };
 
-// the arguments of the UI kernel (S3); the field order is
-// raster/ui_stage.py's _UiArgs
+constexpr int MAX_HDR = 8;  // the composite's HDR buffers: one an MSAA sample
+
+// the arguments of the UI kernels (S3 and the fused S3); the field order is
+// kernels.py's UiArgs
 struct UiArgs {
-  const int* lt;        // [C, h, w] layer triangle ids
+  const int* lt;        // [C, h, w] layer triangle ids (C planes)
   const float* row0;    // [h]
   const int* tris;      // [N, 3]
   const float* pos;     // [V, 2]
@@ -78,10 +80,15 @@ struct UiArgs {
   const int* table;
   const int* srgb;
   const int* wrap;
-  float* rgb;           // [C, h, w, 3]
-  float* alpha;         // [C, h, w]
+  float* rgb;           // S3: [C, h, w, 3]
+  float* alpha;         // S3: [C, h, w]
+  float* hdr[MAX_HDR];  // fused S3: the samples' HDR buffers [h, w, 3], in place
   long long n_cand, n_tris, n_verts, n_cmds, n_atlas, n_tex;
   int h, w, atlas_w;
+  // fused S3: the HDR buffers, the layers a sample, whether plane j
+  // composites into sample j / n_layers alone (ui_msaa) or into every
+  // sample, and the pixels a round (so that a round's planes fit the queue)
+  int n_samples, n_layers, per_sample, round_px;
 };
 
 template <bool BF>
@@ -148,25 +155,6 @@ __device__ __forceinline__ float byte_value(int b) {
   return R<BF>(static_cast<float>(b) * R<BF>(static_cast<float>(1.0 / 255.0)));
 }
 
-// Per-block tables of a texel byte b (S3): raw[b] = byte_value(b) and
-// dec[b] = its sRGB decode (a per-tap decode depends on the byte alone,
-// so the taps read it instead of evaluating pow). Filled by the block's
-// first 256 threads; the caller synchronises.
-struct ByteLut {
-  float raw[256];
-  float dec[256];
-};
-
-template <bool BF>
-__device__ __forceinline__ void fill_lut(ByteLut& lut) {
-  const int b = threadIdx.x;
-  if (b < 256) {
-    const float c = byte_value<BF>(b);
-    lut.raw[b] = c;
-    lut.dec[b] = srgb_decode<BF>(c);
-  }
-}
-
 // S1's per-tap decode table, replicated once a lane: entry b of lane l at
 // b * 32 + l (32 KB), so the 32 lanes of a warp read 32 different banks
 // whatever bytes they hold. Each of the block's 256 threads decodes one
@@ -184,14 +172,8 @@ __device__ __forceinline__ void fill_lane_table(float* tab) {
 
 // Where a sampler takes a texel byte's value from: raw(b) for linear
 // channels, dec(b) for an sRGB channel decoded per tap.
-struct SharedBytes {  // S3: both of the block's ByteLut tables
-  const ByteLut& lut;
-  __device__ __forceinline__ float raw(int b) const { return lut.raw[b]; }
-  __device__ __forceinline__ float dec(int b) const { return lut.dec[b]; }
-};
-
 template <bool BF>
-struct LaneBytes {  // S1, S2: raw in registers, dec from the lane's column
+struct LaneBytes {  // raw in registers, dec from the lane's column (S1)
   const float* tab;  // fill_lane_table's table; null where nothing decodes per tap
   int lane;
   __device__ __forceinline__ float raw(int b) const { return byte_value<BF>(b); }

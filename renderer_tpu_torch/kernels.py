@@ -58,7 +58,8 @@ _SIGNATURES = {
     "rt_shade_stack": (_P, _P),
     "rt_alpha_stack": (_P, _P),
     "rt_shade_ui": (_P, _P),
-    # kernel (1 S1, 2 S2, 3 S3), bf16, per_tap, long long out[6]
+    "rt_shade_composite_ui": (_P, _P),
+    # kernel (1 S1, 2 S2, 3 S3, 4 the fused S3), bf16, per_tap, long long out[6]
     "rt_shade_info": (_I, _I, _I, _P),
 }
 
@@ -81,13 +82,18 @@ ShadeArgs = _struct(
     ("h", "w", "width", "height", "atlas_w", "trilinear", "aniso",
      "srgb_per_tap", "bf16"))
 
-#: csrc/shade_common.cuh `UiArgs`, field for field (S3)
+#: csrc/shade_common.cuh `MAX_HDR`: the fused S3's HDR buffers at most
+MAX_HDR = 8
+
+#: csrc/shade_common.cuh `UiArgs`, field for field (S3 and the fused S3;
+#: hdr0..hdr7 are its array `hdr`)
 UiArgs = _struct(
     "UiArgs",
     ("lt", "row0", "tris", "pos", "uv", "col", "tri_cmd", "cliprect",
-     "tex_kind", "tex_slot", "atlas", "table", "srgb", "wrap", "rgb", "alpha"),
+     "tex_kind", "tex_slot", "atlas", "table", "srgb", "wrap", "rgb", "alpha",
+     *(f"hdr{i}" for i in range(MAX_HDR))),
     ("n_cand", "n_tris", "n_verts", "n_cmds", "n_atlas", "n_tex"),
-    ("h", "w", "atlas_w"))
+    ("h", "w", "atlas_w", "n_samples", "n_layers", "per_sample", "round_px"))
 
 
 def _nvcc() -> str:
@@ -168,14 +174,14 @@ SHADE_INFO = ("registers", "local_bytes", "shared_bytes", "blocks_per_sm", "sms"
 
 def shade_info(kernel: str, bf16: bool = False, per_tap: bool = True) -> dict:
     """What the host knows of a shading kernel's instantiation on the
-    current device: kernel "s1", "s2" or "s3" (bf16 and per_tap pick S1's
-    and S2's template; S2 has no per-tap variant): its registers a thread,
-    local bytes a thread (stack frame and spills), static shared bytes a
-    block, the blocks an SM that its launches assume (from
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor), the SMs, and S1's most
-    blocks a launch (0 for the others)."""
+    current device: kernel "s1", "s2", "s3" or "s3c" (the fused S3; bf16
+    and per_tap pick S1's and S2's template; S2 has no per-tap variant): its
+    registers a thread, local bytes a thread (stack frame and spills),
+    static shared bytes a block, the blocks an SM that its launches assume
+    (from cudaOccupancyMaxActiveBlocksPerMultiprocessor), the SMs, and the
+    most blocks a launch of S1 and the fused S3 (0 for the others)."""
     out = (ctypes.c_longlong * len(SHADE_INFO))()
-    which = {"s1": 1, "s2": 2, "s3": 3}[kernel]
+    which = {"s1": 1, "s2": 2, "s3": 3, "s3c": 4}[kernel]
     check_launch(f"shade_info({kernel})",
                  load().rt_shade_info(which, int(bf16), int(per_tap), out))
     return dict(zip(SHADE_INFO, (int(v) for v in out)))

@@ -369,24 +369,10 @@ def render_shard(
         )
         ui_sat = saturated_px(aux_ui, cfg.ui_layers)
         ui_demand = demand_max(aux_ui)
-        # ALL layers (and sample sets under ui_msaa) shaded in one stacked
-        # call; composited in layer order
-        if len(ui_spos) == 1:
-            rgb_all, a_all = ui_stage.shade_ui_layer(
-                lt_ui[0], ui, materials, config=cfg, row0=row0
-            )  # [K,H,W,3], [K,H,W]
-            for k in range(cfg.ui_layers):
-                a_k = a_all[k][..., None]
-                for s in range(msaa):
-                    hdr[s] = hdr[s] * (1.0 - a_k) + rgb_all[k] * a_k
-        else:
-            rgb_all, a_all = ui_stage.shade_ui_layer(
-                lt_ui, ui, materials, config=cfg, row0=row0
-            )  # [S,K,H,W,3], [S,K,H,W]
-            for k in range(cfg.ui_layers):
-                for s in range(msaa):
-                    a_k = a_all[s, k][..., None]
-                    hdr[s] = hdr[s] * (1.0 - a_k) + rgb_all[s, k] * a_k
+        # ALL layers (and sample sets under ui_msaa) shaded and composited
+        # into the samples' HDR buffers in layer order, in one call
+        ui_stage.shade_composite_ui(hdr, lt_ui[0] if len(ui_spos) == 1 else lt_ui,
+                                    ui, materials, config=cfg, row0=row0)
 
     img = post.tonemap(torch.stack(hdr) if msaa > 1 else hdr[0])
     clamped = torch.sum(clamp_mask[:out_rows, : cfg.width].to(torch.int32))
@@ -473,9 +459,10 @@ def _identity(tensors: dict) -> tuple:
 
 def launch_counts() -> dict:
     """The hand-written kernels' launch counters: K1's, K2's per mode, and
-    the shading kernels S1 ("shade"), S2 ("alpha") and S3 ("ui_shade")."""
+    the shading kernels S1 ("shade"), S2 ("alpha"), S3 ("ui_shade") and the
+    fused S3 ("ui_composite")."""
     return {"k1": raster_kernel.launches, **layers.launches, **shade.launches,
-            "ui_shade": ui_stage.launches}
+            "ui_shade": ui_stage.launches, "ui_composite": ui_stage.composite_launches}
 
 
 def add_launches(delta: dict) -> None:
@@ -485,6 +472,7 @@ def add_launches(delta: dict) -> None:
     for which in shade.launches:
         shade.launches[which] += delta[which]
     ui_stage.launches += delta["ui_shade"]
+    ui_stage.composite_launches += delta["ui_composite"]
 
 
 class CapturedGraph:

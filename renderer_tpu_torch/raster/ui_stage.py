@@ -18,9 +18,11 @@ centers by default and the same composite is applied to every MSAA sample;
 `RenderConfig.ui_msaa` evaluates coverage at the MSAA sample positions with
 per-sample accept chains, shading at pixel centers either way.
 
-`shade_ui_layer` dispatches on the tensors' device: CPU tensors run the
-plain version, CUDA tensors launch the hand-written kernel S3
-(csrc/shade.cu).
+`shade_composite_ui` (the pipeline's call) shades every captured layer and
+composites it into the HDR samples in place; `shade_ui_layer` returns the
+layers' shades. Both dispatch on the tensors' device: CPU tensors run the
+plain version, CUDA tensors launch a hand-written kernel (csrc/shade.cu:
+the fused S3 and S3).
 """
 
 from __future__ import annotations
@@ -43,8 +45,12 @@ from renderer_tpu_torch.raster.shade import (
 TEX_KIND_FONT = 1
 TEX_KIND_RGBA = 2
 
-#: launches of S3 in this process (the plain version does not count)
+#: launches of S3 (shade_ui_layer) and of the fused S3 (shade_composite_ui)
+#: in this process (the plain versions do not count)
 launches = 0
+composite_launches = 0
+#: csrc/shade.cu UI_QUEUE: the fused S3's queued elements a round
+UI_QUEUE = 1024
 
 
 def bin_ui(ui: dict, *, config, local_tiles_y: int, tile_row_offset: int,
@@ -182,20 +188,39 @@ def shade_ui_layer(
     row0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """imgui.frag for captured layers at pixel centers. Returns
-    (rgb [..., H, W, 3], alpha [..., H, W]) ready for src-alpha compositing.
-    Leading-dim polymorphic: the pipeline shades ALL captured UI layers (and
-    MSAA sample sets under ui_msaa) in one stacked call. CPU tensors run
-    shade_ui_layer_plain; CUDA tensors launch S3 (csrc/shade.cu), which
-    replaces the JAX package's XLA-fused shade_ui_layer
-    (renderer_tpu/raster/ui_stage.py:89) and is bound by its texel gathers
-    and FP32 arithmetic."""
+    (rgb [..., H, W, 3], alpha [..., H, W]) ready for src-alpha compositing
+    (rgb unmasked at every element, alpha 0 where the layer is not live).
+    Leading-dim polymorphic: every captured UI layer (and MSAA sample set
+    under ui_msaa) in one stacked call. CPU tensors run
+    shade_ui_layer_plain; CUDA tensors launch S3 (csrc/shade.cu ui_kernel),
+    one element a thread on the fused S3's sampler, which replaces the JAX
+    package's XLA-fused shade_ui_layer (renderer_tpu/raster/ui_stage.py:89)
+    and is bound by its texel gathers and FP32 arithmetic. The pipeline
+    calls shade_composite_ui instead."""
     if lt.device.type == "cpu":
         return shade_ui_layer_plain(lt, ui, materials, row0=row0)
     if lt.device.type != "cuda":
         raise ValueError(f"shade_ui_layer: unsupported device {lt.device}")
+    rgb = torch.empty((*lt.shape, 3), dtype=torch.float32, device=lt.device)
+    alpha = torch.empty(lt.shape, dtype=torch.float32, device=lt.device)
+    args = _ui_args(lt, ui, materials, row0, rgb=rgb.data_ptr(), alpha=alpha.data_ptr())
+    lib = kernels.load()
+    with torch.cuda.device(lt.device):
+        err = lib.rt_shade_ui(ctypes.addressof(args), kernels.current_stream())
+    kernels.check_launch("shade_ui_layer", err)
+    global launches
+    launches += 1
+    return rgb, alpha
+
+
+def _ui_args(lt, ui, materials, row0, **fields):
+    """The kernels' UiArgs for a stack of layer ids `lt` on the card (every
+    input checked), with `fields` set besides."""
     dev = lt.device
     n_cand, h, w = stack_shape(lt, row0, "lt")
     n_t, n_v, n_c = ui["tris"].shape[0], ui["pos"].shape[0], ui["clip"].shape[0]
+    if min(n_t, n_v, n_c) < 1:
+        raise ValueError(f"UI shade: {n_t} triangles, {n_v} vertices, {n_c} commands")
     check_tensor("tris", ui["tris"], torch.int32, (n_t, 3), dev)
     check_tensor("tri_cmd", ui["tri_cmd"], torch.int32, (n_t,), dev)
     for name, k in (("pos", 2), ("uv", 2), ("col", 4)):
@@ -203,20 +228,79 @@ def shade_ui_layer(
     check_tensor("clip", ui["clip"], torch.float32, (n_c, 4), dev, align=16)
     for name in ("tex_kind", "tex_slot"):
         check_tensor(name, ui[name], torch.int32, (n_c,), dev)
-    rgb = torch.empty((*lt.shape, 3), dtype=torch.float32, device=dev)
-    alpha = torch.empty(lt.shape, dtype=torch.float32, device=dev)
-    args = kernels.UiArgs(
+    return kernels.UiArgs(
         lt=lt.data_ptr(), row0=row0.data_ptr(), tris=ui["tris"].data_ptr(),
         pos=ui["pos"].data_ptr(), uv=ui["uv"].data_ptr(), col=ui["col"].data_ptr(),
         tri_cmd=ui["tri_cmd"].data_ptr(), cliprect=ui["clip"].data_ptr(),
         tex_kind=ui["tex_kind"].data_ptr(), tex_slot=ui["tex_slot"].data_ptr(),
-        rgb=rgb.data_ptr(), alpha=alpha.data_ptr(),
         n_cand=n_cand, n_tris=n_t, n_verts=n_v, n_cmds=n_c,
-        h=h, w=w, **atlas_fields(materials, dev))
+        h=h, w=w, **atlas_fields(materials, dev), **fields)
+
+
+def _composite(hdr: list, rgb: torch.Tensor, alpha: torch.Tensor) -> None:
+    """The pipeline's src-alpha composite of the UI layers, in layer order,
+    into `hdr` in place: [K, H, W] shades into every sample, or [S, K, H, W]
+    into sample s alone (ui_msaa)."""
+    out = list(hdr)
+    for k in range(alpha.shape[-3]):
+        for s in range(len(out)):
+            a_k = (alpha[k] if alpha.dim() == 3 else alpha[s, k])[..., None]
+            rgb_k = rgb[k] if rgb.dim() == 4 else rgb[s, k]
+            out[s] = out[s] * (1.0 - a_k) + rgb_k * a_k
+    for t, o in zip(hdr, out):
+        t.copy_(o)
+
+
+def shade_composite_ui_plain(hdr: list, lt: torch.Tensor, ui: dict, materials: dict, *,
+                             row0) -> None:
+    """Plain version of the fused S3 (shade_composite_ui): shade_ui_layer_plain,
+    then the composite loop, op for op."""
+    rgb, alpha = shade_ui_layer_plain(lt, ui, materials, row0=row0)
+    _composite(hdr, rgb, alpha)
+
+
+def shade_composite_ui(
+    hdr: list,  # S tensors [Hp, Wp, 3] f32: the samples' HDR buffers, updated in place
+    lt: torch.Tensor,  # [K, Hp, Wp] or, under ui_msaa, [S, K, Hp, Wp] i32 layer tids
+    ui: dict,
+    materials: dict,
+    *,
+    config,
+    row0,
+) -> None:
+    """imgui.frag for every captured UI layer at pixel centers, composited
+    src-alpha over the HDR samples in layer order: `hdr[s] = hdr[s] · (1 −
+    a_k) + rgb_k · a_k`, every layer k into every sample s ([K, Hp, Wp]
+    layers) or layer (s, k) into sample s ([S, K, Hp, Wp], ui_msaa). CPU
+    tensors run shade_composite_ui_plain; CUDA tensors launch the fused S3
+    (csrc/shade.cu ui_composite_kernel), which replaces the JAX package's
+    XLA-fused shade_ui_layer and composite (renderer_tpu/raster/
+    ui_stage.py:89, pipeline.py:513-528): it reads each HDR sample once
+    and stores only the values whose bits change."""
+    if lt.device.type == "cpu":
+        return shade_composite_ui_plain(hdr, lt, ui, materials, row0=row0)
+    if lt.device.type != "cuda":
+        raise ValueError(f"shade_composite_ui: unsupported device {lt.device}")
+    per_sample = lt.dim() == 4
+    n_s = len(hdr)
+    if lt.dim() not in (3, 4) or not 1 <= n_s <= kernels.MAX_HDR or (
+            per_sample and lt.shape[0] != n_s):
+        raise ValueError(f"shade_composite_ui: layers {tuple(lt.shape)} over {n_s} samples")
+    planes, h, w = stack_shape(lt, row0, "lt")
+    if planes > UI_QUEUE:
+        raise ValueError(f"shade_composite_ui: {planes} layer planes (at most {UI_QUEUE})")
+    for s, t in enumerate(hdr):
+        check_tensor(f"hdr[{s}]", t, torch.float32, (h, w, 3), lt.device)
+    if len({t.data_ptr() for t in hdr}) != n_s:
+        raise ValueError("shade_composite_ui: two HDR samples share their storage")
+    ptrs = [t.data_ptr() for t in hdr] + [0] * (kernels.MAX_HDR - n_s)
+    args = _ui_args(lt, ui, materials, row0, n_samples=n_s,
+                    n_layers=lt.shape[-3], per_sample=int(per_sample),
+                    round_px=min(256, UI_QUEUE // planes),
+                    **{f"hdr{i}": p for i, p in enumerate(ptrs)})
     lib = kernels.load()
-    with torch.cuda.device(dev):
-        err = lib.rt_shade_ui(ctypes.addressof(args), kernels.current_stream())
-    kernels.check_launch("shade_ui_layer", err)
-    global launches
-    launches += 1
-    return rgb, alpha
+    with torch.cuda.device(lt.device):
+        err = lib.rt_shade_composite_ui(ctypes.addressof(args), kernels.current_stream())
+    kernels.check_launch("shade_composite_ui", err)
+    global composite_launches
+    composite_launches += 1

@@ -11,28 +11,48 @@ Parity: renderer/shaders/glsl/main.vert (static + skinned variants).
   (main.vert:86-92). Tangents are Gram-Schmidt orthogonalized against the
   normal here, then interpolated (main.vert:91).
 
-Every contraction runs in full f32: clip positions decide the integer tile
-spans binning derives from them, so TF32 (on by default for cuDNN, and
-selectable for matmuls) is switched off when this module is imported — the
-counterpart of the JAX stage's Precision.HIGHEST.
+Every contraction is written out as f32 products and sums in a fixed
+order (`_dot`), with no library GEMM: each output element's bits then depend
+on its own inputs alone, never on the batch, so a vertex transformed in a
+mesh rank's slice of the stream equals the same vertex transformed with the
+whole stream. On the card a batched product's kernel, and with it the
+order of its sums, changes with the batch size, so a library GEMM gives a
+rank's slice other clip bits than the whole stream, and the mesh's frames
+other pixels. Clip positions decide the
+integer tile spans binning derives from them, so they are in full f32 (no
+TF32), the counterpart of the JAX stage's Precision.HIGHEST.
 """
 
 from __future__ import annotations
 
 import torch
 
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
+
+def _dot(terms):
+    """Σ a·b over (a, b) pairs, summed left to right: one f32 rounding per
+    product and per sum, the same on every device and at every batch."""
+    (a, b), *rest = terms
+    out = a * b
+    for a, b in rest:
+        out = out + a * b
+    return out
 
 
-def _normalize(v, dim=-1):
-    return v * torch.reciprocal(torch.sqrt(torch.clamp(
-        torch.sum(v * v, dim=dim, keepdim=True), min=1e-20)))
+def _normalize(v):
+    """v / |v| along the last axis (of 3)."""
+    ss = _dot([(v[..., i:i + 1], v[..., i:i + 1]) for i in range(3)])
+    return v * torch.reciprocal(torch.sqrt(torch.clamp(ss, min=1e-20)))
+
+
+def _linear(m, p):
+    """[..., 3, 3] (or the first three columns of [..., 3, 4]) applied to
+    [..., 3] vectors."""
+    return _dot([(m[..., :, j], p[..., j:j + 1]) for j in range(3)])
 
 
 def _apply_affine(m, p):
     """[..., 3, 4] affine applied to [..., 3] points."""
-    return torch.einsum("...ij,...j->...i", m[..., :3], p) + m[..., 3]
+    return _linear(m, p) + m[..., 3]
 
 
 def _skinned_model(geom, frame, src, drw, model):
@@ -40,11 +60,10 @@ def _skinned_model(geom, frame, src, drw, model):
     jidx = geom["joints"][src] + frame["joints_offset"][drw][:, None]  # [V,4]
     jmats = frame["joint_palette"][jidx]  # [V,4,3,4]
     w = geom["weights"][src]  # [V,4]
-    skin = torch.einsum("vj,vjab->vab", w, jmats)  # [V,3,4]
-    rot = torch.einsum("vij,vjk->vik", model[:, :, :3], skin[:, :, :3])
-    trans = torch.einsum("vij,vj->vi", model[:, :, :3], skin[:, :, 3]) \
-        + model[:, :, 3]
-    return torch.cat([rot, trans[:, :, None]], dim=2)
+    skin = _dot([(w[:, j, None, None], jmats[:, j]) for j in range(4)])  # [V,3,4]
+    # model[:, :, :3] @ skin, plus model's translation in the last column
+    out = _dot([(model[:, :, j:j + 1], skin[:, j:j + 1, :]) for j in range(3)])
+    return torch.cat([out[:, :, :3], (out[:, :, 3] + model[:, :, 3])[:, :, None]], dim=2)
 
 
 def run_vertex_stage(geom: dict, frame: dict, skin_start: int | None,
@@ -96,14 +115,14 @@ def run_vertex_stage(geom: dict, frame: dict, skin_start: int | None,
         world = _apply_affine(model, pos)
 
     pv = frame["proj_view"]  # [4,4] = projection @ view
-    clip = torch.matmul(world, pv[:, :3].T) + pv[:, 3]  # [VE,4]
+    clip = _dot([(world[:, j:j + 1], pv[:, j]) for j in range(3)]) + pv[:, 3]  # [VE,4]
 
-    normal = _normalize(torch.einsum("vij,vj->vi", frame["normal_mats"][drl],
-                                     nrm_base))
+    normal = _normalize(_linear(frame["normal_mats"][drl], nrm_base))
     tang4 = geom["tangents"][src]
-    tang = _normalize(torch.einsum("vij,vj->vi", model[:, :, :3], tang4[:, :3]))
+    tang = _normalize(_linear(model, tang4[:, :3]))
     # Gram-Schmidt: ensure 90° between normal and tangent (main.vert:91).
-    tang = _normalize(tang - torch.sum(tang * normal, dim=-1, keepdim=True) * normal)
+    tn = _dot([(tang[:, i:i + 1], normal[:, i:i + 1]) for i in range(3)])
+    tang = _normalize(tang - tn * normal)
     tangent = torch.cat([tang, tang4[:, 3:4]], dim=1)
 
     return {

@@ -10,10 +10,13 @@ the next, unprofiled one; the summed device time of the profiled frame's
 kernels and copies (device-side events only) and their count; the device
 idle share (1 − busy / unprofiled frame); the ten PyTorch ops with the most
 device time; the device time and share of the hand-written shading kernels
-S1-S3 (csrc/shade.cu) and of K1/K2; and the UI pass's milliseconds (bin +
-K2 launch + stacked shade + composite of the frame's own DrawList). Needs
-CUDA; without it, it exits with an error. `profile_frame` profiles any
-renderer's frame the same way (chip_smoke.py phase 12 runs it on scene B).
+S1-S3 and the fused S3 (csrc/shade.cu) and of K1/K2; and the UI pass of the
+frame's own DrawList, piece by piece (`ui_pass_ms`): its raster (bin + K2's
+UI launch), the fused S3 (shade and composite, the pipeline's call), and
+the unfused pair it replaced, S3 (shade_ui_layer) and the composite loop of
+torch ops. Needs CUDA; without it, it exits with an error. `profile_frame`
+profiles any renderer's frame the same way (chip_smoke.py phase 12 runs it
+on scenes B and C, and `ui_pass_ms` on C).
 """
 
 from __future__ import annotations
@@ -25,7 +28,7 @@ import torch
 
 import renderer_tpu_torch as trt
 from renderer_tpu_torch.assets import demo_scenes
-from renderer_tpu_torch.engine.stats import card_line
+from renderer_tpu_torch.engine.stats import SPIN_CYCLES, card_line, held_stream
 from renderer_tpu_torch.interop import from_numpy_arrays
 from renderer_tpu_torch.raster import ui_stage
 from renderer_tpu_torch.raster.pipeline import STANDARD_SAMPLE_POSITIONS
@@ -45,10 +48,26 @@ def _event_ms(fn, reps: int = 5) -> float:
     return e0.elapsed_time(e1) / reps
 
 
+def _queued_ms(fn, reps: int = 5) -> float:
+    """Device ms of fn() averaged over `reps` calls enqueued behind a spin
+    kernel (engine.stats.held_stream): the device's time, not the host's
+    launch gaps."""
+    fn()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with held_stream(SPIN_CYCLES):
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
 #: (namespace, function) of the hand-written kernels' device functions
 KERNEL_NAMES = {"S1": ("rs", "shade_kernel"), "S2": ("rs", "alpha_kernel"),
-                "S3": ("rs", "ui_kernel"), "K1": ("rt", "binned_kernel"),
-                "K2": ("rt", "layer_kernel")}
+                "S3": ("rs", "ui_kernel"), "S3C": ("rs", "ui_composite_kernel"),
+                "K1": ("rt", "binned_kernel"), "K2": ("rt", "layer_kernel")}
 
 
 def _is_kernel(key: str, ns: str, fn: str) -> bool:
@@ -92,6 +111,46 @@ def profile_frame(renderer, scene, ui=None) -> dict:
     }
 
 
+def ui_pass_ms(renderer, dl) -> dict:
+    """The UI pass of DrawList `dl` at `renderer`'s config (pixel centres,
+    the HDR samples of its MSAA), each piece's ms (mean of 5, CUDA events):
+    "raster" (bin + K2's UI launch; host-paced: queued behind the spin
+    kernel it outlasted it on the card), and device ms queued behind a spin
+    kernel of "fused" (the
+    fused S3, ui_stage.shade_composite_ui, into copies of the samples),
+    "shade" (S3, ui_stage.shade_ui_layer) and "composite_loop" (the torch
+    ops that composited S3's layers before the fused S3, its plain
+    version's ui_stage._composite: 2 multiplies, a subtract, an add and a
+    copy a layer and sample), with "unfused" the sum of the last two."""
+    dev = renderer.device
+    cfg = renderer.config
+    ui = from_numpy_arrays(dl.pack(), device=dev)
+    mats = renderer._materials()
+    row0 = torch.zeros((cfg.padded_height, 1), dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    hdr = [torch.rand((cfg.padded_height, cfg.padded_width, 3), device=dev, generator=gen)
+           for _ in range(cfg.msaa_samples)]
+
+    def raster():
+        return ui_stage.rasterize_ui(ui, config=cfg, local_tiles_y=cfg.tiles_y,
+                                     tile_row_offset=0,
+                                     sample_positions=STANDARD_SAMPLE_POSITIONS[1])[0][0]
+
+    lt = raster()
+    rgb, a = ui_stage.shade_ui_layer(lt, ui, mats, config=cfg, row0=row0)
+    work = [t.clone() for t in hdr]
+    out = {
+        "raster": _event_ms(raster),
+        "fused": _queued_ms(lambda: ui_stage.shade_composite_ui(
+            work, lt, ui, mats, config=cfg, row0=row0)),
+        "shade": _queued_ms(lambda: ui_stage.shade_ui_layer(lt, ui, mats, config=cfg,
+                                                            row0=row0)),
+        "composite_loop": _queued_ms(lambda: ui_stage._composite(work, rgb, a)),
+    }
+    out["unfused"] = out["shade"] + out["composite_loop"]
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("frame_profile: torch.cuda.is_available() is False")
@@ -112,31 +171,12 @@ def main() -> int:
     prof["frame_ms"] = frame_ms
     prof["device_idle_share"] = 1.0 - prof["device_busy_ms"] / frame_ms
 
-    # the UI pass alone on this frame's DrawList: bin, K2, stacked shade of
-    # every layer, composite into the MSAA samples' HDR buffers
+    ui_ms = ui_pass_ms(r, dl)
     cfg = r.config
-    ui = from_numpy_arrays(dl.pack(), device=dev)
-    mats = r._materials()
-    row0 = torch.zeros((cfg.padded_height, 1), dtype=torch.float32, device=dev)
-    hdr = [torch.zeros((cfg.padded_height, cfg.padded_width, 3), device=dev)
-           for _ in range(cfg.msaa_samples)]
-
-    def ui_pass():
-        lt, _ov, _aux = ui_stage.rasterize_ui(
-            ui, config=cfg, local_tiles_y=cfg.tiles_y, tile_row_offset=0,
-            sample_positions=STANDARD_SAMPLE_POSITIONS[1])
-        rgb, a = ui_stage.shade_ui_layer(lt[0], ui, mats, config=cfg, row0=row0)
-        out = list(hdr)
-        for k in range(cfg.ui_layers):
-            a_k = a[k][..., None]
-            for s in range(len(out)):
-                out[s] = out[s] * (1.0 - a_k) + rgb[k] * a_k
-        return out
-
     print(json.dumps({
         "card": card, **prof,
         "ui_triangles": int(dl.pack()["counts"][0]),
-        "ui_pass_ms": _event_ms(ui_pass),
+        "ui_pass_ms": ui_ms,
         "config": {"mask_layers": cfg.mask_layers, "blend_layers": cfg.blend_layers,
                    "ui_layers": cfg.ui_layers,
                    "msaa_shade_candidates": cfg.msaa_shade_candidates},

@@ -1,12 +1,15 @@
-"""The shading kernels S1-S3 (csrc/shade.cu) against their plain versions
-on the calls a real frame makes.
+"""The shading kernels S1-S3 and the fused S3 (csrc/shade.cu) against their
+plain versions on the calls a real frame makes.
 
 `recorded_shading()` records every call made to the shading stage's entry
-points (shade.shade_stack, shade.alpha_stack, ui_stage.shade_ui_layer)
-while a frame renders — every candidate stack and strip with its own row0;
-`run_shading` runs one recorded call again through its kernel or its plain
-version, and `compare` holds the two to the kernels' tolerance. Used by
-chip_smoke.py phase 12 and tests/test_torch_cuda_kernels.py:
+points (shade.shade_stack, shade.alpha_stack, ui_stage.shade_ui_layer,
+ui_stage.shade_composite_ui) while a frame renders — every candidate stack
+and strip with its own row0, and a copy of the HDR samples the fused S3
+updates in place, as they were before the call; `run_shading` runs one
+recorded call again through its kernel or its plain version (the fused S3
+on a fresh copy of those samples, which it returns), and `compare` holds
+the two to the kernels' tolerance. Used by chip_smoke.py phase 12 and
+tests/test_torch_cuda_kernels.py:
 
     with recorded_shading() as calls:
         renderer.render_frame(scene)
@@ -25,7 +28,8 @@ from renderer_tpu_torch.raster import shade, ui_stage
 
 #: entry points recorded: (module, function name, kind)
 ENTRY_POINTS = ((shade, "shade_stack", "S1"), (shade, "alpha_stack", "S2"),
-                (ui_stage, "shade_ui_layer", "S3"))
+                (ui_stage, "shade_ui_layer", "S3"),
+                (ui_stage, "shade_composite_ui", "S3C"))
 #: the tolerance against the plain versions: |Δ| ≤ MAX_ABS, and at most
 #: OVER_SHARE of the values off by more than FINE
 MAX_ABS, FINE, OVER_SHARE = 2.0**-12, 2.0**-18, 0.001
@@ -40,7 +44,10 @@ def recorded_shading():
 
     def recorder(kind, fn):
         def call(*args, **kw):
-            calls.append((kind, args, kw))
+            if kind == "S3C":  # the HDR samples as the call finds them
+                calls.append((kind, ([t.clone() for t in args[0]], *args[1:]), kw))
+            else:
+                calls.append((kind, args, kw))
             return fn(*args, **kw)
         return call
 
@@ -56,7 +63,14 @@ def recorded_shading():
 def run_shading(kind: str, args: tuple, kw: dict, plain: bool) -> tuple:
     """One recorded call through its entry point (the kernel, for CUDA
     tensors) or its plain version, as a tuple of outputs."""
-    if kind == "S3":
+    if kind == "S3C":
+        hdr, lt, ui, mats = args
+        out = tuple(t.clone() for t in hdr)
+        if plain:
+            ui_stage.shade_composite_ui_plain(list(out), lt, ui, mats, row0=kw["row0"])
+        else:
+            ui_stage.shade_composite_ui(list(out), lt, ui, mats, **kw)
+    elif kind == "S3":
         lt, ui, mats = args
         out = (ui_stage.shade_ui_layer_plain(lt, ui, mats, row0=kw["row0"]) if plain
                else ui_stage.shade_ui_layer(lt, ui, mats, **kw))

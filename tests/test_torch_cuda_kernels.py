@@ -5,7 +5,10 @@ Renderer on the card reproduces the golden images. The shading kernels S1,
 S2 and S3 are held to their plain versions within 2^-12 absolute, ≥ 99.9%
 of values within 2^-18, NaN where the plain version has NaN, and cutoffs
 equal (the differing counts are printed; on the scenes they are 0); the
-tests of S1's compaction and S2's alpha-only sampler hold them bit for bit.
+tests of S1's compaction, S2's alpha-only sampler, S3 and the fused S3
+(the UI shade with its composite) hold them bit for bit. The vertex stage
+gives a slice of the vertex stream the whole stream's bits (the mesh's
+bit-equality with one device rests on it).
 
 These need an NVIDIA GPU with nvcc; without one every test skips. This file
 imports no jax, so it runs on a machine without it:
@@ -210,7 +213,7 @@ def test_renderer_on_card_matches_sandbox_goldens(cuda, key):
     before = pipeline_launches()
     img = r.render_frame(sandbox.scene, 0, ui=ui)
     moved = {k: v - before[k] for k, v in pipeline_launches().items()}
-    assert all(moved[k] > 0 for k in ("ui", "shade", "alpha", "ui_shade")), moved
+    assert all(moved[k] > 0 for k in ("ui", "shade", "alpha", "ui_composite")), moved
     expected = np.load(Path(__file__).parent / "golden" / "sandbox-golden.npz")[key]
     diff = np.abs(img.astype(int) - expected.astype(int)).max(axis=-1)
     assert (diff > 2).mean() < 0.005
@@ -322,7 +325,8 @@ def test_replays_add_the_capture_launch_counts(cuda):
     r.render_frames_device(scenes)
     graph = r.frame_graphs.graph
     assert graph.captured.launches == {"k1": 1, "masked": 1, "blended": 1, "ui": 0,
-                                       "shade": 2, "alpha": 1, "ui_shade": 0}
+                                       "shade": 2, "alpha": 1, "ui_shade": 0,
+                                       "ui_composite": 0}
     before = pipeline.launch_counts()
     r.render_frames_device(scenes + scenes[:1])
     assert r.frame_graphs.graph is graph
@@ -436,8 +440,8 @@ def assert_shading_close(got, want, what=""):
 def test_shading_kernels_equal_plain_on_scenes(cuda, scene):
     """Every shading call of a 4×MSAA frame of chip_smoke.py's scene B (all
     three alpha classes) and C (the mini-sandbox with its "Performance
-    stats" window) at 320×192: S1, S2 and S3 against their plain versions,
-    cutoffs equal."""
+    stats" window) at 320×192: S1, S2 and the fused S3 against their plain
+    versions, cutoffs equal, and S3 on the fused S3's layers."""
     cfg = trt.RenderConfig(width=320, height=192, msaa_samples=4)
     if scene == "B":
         registry, sc = demo_scenes.patch_wall_scene()
@@ -452,7 +456,8 @@ def test_shading_kernels_equal_plain_on_scenes(cuda, scene):
     with recorded_shading() as calls:
         r.render_frame(sc, 0, ui=ui)
     kinds = {kind for kind, _, _ in calls}
-    assert kinds == ({"S1", "S2"} if scene == "B" else {"S1", "S2", "S3"}), kinds
+    assert kinds == ({"S1", "S2"} if scene == "B" else {"S1", "S2", "S3C"}), kinds
+    calls += [("S3", args[1:], kw) for kind, args, kw in calls if kind == "S3C"]
     for i, (kind, args, kw) in enumerate(calls):
         got = run_shading(kind, args, kw, plain=False)
         want = run_shading(kind, args, kw, plain=True)
@@ -662,12 +667,196 @@ def test_shade_info_on_the_card(cuda):
     an SM its launches assume; S1's grid is SMs × those blocks."""
     for kernel, bf16, per_tap in (("s1", False, True), ("s1", True, False),
                                   ("s2", False, False), ("s2", True, False),
-                                  ("s3", False, False)):
+                                  ("s3", False, False), ("s3c", False, False)):
         info = kernels.shade_info(kernel, bf16, per_tap)
         assert 0 < info["registers"] <= 255 and info["blocks_per_sm"] >= 1, info
         assert info["sms"] == torch.cuda.get_device_properties(0).multi_processor_count
-        assert info["grid_cap"] == (info["sms"] * info["blocks_per_sm"] if kernel == "s1"
-                                    else 0)
-        assert info["shared_bytes"] == 0 if kernel == "s2" else info["shared_bytes"] > 0
+        persistent = kernel in ("s1", "s3c")
+        assert info["grid_cap"] == (info["sms"] * info["blocks_per_sm"] if persistent else 0)
+        # S2 and S3 sample with the byte's value in registers: no shared table
+        assert (info["shared_bytes"] == 0 if kernel in ("s2", "s3")
+                else info["shared_bytes"] > 0)
     report = kernels.ptxas_report()
     assert any("shade_kernel" in k for k in report) and any("alpha_kernel" in k for k in report)
+
+
+# -- S3 and the fused S3 (the UI shade and its composite) ------------------
+
+# (h, w): 5,856 pixels a layer, a multiple of neither 32 nor 256
+UI_SHAPE = (61, 96)
+UI_COVERAGE = ("none", "one-lane-a-warp", "window", "full", "ragged")
+# triangle 0 (which every uncovered element shades): as drawn, a negative
+# and a signed-zero vertex colour, a NaN and an infinite one, and vertices
+# too far out for the kernel to skip its uncovered elements' shade
+UI_TRIANGLE0 = ("as-is", "negative-colour", "non-finite-colour", "far")
+
+
+def _ui_inputs(cuda, tri0: str, seed: int = 0):
+    """Crafted UI shading inputs on the card: 64 triangles over UI_SHAPE
+    (uv past [0, 1], some clockwise), eight commands of tex_kind 1, 2, 0
+    and 3 with clip rects that cut through quads and one that holds
+    nothing, slots out of range, the font's registry's materials on a
+    random atlas (sRGB and linear textures), and triangle 0 as `tri0`
+    says."""
+    dl, registry = ui_drawlist("glyphs")
+    mats = _random_atlas(dict(trt.Renderer(registry, ui_config(), device=cuda)._materials()),
+                         seed=seed + 11)
+    h, w = UI_SHAPE
+    rng = np.random.default_rng(seed)
+    n_t, n_c = 64, 8
+    pos = np.stack([rng.uniform(-10, w + 10, 3 * n_t), rng.uniform(-10, h + 10, 3 * n_t)],
+                   -1).astype(np.float32)
+    uv = rng.uniform(-0.5, 1.5, (3 * n_t, 2)).astype(np.float32)
+    col = rng.uniform(0.0, 1.0, (3 * n_t, 4)).astype(np.float32)
+    tris = np.arange(3 * n_t, dtype=np.int32).reshape(n_t, 3)
+    if tri0 == "negative-colour":
+        col[:3, :3] = [[-0.5, 0.25, -0.0], [0.75, -0.125, -0.0], [-1.0, 0.5, -0.0]]
+    elif tri0 == "non-finite-colour":
+        col[0, 0], col[1, 1], col[2, 2] = np.nan, np.inf, -np.inf
+    elif tri0 == "far":
+        pos[:3] = [[3e7, 5.0], [-2e7, 40.0], [10.0, 4e7]]
+    n_tex = mats["atlas_table"].shape[0]
+    clip = np.array([[-1, -1, w + 1, h + 1], [10.5, 5.5, 60.5, 40.5], [0, 0, w / 2, h],
+                     [-1, -1, w + 1, h + 1], [30.2, 20.7, 31.8, 50.1], [5, 5, 5, 5],
+                     [-1, 30.5, w + 1, h + 1], [0, 0, w, h]], np.float32)
+    ui = {"tris": tris, "pos": pos, "uv": uv, "col": col,
+          "tri_cmd": rng.integers(0, n_c, n_t).astype(np.int32),
+          "clip": clip,
+          "tex_kind": np.array([1, 2, 0, 3, 1, 2, 2, 1], np.int32),
+          "tex_slot": np.array([0, 1, 0, n_tex - 1, -1, n_tex + 3, 2 % n_tex, 1 % n_tex],
+                               np.int32)}
+    ui["tri_cmd"][0] = 1  # triangle 0 is an RGBA quad's under a clip rect
+    ui = {k: torch.from_numpy(v).to(cuda) for k, v in ui.items()}
+    row0 = torch.full((h, 1), 3.0, device=cuda)
+    return ui, mats, row0
+
+
+def _ui_layers(coverage: str, lead: tuple, n_tris: int, seed: int = 1) -> torch.Tensor:
+    """Layer ids [*lead, h, w] of UI_SHAPE: "none" (no element covered),
+    "one-lane-a-warp" (element e covered where e % 32 == 5), "window" (a
+    rectangle covered in every layer, nothing elsewhere, as a UI window),
+    "full" (every element), "ragged" (8% at random)."""
+    shape = (*lead, *UI_SHAPE)
+    gen = torch.Generator().manual_seed(seed)
+    ids = torch.randint(0, n_tris, shape, generator=gen, dtype=torch.int32)
+    bg = torch.randint(-2, 0, shape, generator=gen, dtype=torch.int32)
+    if coverage == "none":
+        return bg
+    if coverage == "full":
+        return ids
+    if coverage == "one-lane-a-warp":
+        lane = (torch.arange(ids.numel()) % 32 == 5).reshape(shape)
+    elif coverage == "window":
+        lane = torch.zeros(shape, dtype=torch.bool)
+        lane[..., 9:47, 13:71] = True
+    else:
+        lane = torch.rand(shape, generator=gen) < 0.08
+    return torch.where(lane, ids, bg)
+
+
+def _hdr_samples(cuda, n: int, seed: int = 2) -> list:
+    """n HDR samples of UI_SHAPE: values in [-1, 2), many of them −0.0 and
+    +0.0, some NaN (two payloads) and ±inf."""
+    gen = torch.Generator().manual_seed(seed)
+    out = []
+    for _ in range(n):
+        hdr = torch.rand((*UI_SHAPE, 3), generator=gen) * 3 - 1
+        pick = torch.rand(hdr.shape, generator=gen)
+        hdr[pick < 0.2] = -0.0
+        hdr[(pick >= 0.2) & (pick < 0.3)] = 0.0
+        hdr[(pick >= 0.3) & (pick < 0.31)] = float("inf")
+        hdr[(pick >= 0.31) & (pick < 0.32)] = float("-inf")
+        bits = hdr.view(torch.int32)
+        bits[(pick >= 0.32) & (pick < 0.33)] = 0x7FC00000
+        bits[(pick >= 0.33) & (pick < 0.34)] = -0x3F_FFFF  # a NaN with a payload
+        out.append(hdr.to(cuda))
+    return out
+
+
+@pytest.mark.parametrize("ui_msaa", [False, True])
+@pytest.mark.parametrize("tri0", UI_TRIANGLE0)
+@pytest.mark.parametrize("coverage", UI_COVERAGE)
+def test_s3c_fused_composite_bit_equal(cuda, coverage, tri0, ui_msaa):
+    """The fused S3 (ui_stage.shade_composite_ui) against its plain version
+    bit for bit, eagerly and replayed from a captured graph (the samples
+    reset to the inputs before the replay): every coverage of UI_COVERAGE,
+    triangle 0 as UI_TRIANGLE0 says, layers [K, h, w] into 4 samples and
+    [S, K, h, w] (ui_msaa), HDR samples holding −0.0, NaN and ±inf."""
+    ui, mats, row0 = _ui_inputs(cuda, tri0)
+    lead = (4, 4) if ui_msaa else (4,)
+    lt = _ui_layers(coverage, lead, ui["tris"].shape[0]).to(cuda)
+    inputs = _hdr_samples(cuda, 4)
+    want = [t.clone() for t in inputs]
+    ui_stage.shade_composite_ui_plain(want, lt, ui, mats, row0=row0)
+    got = [t.clone() for t in inputs]
+    before = ui_stage.composite_launches
+    ui_stage.shade_composite_ui(got, lt, ui, mats, config=None, row0=row0)
+    assert ui_stage.composite_launches == before + 1
+    _assert_bits_equal(tuple(got), tuple(want), f"{coverage} {tri0} eager")
+
+    from renderer_tpu_torch.raster.pipeline import CapturedGraph
+
+    work = [t.clone() for t in inputs]
+    g = CapturedGraph(lambda: ui_stage.shade_composite_ui(work, lt, ui, mats, config=None,
+                                                          row0=row0), cuda)
+    for w_, t in zip(work, inputs):
+        w_.copy_(t)
+    g.replay()
+    torch.cuda.synchronize()
+    _assert_bits_equal(tuple(work), tuple(want), f"{coverage} {tri0} replayed")
+    if coverage == "none" and tri0 in ("as-is", "negative-colour"):
+        # no live layer: only −0.0 under a colour >= +0 and NaN payloads change
+        for g_, t in zip(got, inputs):
+            same = (g_.view(torch.int32) == t.view(torch.int32)) | torch.isnan(t) | (t == 0)
+            assert same.all()
+
+
+@pytest.mark.parametrize("tri0", UI_TRIANGLE0)
+@pytest.mark.parametrize("coverage", UI_COVERAGE)
+def test_s3_every_element_bit_equal(cuda, coverage, tri0):
+    """S3 (ui_stage.shade_ui_layer: every element shaded, rgb unmasked)
+    against shade_ui_layer_plain bit for bit on the fused S3's crafted
+    inputs; eagerly and replayed from a captured graph whose outputs were
+    filled with NaN."""
+    ui, mats, row0 = _ui_inputs(cuda, tri0)
+    lt = _ui_layers(coverage, (4,), ui["tris"].shape[0]).to(cuda)
+    want = ui_stage.shade_ui_layer_plain(lt, ui, mats, row0=row0)
+    before = ui_stage.launches
+    eager, replayed = _eager_and_replayed(
+        cuda, lambda: ui_stage.shade_ui_layer(lt, ui, mats, config=None, row0=row0))
+    assert ui_stage.launches > before
+    _assert_bits_equal(eager, want, f"{coverage} {tri0} eager")
+    _assert_bits_equal(replayed, want, f"{coverage} {tri0} replayed")
+
+
+def test_vertex_stage_slice_equals_the_whole_stream(cuda):
+    """The vertex stage on a slice of the expanded vertex stream (a mesh
+    rank's, skin_start=None) gives the bits of the same vertices
+    transformed with the whole stream, on the mini-sandbox's skinned
+    character: the mesh's frames are bit-equal to one device's
+    (chip_smoke.py phase 10)."""
+    from renderer_tpu_torch.parallel import mesh as pmesh
+    from renderer_tpu_torch.raster import vertex_stage
+    from renderer_tpu_torch.scene.draw_stream import unpack_frame
+
+    sandbox = demo_scenes.MiniSandbox()
+    r = trt.Renderer(sandbox.registry, trt.RenderConfig(width=320, height=192),
+                     overflow_policy="off", device=cuda)
+    gs, geom, frame, _mats, jc = pmesh.frame_inputs(r, sandbox.build_scene(1.0))
+    f = unpack_frame(frame, morph_k=gs.morph_k, joint_cap=jc)
+    whole = vertex_stage.run_vertex_stage(geom, f, None, morph_k=gs.morph_k)
+    single = vertex_stage.run_vertex_stage(geom, f, gs.skin_start, morph_k=gs.morph_k)
+    ve = geom["exp_src"].shape[0]
+    used = torch.zeros(ve, dtype=torch.bool, device=cuda)
+    used[geom["tri_v"][:int(f["num_tris"])].long().flatten()] = True
+    for n in (2, 4, 3):
+        bounds = [ve * i // n for i in range(n + 1)]
+        parts = []
+        for lo, hi in zip(bounds, bounds[1:]):
+            lgeom = dict(geom, exp_src=geom["exp_src"][lo:hi], exp_draw=geom["exp_draw"][lo:hi])
+            parts.append(vertex_stage.run_vertex_stage(lgeom, f, None, morph_k=gs.morph_k))
+        for k, v in whole.items():
+            got = torch.cat([p[k] for p in parts])
+            assert torch.equal(got.view(torch.int32) if got.is_floating_point() else got,
+                               v.view(torch.int32) if v.is_floating_point() else v), (n, k)
+            assert torch.equal(got[used], single[k][used]), (n, k)

@@ -7,8 +7,14 @@ machine).
   restart markers (by blocks and by rows), grey, CMYK, `keep_rgb`, 16-bit
   quantisation tables (SOF1), optimised Huffman tables, APPn and COM
   segments; at quality 50 and 95 and at sizes that are not whole MCUs.
+- It equals Pillow's decode too on what Pillow reads but does not write,
+  made by tests/torch_jpeg_writer.py: the sampling layouts 4:4:0, 4:1:1,
+  4:1:0 and other whole-number ratios (each takes libjpeg-turbo's h1v2
+  fancy upsampler or box replication), and YCCK (Adobe transform 2, and
+  any other but 0, as libjpeg-turbo reads it).
 - Every variant it does not decode, and truncated or corrupt data, raise
-  ValueError naming the variant or the offset.
+  ValueError naming the variant or the offset; the refused sampling
+  layouts are ones Pillow refuses too.
 - assets/image.decode_image dispatches by content.
 - make_ntex on a JPEG writes the JAX tool's .ntex bytes; a GLB with an
   embedded JPEG loads to the JAX loader's textures (every mip).
@@ -56,6 +62,8 @@ MODES = {
 }
 SIZES = [(37, 53), (1, 17)]  # (width, height): neither is whole MCUs
 BIG = 512  # the two large vectors, 512×512 4:2:0, baseline and progressive
+# the layouts of WRITTEN (below) that the vectors file carries for the card
+WRITTEN_VECTORS = ("ycck", "411", "440")
 
 
 def _pixels(w: int, h: int, seed: int) -> np.ndarray:
@@ -179,10 +187,12 @@ def _insert_before_sos(segment: bytes):
     return lambda data: _replace_first(data, b"\xff\xda", segment + b"\xff\xda")
 
 
-def _adobe_transform(value: int):
+def _sampling(*factors: int):
+    """Sets the three components' h<<4|v bytes of the frame header."""
     def fn(data):
-        i = data.index(b"Adobe")
-        return data[:i + 11] + bytes([value]) + data[i + 12:]
+        for k, f in enumerate(factors):
+            data = _set_byte(11 + 3 * k, f)(data)
+        return data
     return fn
 
 
@@ -202,10 +212,10 @@ REFUSALS = {
     "hierarchical-sof5": ("420", _with_sof(0xC5), "hierarchical"),
     "hierarchical-dhp": ("420", _insert_before_sos(b"\xff\xde\x00\x02"), "hierarchical"),
     "12-bit": ("420", _set_byte(4, 12), "12-bit sample precision"),
-    "ycck": ("cmyk", _adobe_transform(2), "YCCK"),
-    "sampling-4x1": ("420", _set_byte(11, 0x41), "sampling factors 4x1, 1x1, 1x1"),
-    "sampling-1x2": ("420", _set_byte(11, 0x12), "sampling factors 1x2, 1x1, 1x1"),
-    "sampling-3x1": ("420", _set_byte(11, 0x31), "sampling factors 3x1"),
+    "sampling-fractional": ("422", _sampling(0x31, 0x21, 0x21),
+                            "sampling factors 3x1, 2x1, 2x1 .a ratio that is not a whole"),
+    "sampling-mcu-over-10": ("420", _sampling(0x44, 0x11, 0x11),
+                             "sampling factors 4x4, 1x1, 1x1 in one scan .an MCU of more"),
     "truncated-half": ("420", lambda d: d[:len(d) // 2], "corrupt or truncated"),
     "truncated-no-eoi": ("420", lambda d: d[:-2], "corrupt or truncated"),
     "truncated-header": ("420", lambda d: d[:40], "corrupt or truncated"),
@@ -225,6 +235,57 @@ def test_refuses(case):
     data = edit(_encode(mode, 37, 53, 75))
     with pytest.raises(ValueError, match=message):
         decode_jpeg(data)
+    if case.startswith("sampling"):  # a layout Pillow refuses as well
+        with pytest.raises(OSError):
+            _pillow(data)
+
+
+# -- layouts Pillow reads but does not write (tests/torch_jpeg_writer.py) -----
+
+# name -> (sampling factors, colour: "ycc" under JFIF, "ycck" / "rgb" under
+# an Adobe marker with that transform byte)
+WRITTEN = {
+    "440": ([(1, 2), (1, 1), (1, 1)], "ycc", None),
+    "411": ([(4, 1), (1, 1), (1, 1)], "ycc", None),
+    "410": ([(4, 2), (1, 1), (1, 1)], "ycc", None),
+    "311": ([(3, 1), (1, 1), (1, 1)], "ycc", None),
+    "1x4": ([(1, 4), (1, 1), (1, 1)], "ycc", None),
+    "420-chroma-2x1": ([(2, 2), (2, 1), (2, 1)], "ycc", None),
+    "420-chroma-1x2": ([(2, 2), (1, 2), (1, 2)], "ycc", None),
+    "rgb-411": ([(4, 1), (1, 1), (1, 1)], "rgb", 0),
+    "ycck": ([(1, 1)] * 4, "ycck", 2),
+    "ycck-420": ([(2, 2), (1, 1), (1, 1), (2, 2)], "ycck", 2),
+    "ycck-transform-1": ([(2, 1), (1, 1), (1, 1), (1, 1)], "ycck", 1),
+}
+
+
+def _written(name: str, w: int, h: int, quality: int, seed: int = 0) -> bytes:
+    from tests.torch_jpeg_writer import encode, rgb_to_ycc
+
+    factors, colour, adobe = WRITTEN[name]
+    px = _pixels(w, h, seed)
+    if colour == "ycck":  # Adobe's inverted CMYK: YCC of 255 - C, M, Y; K as is
+        planes = np.concatenate([rgb_to_ycc(255 - px[..., :3]), px[..., 3:]], axis=-1)
+    else:
+        planes = rgb_to_ycc(px[..., :3]) if colour == "ycc" else px[..., :3]
+    return encode(planes, factors, quality=quality, jfif=colour == "ycc", adobe=adobe)
+
+
+@pytest.mark.parametrize("w,h", SIZES + [(9, 2)])
+@pytest.mark.parametrize("name", sorted(WRITTEN))
+def test_written_layout_decodes_equal_to_pillow(name, w, h):
+    pytest.importorskip("PIL")
+    from renderer_tpu_torch.assets.jpeg import decode_jpeg
+
+    data = _written(name, w, h, 85, seed=w * 100 + h)
+    factors = WRITTEN[name][0]
+    sof = _sof_offset(data)
+    assert data[sof + 1] == 0xC0 and [data[sof + 11 + 3 * k] for k in range(len(factors))] \
+        == [(fh << 4) | fv for fh, fv in factors]
+    got = decode_jpeg(data)
+    want = _pillow(data)
+    assert got.shape == want.shape == (h, w, 4)
+    np.testing.assert_array_equal(got, want)
 
 
 def test_decode_image_dispatches_by_content():
@@ -330,7 +391,8 @@ def test_vectors_decode_to_their_stored_pixels():
 
     z = np.load(VECTORS)
     names = [k[:-len("_jpeg")] for k in z.files if k.endswith("_jpeg")]
-    assert set(MODES) | {"big-baseline-420", "big-progressive-420"} == set(names)
+    assert (set(MODES) | {f"written-{n}" for n in WRITTEN_VECTORS}
+            | {"big-baseline-420", "big-progressive-420"}) == set(names)
     for name in names:
         data = z[f"{name}_jpeg"].tobytes()
         got = decode_jpeg(data)
@@ -346,9 +408,10 @@ def test_vectors_decode_to_their_stored_pixels():
 
 def regen() -> None:
     """Rewrites VECTORS with Pillow: every mode at 23×17, quality 75, with
-    Pillow's RGBA decode, and the 512×512 texture as baseline and
-    progressive 4:2:0 JPEGs, quality 90, with the SHA-256 of Pillow's
-    decode."""
+    Pillow's RGBA decode, the WRITTEN_VECTORS layouts (tests/
+    torch_jpeg_writer.py) likewise as "written-<name>", and the 512×512
+    texture as baseline and progressive 4:2:0 JPEGs, quality 90, with the
+    SHA-256 of Pillow's decode."""
     from PIL import Image
 
     out = {}
@@ -356,6 +419,10 @@ def regen() -> None:
         data = _encode(name, 23, 17, 75, seed=1)
         out[f"{name}_jpeg"] = np.frombuffer(data, np.uint8)
         out[f"{name}_rgba"] = _pillow(data)
+    for name in WRITTEN_VECTORS:
+        data = _written(name, 23, 17, 75, seed=1)
+        out[f"written-{name}_jpeg"] = np.frombuffer(data, np.uint8)
+        out[f"written-{name}_rgba"] = _pillow(data)
     tex = Image.fromarray(_texture(BIG))
     for name, progressive in (("big-baseline-420", False), ("big-progressive-420", True)):
         buf = io.BytesIO()

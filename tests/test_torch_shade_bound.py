@@ -14,7 +14,12 @@ reads 4 a mip-tap whatever the channels:
   834 = 1419;
 - S3 (UI shade): one trilinear tap of four channels decoded after the
   filter, the earlier four-channel count less 4 an element (the
-  coordinates wrapped once a tap, not once a mip).
+  coordinates wrapped once a tap, not once a mip);
+- the fused S3 (UI shade and composite): its live elements alone (covered,
+  inside the clip rect, tex_kind 1 or 2): 70 + 10 a sample they composite
+  into, and one trilinear sample of R (font) or RGBA; its bytes the layer
+  ids, row0 and the DrawList's tensors once, the HDR samples read once and
+  written where their bits change.
 """
 
 import torch
@@ -103,3 +108,36 @@ def test_s3_count():
     # elements 0 and 1 (background reads command 0) sample slot 0, sRGB
     want_ops, want_taps = _four_channel_work(4, 2, True, 1, False)
     assert (ops, taps) == (want_ops - 4 * 4 + 4 * 70, want_taps)
+
+
+def test_s3c_count():
+    """The fused S3's count on a [2, 1, 4] stack over two samples: layer 0
+    holds a font element inside its clip rect, a background element, an
+    RGBA element clipped away and a kind-0 element; layer 1 an RGBA element
+    inside its clip rect (on an sRGB texture) and three background ones."""
+    lt = torch.tensor([[[0, -1, 1, 2]], [[3, -1, -1, -1]]], dtype=torch.int32)
+    ui = {"tri_cmd": torch.tensor([0, 1, 2, 3], dtype=torch.int32),
+          "clip": torch.tensor([[-1.0, -1.0, 9.0, 9.0], [5.0, 5.0, 6.0, 6.0],
+                                [-1.0, -1.0, 9.0, 9.0], [-1.0, -1.0, 9.0, 9.0]]),
+          "tex_kind": torch.tensor([1, 2, 0, 2], dtype=torch.int32),
+          "tex_slot": torch.tensor([1, 0, 0, 0], dtype=torch.int32)}
+    mats = {"atlas_srgb": torch.tensor([1, 0], dtype=torch.int32)}
+    row0 = torch.zeros((1, 1))
+    live, kind = cs.ui_live(lt, ui, row0)
+    assert live.tolist() == [[[True, False, False, False]], [[True, False, False, False]]]
+    ui.update(tris=torch.zeros((4, 3), dtype=torch.int32), pos=torch.zeros((5, 2)),
+              uv=torch.zeros((5, 2)), col=torch.zeros((5, 4)))
+    hdr = [torch.zeros((1, 4, 3)), torch.zeros((1, 4, 3))]
+    out = [t.clone() for t in hdr]
+    out[0][0, 0] = 0.5  # 3 values of sample 0 change; -0.0 differs from +0.0 in bits
+    out[1][0, 3, 1] = -0.0
+    tensors = {}
+    ops, taps = cs.shade_work("s3c", (hdr, lt, ui, mats), {"row0": row0}, tuple(out), tensors)
+    font_ops, font_taps = cs.sampler_work(1, 0, True, 1, False, 1, 1)
+    rgba_ops, rgba_taps = cs.sampler_work(1, 1, True, 1, False, 4, 3)
+    assert (ops, taps) == (2 * (70 + 10 * 2) + font_ops + rgba_ops, font_taps + rgba_taps)
+    ui_bytes = 4 * (4 * 3 + 5 * 2 + 5 * 2 + 5 * 4 + 4 + 4 * 4 + 4 + 4)
+    assert sum(tensors.values()) == lt.numel() * 4 + 4 + ui_bytes + 2 * 4 * 3 * 4 + 4 * 4
+    # a second call on the same inputs adds its samples, not its inputs
+    cs.shade_work("s3c", (hdr, lt, ui, mats), {"row0": row0}, tuple(hdr), tensors)
+    assert sum(tensors.values()) == lt.numel() * 4 + 4 + ui_bytes + 4 * 4 * 3 * 4 + 4 * 4

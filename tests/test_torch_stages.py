@@ -143,6 +143,17 @@ def test_vertex_stage_skin_and_morph(skin_start):
     for key in ("clip", "normal", "tangent", "uv"):
         a = np.asarray(jv[key])
         _assert_ulp(a, tv[key], 8, scale=_vec_scale(a), what=key)
+    if skin_start is None:
+        # a mesh rank's slice of the stream gives the whole stream's bits
+        # (every contraction written out in a fixed order; the card test
+        # test_vertex_stage_slice_equals_the_whole_stream holds the same)
+        tgeom = to_torch(geom)
+        for lo, hi in ((0, 24), (24, 40), (40, 64)):
+            part = tvs.run_vertex_stage(dict(tgeom, exp_src=tgeom["exp_src"][lo:hi],
+                                             exp_draw=tgeom["exp_draw"][lo:hi]),
+                                        to_torch(frame), None, morph_k=k)
+            for key, v in part.items():
+                assert torch.equal(v, tv[key][lo:hi]), (lo, hi, key)
 
 
 def _setup_both(c):

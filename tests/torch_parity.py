@@ -236,3 +236,10 @@ def degenerate_triangles(device):
     degenerate = np.concatenate([points, np.arange(n, n + n_made - 2)])
     control = np.array([n + n_made - 2, n + n_made - 1])
     return clip, tri_v, tri_v.shape[0], cfg.width, cfg.height, degenerate, control
+
+
+def cpu_renderer(registry, config, **kw):
+    """The port's Renderer on the CPU (its default device is the card)."""
+    from renderer_tpu_torch import Renderer
+
+    return Renderer(registry, config, device="cpu", **kw)
