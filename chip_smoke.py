@@ -104,20 +104,22 @@ smoke figure.
 Phase 11 runs the JPEG path, on a machine without Pillow: (a) every vector
 of tests/golden/torch-jpeg-vectors.npz (Pillow's decodes, written by
 `python -m tests.test_torch_jpeg regen`) decoded by assets/jpeg.py equal to
-Pillow's pixels, or to the SHA-256 of Pillow's decode for the two 512×512
-4:2:0 images (baseline and progressive), whose median host ms and Mpixel/s
-it prints; (b) a GLB assembled here (jpeg_glb: GLB_PATCHES proxy patches,
-three materials — opaque, alpha-to-coverage, blended — on the 512×512
-baseline JPEG embedded in its BIN chunk) loaded onto the card by load_gltf,
+Pillow's pixels (arithmetic-coded and lossless files among them), or to
+the SHA-256 of Pillow's decode for the two 512×512 4:2:0 images (baseline
+and progressive), whose median host ms and Mpixel/s it prints; (b) a GLB
+assembled here (jpeg_glb: GLB_PATCHES proxy patches, three materials —
+opaque, alpha-to-coverage, blended — on the 512×512 baseline JPEG
+embedded in its BIN chunk) loaded onto the card by load_gltf,
 rendered at 1920×1080, 4×MSAA under "sync" with zero overflow (its K1/K2
 launches go into the kernels line as "11 glb"), and again at GLB_SMALL on
 the card and on the CPU, which must agree to the golden tolerance; (c)
 tools.make_ntex's CLI on that JPEG and on a PNG of the port's decode of
 it: the two .ntex files must be byte-equal, and the card's BC7 decode of
-them equal to the CPU's; (d) a YCCK (Adobe transform 2) and a 4:1:1 JPEG of
-the vectors file (tests/torch_jpeg_writer.py's, as Pillow cannot write
-them) each embedded in that GLB and loaded by load_gltf onto the card,
-mip 0 equal to Pillow's stored decode.
+them equal to the CPU's; (d) a YCCK (Adobe transform 2), a 4:1:1, an
+arithmetic-coded progressive (DAC, restarts) and a lossless JPEG of the
+vectors file (tests/torch_jpeg_writer.py's, as Pillow cannot write them)
+each embedded in that GLB and loaded by load_gltf onto the card, mip 0
+equal to Pillow's stored decode.
 
 Phase 12 ("shading") holds the deferred-shading kernels (csrc/shade.cu)
 against their plain versions on the real frames: renderers for scenes A, B
@@ -142,12 +144,31 @@ once at 3.35 TB/s — for the fused S3 the HDR samples read once and written
 where their bits change), and the kernel's
 registers, spills, local and shared bytes and the blocks an SM that the
 host computed for its launches (kernel_resources). It times scene C's UI
-pass piece by piece (tools.frame_profile.ui_pass_ms: the fused S3 against
-S3 plus the composite loop it replaced), then replays frames A, B and C
+pass piece by piece (tools.frame_profile.ui_pass_ms: its raster and the
+fused S3), then replays frames A, B and C
 as CUDA graphs (engine.stats.fused_frame_ms; the multi-frame path has no UI
 pass) beside phase 6's eager frames, and profiles one eager frame of B and
 C with torch.profiler (tools.frame_profile.profile_frame): kernel count,
 top ops, and the device share of S1-S3, the fused S3 and K1/K2.
+
+Phase 13 ("bench") runs the port's bench (tools/bench.run, in this
+process) at 1920×1080: the default scene (here the triangle: the Sponza
+assets are not in the repository) over BENCH_FRAMES["default"] frames,
+the mini-sandbox with its "Performance stats" window over
+BENCH_FRAMES["mini-sandbox"], and the patch wall (scene B) replayed as a
+CUDA graph over BENCH_FRAMES["patch-wall"]. Each JSON line is printed
+beside the card's name and power limit; the phase fails on a drop,
+on overflow_checked false or on a missing key. The mini-sandbox's last
+timed frame must be bit-equal to Renderer.render_frame of its scene and
+DrawList, and each replayed frame to render_frame_device of its scene
+(phase 8's rule). Its launches go into the kernels line as "13 bench",
+and every kernel of the main path (S3 alone is off it) must have
+launched there. It prints the bench's eager mini-sandbox frame_ms beside
+phase 6's eager frame C. It runs after phase 11 and before phase 12:
+after phase 12's torch.profiler window the process's eager frames issue
+more slowly on the host (on an NVIDIA H100 80GB HBM3 at 700 W: frame C
+86.5 → 101.9 ms, the bench's mini-sandbox frame_ms 92.3 → 167.2 ms),
+which the bench would measure.
 
 Each phase prints one line; any failure raises (exit code ≠ 0). The line
 before the last is a JSON object with one entry per kernel (with its
@@ -159,6 +180,7 @@ from __future__ import annotations
 
 import contextlib
 import hashlib
+import io
 import json
 import os
 import statistics
@@ -266,7 +288,12 @@ SHADE_KERNELS = {
 }
 # phase 11's JPEG layouts that Pillow reads but does not write, decoded
 # through load_gltf (the vectors file's "written-*" entries)
-JPEG_LAYOUTS = ("written-ycck", "written-411")
+JPEG_LAYOUTS = ("written-ycck", "written-411", "arith-420-progressive-dac-restart",
+                "lossless-rgb-p4-pt2-restart23")
+# phase 13's bench runs: frames a pass (3 passes) of each scene
+BENCH_FRAMES = {"default": 30, "mini-sandbox": 30, "patch-wall": 8}
+# the main path's kernels (S3 alone, shade_ui_layer, is off it)
+MAIN_PATH_KERNELS = ("k1", "k2_masked", "k2_blended", "k2_ui", "s1", "s2", "s3c")
 
 
 def scene_a():
@@ -1392,9 +1419,10 @@ def glb_checks(dev, tmp: Path, data: bytes, card) -> tuple[dict, dict]:
 
 def jpeg_layout_checks(dev, tmp: Path, z, card) -> dict:
     """Phase 11 (d): each JPEG_LAYOUTS vector (YCCK under Adobe transform 2,
-    4:1:1; tests/torch_jpeg_writer.py's files, which Pillow reads but does
-    not write) embedded in jpeg_glb's GLB and loaded by load_gltf onto the
-    card: the texture's mip 0 equal to Pillow's decode stored beside it."""
+    4:1:1, arithmetic-coded, lossless; tests/torch_jpeg_writer.py's files,
+    which Pillow reads but does not write) embedded in jpeg_glb's GLB and
+    loaded by load_gltf onto the card: the texture's mip 0 equal to
+    Pillow's decode stored beside it."""
     out = {}
     for name in JPEG_LAYOUTS:
         path = tmp / f"{name}.glb"
@@ -1739,9 +1767,7 @@ def phase12(dev, card, main_launches, frame_ms) -> tuple[list, dict]:
     ui_pass = frame_profile.ui_pass_ms(rc, ui_c)
     ui_pass_launches = counters()
     print(f"shading: scene C's UI pass: raster {ui_pass['raster']:.3f} ms (host-paced), "
-          f"device ms (queued): fused S3 {ui_pass['fused']:.3f} against S3 "
-          f"{ui_pass['shade']:.3f} + the composite loop {ui_pass['composite_loop']:.3f} = "
-          f"{ui_pass['unfused']:.3f} | {card}", flush=True)
+          f"the fused S3 {ui_pass['fused']:.3f} ms (device, queued) | {card}", flush=True)
     replay = {name: engine_stats.fused_frame_ms(r, sc, iters=REPLAYS)
               for name, r, sc in (("A", ra, sc_a), ("B", rb, sc_b), ("C", rc, sc_c))}
     profiles = {"B": frame_profile.profile_frame(rb, sc_b),
@@ -1765,6 +1791,54 @@ def phase12(dev, card, main_launches, frame_ms) -> tuple[list, dict]:
     del ra, rb, rc
     torch.cuda.empty_cache()
     return rows, out
+
+
+def phase13(dev, card, frame_ms) -> tuple[dict, dict]:
+    """Phase 13 (module docstring): the port's bench on the card. Returns
+    the three JSON lines and the launches of the three runs."""
+    from renderer_tpu_torch.tools import bench
+
+    t0 = time.perf_counter()
+    keys = {"metric", "value", "unit", "vs_baseline", "dropped_pairs", "dropped_rows",
+            "overflow_checked", "measures", "scene", "frames", "passes_fps", "frame_ms",
+            "dropped_other", "shade_clamped_px", "device"}
+    reset_counters()
+    runs = {}
+    for scene, replay in (("default", False), ("mini-sandbox", False), ("patch-wall", True)):
+        out = io.StringIO()
+        runs[scene] = bench.run(BENCH_FRAMES[scene], scene=scene, replay=replay, device=dev,
+                                out=out)
+        line = json.loads(out.getvalue().splitlines()[-1])
+        print(f"bench: {json.dumps(line)} | {card}", flush=True)
+        if set(line) != keys or runs[scene].dropped:
+            raise RuntimeError(f"bench: {scene}: keys {sorted(set(line) ^ keys)} differ, or "
+                               f"work was dropped / not checked: {line}")
+    launches = counters()
+    missing = [k for k in MAIN_PATH_KERNELS if launches[k] < 1]
+    if missing:
+        raise RuntimeError(f"bench: {missing} not launched in phase 13: {launches}")
+    mini = runs["mini-sandbox"]
+    sc, ui = mini.frames[-1]
+    if not np.array_equal(mini.images.cpu().numpy(), mini.renderer.render_frame(sc, 0, ui=ui)):
+        raise RuntimeError("bench: the mini-sandbox's last frame differs from render_frame")
+    wall = runs["patch-wall"]
+    differing = [k for k, (sc, _) in enumerate(wall.frames)
+                 if not torch.equal(wall.images[k], wall.renderer.render_frame_device(sc, 0))]
+    if differing:
+        raise RuntimeError(f"bench: replayed frames {differing} differ from the eager frames")
+    out = {name: r.line for name, r in runs.items()}
+    out["launches"] = launches
+    out["seconds"] = time.perf_counter() - t0
+    fm = mini.line["frame_ms"]
+    print(f"bench: the mini-sandbox's last frame = render_frame, {len(wall.frames)} replayed "
+          f"patch-wall frames = eager | eager mini-sandbox frame_ms median {fm['median']:.2f} "
+          f"p90 {fm['p90']:.2f} (n {fm['n']}, intervals of CUDA events after each frame) vs "
+          f"phase 6's eager frame C {frame_ms['C']:.2f} ms (events around each frame, synced) "
+          f"| launches {launches} | {card}", flush=True)
+    print(f"phase 13 took {out['seconds']:.1f} s", flush=True)
+    del runs, mini, wall
+    torch.cuda.empty_cache()
+    return out, launches
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -1939,6 +2013,10 @@ def main() -> int:
     # -- 11. JPEG: decode, a GLB with an embedded JPEG, make_ntex ----------
     jpeg_out, glb_launches = phase11(dev, card)
 
+    # -- 13. the port's bench, before phase 12: its torch.profiler leaves
+    # the process's host dispatch slower, which the bench would measure ---
+    bench_out, bench_launches = phase13(dev, card, frame_ms)
+
     # -- 12. the shading kernels on scenes A-C, replayed frames, profiles --
     shade_rows, shading = phase12(dev, card, main_launches, frame_ms)
     results += shade_rows
@@ -1946,14 +2024,15 @@ def main() -> int:
     phases = {"3 main path": main_launches, "7 run_loop": assets["run_loop_launches"],
               "8 flythrough": frames["launches"], **tool_launches,
               "10 mesh": mesh_launches, "11 glb": glb_launches,
-              "12 frame_profile.ui_pass_ms": shading["ui_pass_launches"]}
+              "12 frame_profile.ui_pass_ms": shading["ui_pass_launches"],
+              "13 bench": bench_launches}
     for row in results:
         counter = row.pop("counter")
         row["launches_per_frame"] = per_frame[row.pop("scene")][counter]
         row["launches_by_phase"] = {name: n[counter] for name, n in phases.items()}
         for key in ("pairs", "n_s", "dense_ms"):
             row.pop(key, None)
-    print(f"chip_smoke: phases 1-12 took {time.perf_counter() - script_t0:.1f} s", flush=True)
+    print(f"chip_smoke: phases 1-13 took {time.perf_counter() - script_t0:.1f} s", flush=True)
     print(json.dumps({"frame_ms": frame_ms, "card": card}))
     print(json.dumps({"assets": assets, "card": card}))
     print(json.dumps({"frames": frames, "card": card}))
@@ -1961,6 +2040,7 @@ def main() -> int:
     print(json.dumps({"phase10": extra, "card": card}))
     print(json.dumps({"phase11": jpeg_out, "card": card}))
     print(json.dumps({"phase12": shading, "card": card}))
+    print(json.dumps({"phase13": bench_out, "card": card}))
     print(json.dumps({"kernels": results}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))

@@ -313,15 +313,16 @@ class SandboxFrames:
         perf_window_frame(self.ctx, self.io, self.registry, [], [],
                           self.POS, self.SIZE)
 
-    def next(self):
-        """(scene, DrawList) of the next frame."""
+    def next(self, game_time: float | None = None):
+        """(scene, DrawList) of the next frame, at `game_time` (by default
+        the previous frame's plus 1/60 s)."""
         spans = self.profiler.report()
         if self.frames == 0:
             spans, self.startup = sandbox_spans()
         elif self.frames == 1:
             self.startup = spans
         self.profiler.reset()
-        self.game_time += 1.0 / 60.0
+        self.game_time = self.game_time + 1.0 / 60.0 if game_time is None else game_time
         self.frames += 1
         scene = self.sandbox.queue(self.game_time)
         dl = perf_window_frame(self.ctx, self.io, self.registry, spans,

@@ -9,6 +9,20 @@ which Pillow does not change —
   and progressive (SOF2: DC and AC scans, first passes and refinements,
   EOB runs), restart intervals, any number of DHT and DQT segments (8- or
   16-bit tables, each latched by a component at its first scan);
+- arithmetic entropy decoding (jdarith.c), sequential (SOF9) and
+  progressive (SOF10): T.81 Annex D's QM decoder with its probability
+  estimation table, the DC and AC statistical models of F.1.4.4 and the
+  progressive passes of G.1.3, the conditioning of DAC segments (L=0,
+  U=1, Kx=5 for a table no DAC names), the statistics reset at each
+  restart marker; the coefficients then take the same path as Huffman's;
+- lossless (SOF3, jdlossls.c / jddiffct.c): Huffman-coded differences
+  (size 16 is 32768 with no extra bits), predictors 1-7 with the first
+  row and column rules, the first row's prediction 2^(P-Pt-1) at the scan's
+  start and after each restart, sums modulo 2^16, the point transform Pt;
+  libjpeg-turbo reads it at 8 bits only (Pillow as well), upsamples by
+  replication (no fancy upsampling without a DCT) and converts no colour:
+  three components are RGB unless a JFIF marker or an Adobe transform but 0
+  says YCbCr, four are CMYK;
 - dequantisation and the `islow` inverse DCT (jidctint.c: CONST_BITS 13,
   PASS1_BITS 2, the range-limit table of jdmaster.c);
 - the upsampler jdsample.c picks for each component's ratio to the
@@ -31,16 +45,18 @@ APPn and COM segments are skipped; EXIF orientation is ignored, as
 `Image.open` ignores it.
 
 Sampling: any factors 1-4 whose ratios to the largest are whole numbers.
-What libjpeg-turbo refuses raises ValueError naming it: a ratio that is
-not a whole number (JERR_FRACT_SAMPLE_NOTIMPL) and an interleaved scan of
-more than 10 blocks an MCU (JERR_BAD_MCU_SIZE). So do arithmetic coding
-(which libjpeg-turbo reads), 12-bit samples, lossless and hierarchical
-frames, and truncated or corrupt data (with the byte offset where it was
-found); no partial image is ever returned.
+What Pillow 12.1.0 (libjpeg-turbo 3.1.3) refuses raises ValueError naming
+it, and nothing else is refused: a ratio that is not a whole number
+(JERR_FRACT_SAMPLE_NOTIMPL), an interleaved scan of more than 10 blocks an
+MCU (JERR_BAD_MCU_SIZE), samples of other than 8 bits (Pillow's plugin
+reads 8 only), lossless YCbCr or YCCK (JERR_CONVERSION_NOTIMPL),
+arithmetic-coded lossless (SOF11), hierarchical frames (SOF5-7, SOF13-15,
+DHP, EXP), JPEG-LS, a DNL marker, and truncated or corrupt data (with the
+byte offset where it was found); no partial image is ever returned.
 
-Entropy decoding is sequential Python over a table of every 16-bit
-lookahead; the inverse DCT, upsampling and colour conversion run on numpy
-over all blocks at once.
+Entropy decoding is sequential Python (Huffman over a table of every
+16-bit lookahead); the inverse DCT, upsampling and colour conversion run
+on numpy over all blocks at once.
 """
 
 from __future__ import annotations
@@ -56,13 +72,15 @@ _ZIGZAG = np.array([
     35, 42, 49, 56, 57, 50, 43, 36, 29, 22, 15, 23, 30, 37, 44, 51,
     58, 59, 52, 45, 38, 31, 39, 46, 53, 60, 61, 54, 47, 55, 62, 63], np.int64)
 
+# frame markers read: (progressive, arithmetic, lossless)
+_SOF = {0xC0: (False, False, False), 0xC1: (False, False, False),
+        0xC2: (True, False, False), 0xC3: (False, False, True),
+        0xC9: (False, True, False), 0xCA: (True, True, False)}
+# what Pillow refuses as well (libjpeg-turbo has no decoder for them)
 _REFUSED_SOF = {
-    0xC3: "lossless (SOF3)",
     0xC5: "hierarchical differential sequential (SOF5)",
     0xC6: "hierarchical differential progressive (SOF6)",
     0xC7: "hierarchical differential lossless (SOF7)",
-    0xC9: "arithmetic-coded sequential (SOF9)",
-    0xCA: "arithmetic-coded progressive (SOF10)",
     0xCB: "arithmetic-coded lossless (SOF11)",
     0xCD: "hierarchical arithmetic-coded sequential (SOF13)",
     0xCE: "hierarchical arithmetic-coded progressive (SOF14)",
@@ -70,7 +88,6 @@ _REFUSED_SOF = {
     0xF7: "JPEG-LS (SOF55)",
 }
 _REFUSED_OTHER = {
-    0xCC: "arithmetic coding (DAC)",
     0xDC: "a DNL marker (image height given after the first scan)",
     0xDE: "hierarchical mode (DHP)",
     0xDF: "hierarchical mode (EXP)",
@@ -122,6 +139,101 @@ def _corrupt(offset: int, what: str):
     raise ValueError(f"JPEG: corrupt or truncated data at byte {offset}: {what}")
 
 
+# T.81 Table D.2 as libjpeg's jaricom.c packs it: Qe << 16 | Next_Index_MPS
+# << 8 | Switch_MPS << 7 | Next_Index_LPS; entry 113 is the fixed estimate
+# of 0.5 (T.851 Table 5) that signs and DC refinement bits are coded with
+_QE = (
+    (0x5A1D, 1, 1, 1), (0x2586, 14, 2, 0), (0x1114, 16, 3, 0), (0x080B, 18, 4, 0),
+    (0x03D8, 20, 5, 0), (0x01DA, 23, 6, 0), (0x00E5, 25, 7, 0), (0x006F, 28, 8, 0),
+    (0x0036, 30, 9, 0), (0x001A, 33, 10, 0), (0x000D, 35, 11, 0), (0x0006, 9, 12, 0),
+    (0x0003, 10, 13, 0), (0x0001, 12, 13, 0), (0x5A7F, 15, 15, 1), (0x3F25, 36, 16, 0),
+    (0x2CF2, 38, 17, 0), (0x207C, 39, 18, 0), (0x17B9, 40, 19, 0), (0x1182, 42, 20, 0),
+    (0x0CEF, 43, 21, 0), (0x09A1, 45, 22, 0), (0x072F, 46, 23, 0), (0x055C, 48, 24, 0),
+    (0x0406, 49, 25, 0), (0x0303, 51, 26, 0), (0x0240, 52, 27, 0), (0x01B1, 54, 28, 0),
+    (0x0144, 56, 29, 0), (0x00F5, 57, 30, 0), (0x00B7, 59, 31, 0), (0x008A, 60, 32, 0),
+    (0x0068, 62, 33, 0), (0x004E, 63, 34, 0), (0x003B, 32, 35, 0), (0x002C, 33, 9, 0),
+    (0x5AE1, 37, 37, 1), (0x484C, 64, 38, 0), (0x3A0D, 65, 39, 0), (0x2EF1, 67, 40, 0),
+    (0x261F, 68, 41, 0), (0x1F33, 69, 42, 0), (0x19A8, 70, 43, 0), (0x1518, 72, 44, 0),
+    (0x1177, 73, 45, 0), (0x0E74, 74, 46, 0), (0x0BFB, 75, 47, 0), (0x09F8, 77, 48, 0),
+    (0x0861, 78, 49, 0), (0x0706, 79, 50, 0), (0x05CD, 48, 51, 0), (0x04DE, 50, 52, 0),
+    (0x040F, 50, 53, 0), (0x0363, 51, 54, 0), (0x02D4, 52, 55, 0), (0x025C, 53, 56, 0),
+    (0x01F8, 54, 57, 0), (0x01A4, 55, 58, 0), (0x0160, 56, 59, 0), (0x0125, 57, 60, 0),
+    (0x00F6, 58, 61, 0), (0x00CB, 59, 62, 0), (0x00AB, 61, 63, 0), (0x008F, 61, 32, 0),
+    (0x5B12, 65, 65, 1), (0x4D04, 80, 66, 0), (0x412C, 81, 67, 0), (0x37D8, 82, 68, 0),
+    (0x2FE8, 83, 69, 0), (0x293C, 84, 70, 0), (0x2379, 86, 71, 0), (0x1EDF, 87, 72, 0),
+    (0x1AA9, 87, 73, 0), (0x174E, 72, 74, 0), (0x1424, 72, 75, 0), (0x119C, 74, 76, 0),
+    (0x0F6B, 74, 77, 0), (0x0D51, 75, 78, 0), (0x0BB6, 77, 79, 0), (0x0A40, 77, 48, 0),
+    (0x5832, 80, 81, 1), (0x4D1C, 88, 82, 0), (0x438E, 89, 83, 0), (0x3BDD, 90, 84, 0),
+    (0x34EE, 91, 85, 0), (0x2EAE, 92, 86, 0), (0x299A, 93, 87, 0), (0x2516, 86, 71, 0),
+    (0x5570, 88, 89, 1), (0x4CA9, 95, 90, 0), (0x44D9, 96, 91, 0), (0x3E22, 97, 92, 0),
+    (0x3824, 99, 93, 0), (0x32B4, 99, 94, 0), (0x2E17, 93, 86, 0), (0x56A8, 95, 96, 1),
+    (0x4F46, 101, 97, 0), (0x47E5, 102, 98, 0), (0x41CF, 103, 99, 0), (0x3C3D, 104, 100, 0),
+    (0x375E, 99, 93, 0), (0x5231, 105, 102, 0), (0x4C0F, 106, 103, 0), (0x4639, 107, 104, 0),
+    (0x415E, 103, 99, 0), (0x5627, 105, 106, 1), (0x50E7, 108, 107, 0), (0x4B85, 109, 103, 0),
+    (0x5597, 110, 109, 0), (0x504F, 111, 107, 0), (0x5A10, 110, 111, 1), (0x5522, 112, 109, 0),
+    (0x59EB, 112, 111, 1), (0x5A1D, 113, 113, 0))
+_ARITAB = tuple((qe << 16) | (nm << 8) | (sw << 7) | nl for qe, nl, nm, sw in _QE)
+_FIXED_BIN = 113
+# conditioning of an arithmetic table no DAC segment names (T.81 F.1.4.4)
+_DC_L, _DC_U, _AC_K = 0, 1, 5
+
+
+class _QMDecoder:
+    """jdarith.c's arith_decode over one restart interval's unstuffed
+    bytes, reading zeros past their end (what T.81 supplies once the
+    decoder reaches a marker). `decode(stats, i)` decodes one binary
+    decision with the adaptive estimate in stats[i] and updates it."""
+
+    __slots__ = ("data", "pos", "c", "a", "ct")
+
+    def __init__(self, body: bytes):
+        self.data, self.pos = body, 0
+        self.c, self.a, self.ct = 0, 0, -16  # ct < 0: two bytes to read first
+
+    def decode(self, stats, i: int) -> int:
+        a, c, ct = self.a, self.c, self.ct
+        while a < 0x8000:  # renormalisation and input, D.2.6
+            ct -= 1
+            if ct < 0:
+                if self.pos < len(self.data):
+                    c = (c << 8) | self.data[self.pos]
+                    self.pos += 1
+                else:
+                    c <<= 8
+                ct += 8
+                if ct < 0:
+                    ct += 1
+                    if ct == 0:
+                        a = 0x8000  # the two first bytes are in
+            a <<= 1
+        sv = stats[i]
+        qe = _ARITAB[sv & 0x7F]
+        nl, nm, qe = qe & 0xFF, (qe >> 8) & 0xFF, qe >> 16
+        a -= qe
+        temp = a << ct
+        if c >= temp:  # the lower sub-interval, D.2.4
+            c -= temp
+            if a < qe:
+                stats[i] = (sv & 0x80) ^ nm
+            else:
+                stats[i] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+            a = qe
+        elif a < 0x8000:
+            if a < qe:
+                stats[i] = (sv & 0x80) ^ nl
+                sv ^= 0x80
+            else:
+                stats[i] = (sv & 0x80) ^ nm
+        self.a, self.c, self.ct = a, c, ct
+        return sv >> 7
+
+
+def _s16(v: int) -> int:
+    """v as the signed 16-bit JCOEF libjpeg stores it in."""
+    return ((v + 0x8000) & 0xFFFF) - 0x8000
+
+
 class _Huffman:
     """A DHT table as one lookup over every 16-bit lookahead: entry
     (length << 8) | symbol, 0 where no code starts (a corrupt stream)."""
@@ -144,7 +256,16 @@ class _Huffman:
 
 
 class _Component:
-    __slots__ = ("cid", "h", "v", "tq", "qtable", "bw", "bh", "coef", "width", "height")
+    __slots__ = ("cid", "h", "v", "tq", "qtable", "bw", "bh", "coef", "width", "height",
+                 "plane")
+
+
+class _Frame:
+    __slots__ = ("progressive", "arithmetic", "lossless", "width", "height")
+
+    def __init__(self, code: int, width: int, height: int):
+        self.progressive, self.arithmetic, self.lossless = _SOF[code]
+        self.width, self.height = width, height
 
 
 def _markers(data: bytes, pos: int):
@@ -268,45 +389,186 @@ def _scan_blocks(comps, scomps, mcux, mcuy):
 
 
 def _decode_scan(intervals, mcus, restart, coefs, dc_tabs, ac_tabs, ss, se, ah, al,
-                 progressive):
+                 frame):
     """Entropy-decode one scan into `coefs` (per scan component, a flat list
-    of coefficients in zigzag order, 64 a block)."""
+    of coefficients in zigzag order, 64 a block). `dc_tabs` / `ac_tabs`
+    are per scan component its Huffman lookups, or for an arithmetic
+    frame (table id, conditioning)."""
     n_mcu = len(mcus)
     per = restart if restart else n_mcu
     if len(intervals) != -(-n_mcu // per):
         _corrupt(intervals[-1][0], f"{len(intervals)} restart intervals where "
                  f"{-(-n_mcu // per)} are due")
-    max_blocks = max(len(m) for m in mcus)
+    interval = _arith_interval if frame.arithmetic else _huffman_interval
     for ii, (offset, body) in enumerate(intervals):
-        br = _BitReader(offset, body, max_blocks * 64 * 4 + 8)
-        win, pos = br.win, 0
-        preds = [0] * len(coefs)
-        eobrun = 0
-        for mcu in mcus[ii * per:(ii + 1) * per]:
-            for si, base in mcu:
-                coef = coefs[si]
-                if not progressive:
-                    pos = _block_sequential(win, pos, coef, base, dc_tabs[si],
-                                            ac_tabs[si], preds, si, br)
-                elif ss == 0:
-                    if ah == 0:
-                        d, pos = _dc_diff(win, pos, dc_tabs[si], br)
-                        preds[si] += d
-                        coef[base] = preds[si] << al
-                    else:
-                        if (win[pos >> 3] >> (31 - (pos & 7))) & 1:
-                            coef[base] |= 1 << al
-                        pos += 1
-                elif ah == 0:
-                    if eobrun:
-                        eobrun -= 1
-                    else:
-                        pos, eobrun = _block_ac_first(win, pos, coef, base, ac_tabs[si],
-                                                      ss, se, al, br)
+        interval(offset, body, mcus[ii * per:(ii + 1) * per], coefs, dc_tabs, ac_tabs,
+                 ss, se, ah, al, frame.progressive)
+
+
+def _huffman_interval(offset, body, mcus, coefs, dc_tabs, ac_tabs, ss, se, ah, al,
+                      progressive):
+    """One restart interval of a Huffman-coded scan (jdhuff.c, jdphuff.c)."""
+    max_blocks = max(len(m) for m in mcus)
+    br = _BitReader(offset, body, max_blocks * 64 * 4 + 8)
+    win, pos = br.win, 0
+    preds = [0] * len(coefs)
+    eobrun = 0
+    for mcu in mcus:
+        for si, base in mcu:
+            coef = coefs[si]
+            if not progressive:
+                pos = _block_sequential(win, pos, coef, base, dc_tabs[si],
+                                        ac_tabs[si], preds, si, br)
+            elif ss == 0:
+                if ah == 0:
+                    d, pos = _dc_diff(win, pos, dc_tabs[si], br)
+                    preds[si] += d
+                    coef[base] = preds[si] << al
                 else:
-                    pos, eobrun = _block_ac_refine(win, pos, coef, base, ac_tabs[si],
-                                                   ss, se, al, eobrun, br)
-            _check_end(br, pos)
+                    if (win[pos >> 3] >> (31 - (pos & 7))) & 1:
+                        coef[base] |= 1 << al
+                    pos += 1
+            elif ah == 0:
+                if eobrun:
+                    eobrun -= 1
+                else:
+                    pos, eobrun = _block_ac_first(win, pos, coef, base, ac_tabs[si],
+                                                  ss, se, al, br)
+            else:
+                pos, eobrun = _block_ac_refine(win, pos, coef, base, ac_tabs[si],
+                                               ss, se, al, eobrun, br)
+        _check_end(br, pos)
+
+
+def _arith_interval(offset, body, mcus, coefs, dc_tabs, ac_tabs, ss, se, ah, al,
+                    progressive):
+    """One restart interval of an arithmetic-coded scan (jdarith.c): the
+    statistics of each table the scan uses start from zero, and so do the
+    DC predictions and contexts. dc_tabs / ac_tabs[si] = (table id, its
+    conditioning: (L, U) for DC, Kx for AC)."""
+    dec = _QMDecoder(body)
+    dc_stats = {t: bytearray(64) for t, _ in filter(None, dc_tabs)}
+    ac_stats = {t: bytearray(256) for t, _ in filter(None, ac_tabs)}
+    fixed = bytearray([_FIXED_BIN])
+    last = [0] * len(coefs)
+    context = [0] * len(coefs)
+    p1 = 1 << al
+    for mcu in mcus:
+        for si, base in mcu:
+            coef = coefs[si]
+            if not progressive or (ss == 0 and ah == 0):
+                tbl, (lo, hi) = dc_tabs[si]
+                last[si], context[si] = _arith_dc(dec, dc_stats[tbl], context[si], lo, hi,
+                                                  last[si], offset)
+                coef[base] = _s16(last[si] << al)
+                if progressive:
+                    continue
+                tbl, kx = ac_tabs[si]
+                _arith_ac_first(dec, ac_stats[tbl], fixed, kx, coef, base, 1, 63, 0, offset)
+            elif ss == 0:
+                if dec.decode(fixed, 0):
+                    coef[base] |= p1
+            elif ah == 0:
+                tbl, kx = ac_tabs[si]
+                _arith_ac_first(dec, ac_stats[tbl], fixed, kx, coef, base, ss, se, al, offset)
+            else:
+                _arith_ac_refine(dec, ac_stats[ac_tabs[si][0]], fixed, coef, base, ss, se, al,
+                                 offset)
+
+
+def _arith_magnitude(dec, stats, st, m, offset):
+    """Figures F.23's rest and F.24 once the category's first decisions set
+    m = 1 (X1 from bin st on): the category's doubling decisions from st,
+    then its bits from st + 14. Returns the magnitude - 1."""
+    while dec.decode(stats, st):
+        m <<= 1
+        if m == 0x8000:
+            _corrupt(offset, "an arithmetic-coded magnitude past 15 bits")
+        st += 1
+    v = m
+    st += 14
+    while m > 1:
+        m >>= 1
+        if dec.decode(stats, st):
+            v |= m
+    return v
+
+
+def _arith_dc(dec, stats, context, lo, hi, last, offset):
+    """F.2.4.1: one DC difference from statistics bin S0 = context;
+    returns (the new prediction modulo 2^16, the next context)."""
+    if not dec.decode(stats, context):
+        return last, 0
+    sign = dec.decode(stats, context + 1)
+    st = context + 2 + sign
+    if dec.decode(stats, st):
+        v = _arith_magnitude(dec, stats, 20, 1, offset)
+        m = 1 << (v.bit_length() - 1)
+    else:
+        v = m = 0
+    if m < (1 << lo) >> 1:
+        context = 0
+    elif m > (1 << hi) >> 1:
+        context = 12 + 4 * sign
+    else:
+        context = 4 + 4 * sign
+    v += 1
+    return (last + (-v if sign else v)) & 0xFFFF, context
+
+
+def _arith_ac_first(dec, stats, fixed, kx, coef, base, ss, se, al, offset):
+    """F.2.4.2 / G.1.3.2: the band ss..se of a block (a sequential block:
+    1..63 with al = 0)."""
+    k = ss
+    while k <= se:
+        st = 3 * (k - 1)
+        if dec.decode(stats, st):  # end of block
+            return
+        while not dec.decode(stats, st + 1):
+            st += 3
+            k += 1
+            if k > se:
+                _corrupt(offset, "an arithmetic-coded run past the band's end")
+        sign = dec.decode(fixed, 0)
+        st += 2
+        v = 0
+        if dec.decode(stats, st):
+            if dec.decode(stats, st):
+                v = _arith_magnitude(dec, stats, 189 if k <= kx else 217, 2, offset)
+            else:
+                v = 1
+        v += 1
+        coef[base + k] = _s16((-v if sign else v) << al)
+        k += 1
+
+
+def _arith_ac_refine(dec, stats, fixed, coef, base, ss, se, al, offset):
+    """G.1.3.3 (jdarith.c decode_mcu_AC_refine): a correction bit for each
+    coefficient already nonzero, a sign for each that becomes nonzero."""
+    p1, m1 = 1 << al, -1 << al
+    kex = se
+    while kex > 0 and not coef[base + kex]:
+        kex -= 1
+    k = ss
+    while k <= se:
+        st = 3 * (k - 1)
+        if k > kex and dec.decode(stats, st):
+            return
+        while True:
+            i = base + k
+            c = coef[i]
+            if c:
+                if dec.decode(stats, st + 2):
+                    coef[i] = c + (m1 if c < 0 else p1)
+                break
+            if dec.decode(stats, st + 1):
+                coef[i] = m1 if dec.decode(fixed, 0) else p1
+                break
+            st += 3
+            k += 1
+            if k > se:
+                _corrupt(offset, "an arithmetic-coded run past the band's end")
+        k += 1
 
 
 def _block_sequential(win, pos, coef, base, dc, ac, preds, si, br):
@@ -566,6 +828,9 @@ def decode_jpeg(data: bytes) -> np.ndarray:
     comps: list[_Component] = []
     frame = None
     restart = 0
+    # arithmetic conditioning by table id: DC (L, U), AC Kx (DAC segments)
+    dc_cond: dict[int, tuple[int, int]] = {}
+    ac_cond: dict[int, int] = {}
     jfif = False
     adobe = None
     scans = 0
@@ -581,7 +846,7 @@ def decode_jpeg(data: bytes) -> np.ndarray:
         if code == 0x01 or 0xD0 <= code <= 0xD8:
             _corrupt(mpos, f"a stray 0xFF{code:02X} marker")
         body, pos = _payload(data, mpos)
-        if code in (0xC0, 0xC1, 0xC2):
+        if code in _SOF:
             if frame is not None:
                 _corrupt(mpos, "a second frame header")
             if len(body) < 6:
@@ -601,7 +866,7 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                 if not (1 <= c.h <= 4 and 1 <= c.v <= 4) or c.tq > 3:
                     _corrupt(mpos, f"component {i} sampling {c.h}x{c.v} table {c.tq}")
                 comps.append(c)
-            frame = (code == 0xC2, width, height)
+            frame = _Frame(code, width, height)
         elif code == 0xC4:  # DHT
             i = 0
             while i < len(body):
@@ -627,6 +892,17 @@ def decode_jpeg(data: bytes) -> np.ndarray:
                 q[_ZIGZAG] = vals
                 qtables[tq] = q
                 i += 1 + size
+        elif code == 0xCC:  # DAC
+            if len(body) % 2:
+                _corrupt(mpos, "a DAC segment of odd length")
+            for i in range(0, len(body), 2):
+                index, val = body[i], body[i + 1]
+                if index >= 32 or (index < 16 and val & 15 > val >> 4):
+                    _corrupt(mpos, f"a DAC entry {index}: {val}")
+                if index < 16:
+                    dc_cond[index] = (val & 15, val >> 4)
+                else:
+                    ac_cond[index - 16] = val
         elif code == 0xDD:  # DRI
             if len(body) < 2:
                 _corrupt(mpos, "a short restart interval")
@@ -641,7 +917,7 @@ def decode_jpeg(data: bytes) -> np.ndarray:
             if scans == 0:
                 _setup(comps, frame, jfif, adobe)
             pos = _scan(data, mpos, body, pos, frame, comps, qtables, dc_tables,
-                        ac_tables, restart)
+                        ac_tables, restart, dc_cond, ac_cond)
             scans += 1
         elif 0xE0 <= code <= 0xEF or code == 0xFE:
             pass  # APPn, COM
@@ -654,26 +930,36 @@ def decode_jpeg(data: bytes) -> np.ndarray:
 
 def _setup(comps, frame, jfif, adobe) -> None:
     """Checks the colour space and sampling before the first scan, and
-    sizes each component's block grid (padded to whole MCUs)."""
-    _, width, height = frame
+    sizes each component's block grid (padded to whole MCUs; a lossless
+    frame's blocks are samples)."""
+    width, height = frame.width, frame.height
     hmax, vmax = max(c.h for c in comps), max(c.v for c in comps)
     factors = ", ".join(f"{k.h}x{k.v}" for k in comps)
     if any(hmax % c.h or vmax % c.v for c in comps):
         # jdsample.c jinit_upsampler: JERR_FRACT_SAMPLE_NOTIMPL
         _refuse(f"sampling factors {factors} (a ratio that is not a whole number)")
-    mcux, mcuy = -(-width // (8 * hmax)), -(-height // (8 * vmax))
+    if frame.lossless and (len(comps) == 4 and adobe not in (None, 0) or
+                           len(comps) == 3 and not _is_rgb(comps, jfif, adobe, True)):
+        # jdcolor.c: no colour conversion in lossless mode
+        # (JERR_CONVERSION_NOTIMPL)
+        _refuse(f"lossless {'YCCK' if len(comps) == 4 else 'YCbCr'} (libjpeg-turbo "
+                "converts no colour in lossless mode)")
+    unit = 1 if frame.lossless else 8
+    mcux, mcuy = -(-width // (unit * hmax)), -(-height // (unit * vmax))
     for c in comps:
         c.width = -(-width * c.h // hmax)
         c.height = -(-height * c.v // vmax)
         c.bw, c.bh = mcux * c.h, mcuy * c.v
-        c.coef = [0] * (c.bw * c.bh * 64)
+        c.coef = None if frame.lossless else [0] * (c.bw * c.bh * 64)
+        c.plane = None
 
 
 def _scan(data, mpos, body, pos, frame, comps, qtables, dc_tables, ac_tables,
-          restart) -> int:
+          restart, dc_cond, ac_cond) -> int:
     """Reads one scan (its header `body`, its entropy data from pos) into
-    the components' coefficients; returns the offset of the next marker."""
-    progressive, width, height = frame
+    the components' coefficients (a lossless scan: their samples); returns
+    the offset of the next marker."""
+    width, height = frame.width, frame.height
     if not body or len(body) < 1 + 2 * body[0] + 3:
         _corrupt(mpos, "a short scan header")
     ns = body[0]
@@ -688,7 +974,9 @@ def _scan(data, mpos, body, pos, frame, comps, qtables, dc_tables, ac_tables,
         acs.append(t & 15)
     ss, se, a = body[1 + 2 * ns:4 + 2 * ns]
     ah, al = a >> 4, a & 15
-    if progressive:
+    if frame.lossless:  # Ss is the predictor, Al the point transform
+        bad = not 1 <= ss <= 7 or se or ah or al > 7
+    elif frame.progressive:
         bad = (ss > se or se > 63 or al > 13 or (ss == 0 and se != 0)
                or (ss > 0 and ns != 1))
     else:
@@ -699,6 +987,13 @@ def _scan(data, mpos, body, pos, frame, comps, qtables, dc_tables, ac_tables,
         # jdinput.c per_scan_setup: JERR_BAD_MCU_SIZE (D_MAX_BLOCKS_IN_MCU)
         factors = ", ".join(f"{comps[ci].h}x{comps[ci].v}" for ci in scomps)
         _refuse(f"sampling factors {factors} in one scan (an MCU of more than 10 blocks)")
+    if frame.lossless:
+        if any(d not in dc_tables for d in dcs):
+            _corrupt(mpos, f"a scan with undefined Huffman tables {dcs}")
+        intervals, end = _entropy_data(data, pos)
+        _lossless_scan(intervals, mpos, comps, scomps, [dc_tables[d].lookup for d in dcs],
+                       ss, al, restart, frame)
+        return end
     for ci in scomps:  # jdinput.c latch_quant_tables: at a component's first scan
         c = comps[ci]
         if c.qtable is None:
@@ -706,9 +1001,13 @@ def _scan(data, mpos, body, pos, frame, comps, qtables, dc_tables, ac_tables,
                 _corrupt(mpos, f"quantisation table {c.tq} is not defined")
             c.qtable = qtables[c.tq].copy()
     need_dc = ss == 0 and ah == 0
-    need_ac = ss > 0 or not progressive
+    need_ac = ss > 0 or not frame.progressive
     dc_tabs, ac_tabs = [], []
     for d, t in zip(dcs, acs):
+        if frame.arithmetic:  # any table id 0-15, conditioned by DAC or default
+            dc_tabs.append((d, dc_cond.get(d, (_DC_L, _DC_U))) if need_dc else None)
+            ac_tabs.append((t, ac_cond.get(t, _AC_K)) if need_ac else None)
+            continue
         if (need_dc and d not in dc_tables) or (need_ac and t not in ac_tables):
             _corrupt(mpos, f"a scan with undefined Huffman tables {d}/{t}")
         dc_tabs.append(dc_tables[d].lookup if need_dc else None)
@@ -717,15 +1016,122 @@ def _scan(data, mpos, body, pos, frame, comps, qtables, dc_tables, ac_tables,
     mcus = _scan_blocks(comps, scomps, -(-width // (8 * hmax)), -(-height // (8 * vmax)))
     intervals, end = _entropy_data(data, pos)
     _decode_scan(intervals, mcus, restart, [comps[ci].coef for ci in scomps], dc_tabs,
-                 ac_tabs, ss, se, ah, al, progressive)
+                 ac_tabs, ss, se, ah, al, frame)
     return end
 
 
+def _lossless_scan(intervals, mpos, comps, scomps, lookups, psv, pt, restart, frame):
+    """One lossless scan (jdlhuff.c, jddiffct.c, jdlossls.c): the sample
+    differences of each MCU row, then per iMCU row each component's rows
+    undifferenced (predictor `psv`) into its plane, (sample << pt) as the
+    8-bit JSAMPLE it is stored in."""
+    one = len(scomps) == 1
+    units = [(1, 1) if one else (comps[ci].h, comps[ci].v) for ci in scomps]
+    if one:
+        cols, rows = comps[scomps[0]].width, comps[scomps[0]].height
+    else:
+        hmax, vmax = max(c.h for c in comps), max(c.v for c in comps)
+        cols, rows = -(-frame.width // hmax), -(-frame.height // vmax)
+    if restart % cols:  # jddiffct.c start_input_pass: JERR_BAD_RESTART
+        _corrupt(mpos, f"a lossless restart interval of {restart} MCUs, not a whole "
+                 f"number of MCU rows of {cols}")
+    per = restart // cols if restart else rows
+    if len(intervals) != -(-rows // per):
+        _corrupt(intervals[-1][0], f"{len(intervals)} restart intervals where "
+                 f"{-(-rows // per)} are due")
+    diffs = [np.zeros((rows * v, cols * h), np.int64) for h, v in units]
+    row_bytes = cols * sum(h * v for h, v in units) * 4 + 8
+    for ii, (offset, body) in enumerate(intervals):
+        br = _BitReader(offset, body, row_bytes)
+        win, pos = br.win, 0
+        for my in range(ii * per, min((ii + 1) * per, rows)):
+            for mx in range(cols):
+                for (h, v), d, lookup in zip(units, diffs, lookups):
+                    for y in range(my * v, my * v + v):
+                        for x in range(mx * h, mx * h + h):
+                            e = lookup[(win[pos >> 3] >> (16 - (pos & 7))) & 0xFFFF]
+                            if not e:
+                                _corrupt(offset + (pos >> 3),
+                                         "a bit pattern that is no Huffman code")
+                            pos += e >> 8
+                            s = e & 0xFF
+                            if s == 16:
+                                r = 32768
+                            elif s:
+                                r = (win[pos >> 3] >> (32 - (pos & 7) - s)) & ((1 << s) - 1)
+                                if r < 1 << (s - 1):
+                                    r += (-1 << s) + 1
+                                pos += s
+                            else:
+                                r = 0
+                            d[y, x] = r
+            _check_end(br, pos)
+    for si, ci in enumerate(scomps):
+        c = comps[ci]
+        c.plane = (_undifference(diffs[si], c, 1 if one else c.v, per, psv,
+                                 1 << (8 - pt - 1)) << pt).astype(np.uint8)
+
+
+def _undifference(diff, c, mcu_rows_high, per, psv, initial) -> np.ndarray:
+    """jdlossls.c's undifferencers over the component's real samples, an
+    iMCU row (c.v rows) at a time as jddiffct.c runs them: the first row of
+    the scan, and the first of an iMCU row in which a restart interval
+    began, takes the first-row rule (`initial`, then the left sample);
+    every other row's first sample the one above, the rest the predictor.
+    Sums are modulo 2^16."""
+    out = np.zeros((c.height, c.width), np.int64)
+    diff = diff.tolist()
+    rows = out.tolist()
+    first = False
+    for top in range(0, c.height, c.v):
+        # the MCU rows decoded for this iMCU row (one, or c.v of one sample row)
+        mrows = range(top // mcu_rows_high, -(-min(top + c.v, c.height) // mcu_rows_high))
+        if any(m % per == 0 for m in mrows):
+            first = True
+        for y in range(top, min(top + c.v, c.height)):
+            d, row = diff[y], rows[y]
+            if first:
+                ra = (d[0] + initial) & 0xFFFF
+                row[0] = ra
+                for x in range(1, c.width):
+                    ra = row[x] = (d[x] + ra) & 0xFFFF
+                first = False
+                continue
+            up = rows[y - 1]
+            ra = row[0] = (d[0] + up[0]) & 0xFFFF
+            for x in range(1, c.width):
+                rb, rc = up[x], up[x - 1]
+                if psv == 1:
+                    p = ra
+                elif psv == 2:
+                    p = rb
+                elif psv == 3:
+                    p = rc
+                elif psv == 4:
+                    p = ra + rb - rc
+                elif psv == 5:
+                    p = ra + ((rb - rc) >> 1)
+                elif psv == 6:
+                    p = rb + ((ra - rc) >> 1)
+                else:
+                    p = (ra + rb) >> 1
+                ra = row[x] = (d[x] + p) & 0xFFFF
+    return np.array(rows, np.int64).reshape(c.height, c.width)
+
+
 def _output(comps, frame, jfif, adobe) -> np.ndarray:
-    _, width, height = frame
+    width, height = frame.width, frame.height
     hmax, vmax = max(c.h for c in comps), max(c.v for c in comps)
     planes = []
     for c in comps:
+        if frame.lossless:
+            if c.plane is None:
+                _corrupt(0, f"component {c.cid} has no scan")
+            # jdsample.c: no fancy upsampling without a DCT, only replication
+            ex, ey = hmax // c.h, vmax // c.v
+            planes.append(np.repeat(np.repeat(c.plane, ex, axis=1), ey, axis=0)
+                          [:height, :width])
+            continue
         if c.qtable is None:
             _corrupt(0, f"component {c.cid} has no scan")
         coef = np.asarray(c.coef, np.int64).reshape(-1, 64)
@@ -743,17 +1149,18 @@ def _output(comps, frame, jfif, adobe) -> np.ndarray:
         # any transform but 0, CMYK otherwise
         cmyk = (np.stack(planes, axis=-1) if adobe in (None, 0) else _ycck_to_cmyk(*planes))
         out[..., :3] = _cmyk_to_rgb(cmyk)
-    elif _is_rgb(comps, jfif, adobe):
+    elif _is_rgb(comps, jfif, adobe, frame.lossless):
         out[..., :3] = np.stack(planes, axis=-1)
     else:
         out[..., :3] = _ycc_to_rgb(*planes)
     return out
 
 
-def _is_rgb(comps, jfif: bool, adobe) -> bool:
-    """jdapimin.c default_decompress_parms for three components."""
+def _is_rgb(comps, jfif: bool, adobe, lossless: bool = False) -> bool:
+    """jdapimin.c default_decompress_parms for three components: with no
+    marker, a lossless frame is taken for RGB whatever its ids."""
     if jfif:
         return False
     if adobe is not None:
         return adobe == 0
-    return [c.cid for c in comps] == [82, 71, 66]  # 'R', 'G', 'B'
+    return lossless or [c.cid for c in comps] == [82, 71, 66]  # 'R', 'G', 'B'

@@ -12,9 +12,8 @@ idle share (1 − busy / unprofiled frame); the ten PyTorch ops with the most
 device time; the device time and share of the hand-written shading kernels
 S1-S3 and the fused S3 (csrc/shade.cu) and of K1/K2; and the UI pass of the
 frame's own DrawList, piece by piece (`ui_pass_ms`): its raster (bin + K2's
-UI launch), the fused S3 (shade and composite, the pipeline's call), and
-the unfused pair it replaced, S3 (shade_ui_layer) and the composite loop of
-torch ops. Needs CUDA; without it, it exits with an error. `profile_frame`
+UI launch) and the fused S3 (shade and composite, the pipeline's call).
+Needs CUDA; without it, it exits with an error. `profile_frame`
 profiles any renderer's frame the same way (chip_smoke.py phase 12 runs it
 on scenes B and C, and `ui_pass_ms` on C).
 """
@@ -115,13 +114,9 @@ def ui_pass_ms(renderer, dl) -> dict:
     """The UI pass of DrawList `dl` at `renderer`'s config (pixel centres,
     the HDR samples of its MSAA), each piece's ms (mean of 5, CUDA events):
     "raster" (bin + K2's UI launch; host-paced: queued behind the spin
-    kernel it outlasted it on the card), and device ms queued behind a spin
-    kernel of "fused" (the
-    fused S3, ui_stage.shade_composite_ui, into copies of the samples),
-    "shade" (S3, ui_stage.shade_ui_layer) and "composite_loop" (the torch
-    ops that composited S3's layers before the fused S3, its plain
-    version's ui_stage._composite: 2 multiplies, a subtract, an add and a
-    copy a layer and sample), with "unfused" the sum of the last two."""
+    kernel it outlasted it on the card), and "fused" (the fused S3,
+    ui_stage.shade_composite_ui, into copies of the samples; device ms
+    queued behind a spin kernel)."""
     dev = renderer.device
     cfg = renderer.config
     ui = from_numpy_arrays(dl.pack(), device=dev)
@@ -137,18 +132,12 @@ def ui_pass_ms(renderer, dl) -> dict:
                                      sample_positions=STANDARD_SAMPLE_POSITIONS[1])[0][0]
 
     lt = raster()
-    rgb, a = ui_stage.shade_ui_layer(lt, ui, mats, config=cfg, row0=row0)
     work = [t.clone() for t in hdr]
-    out = {
+    return {
         "raster": _event_ms(raster),
         "fused": _queued_ms(lambda: ui_stage.shade_composite_ui(
             work, lt, ui, mats, config=cfg, row0=row0)),
-        "shade": _queued_ms(lambda: ui_stage.shade_ui_layer(lt, ui, mats, config=cfg,
-                                                            row0=row0)),
-        "composite_loop": _queued_ms(lambda: ui_stage._composite(work, rgb, a)),
     }
-    out["unfused"] = out["shade"] + out["composite_loop"]
-    return out
 
 
 def main() -> int:

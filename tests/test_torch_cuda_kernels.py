@@ -860,3 +860,33 @@ def test_vertex_stage_slice_equals_the_whole_stream(cuda):
             assert torch.equal(got.view(torch.int32) if got.is_floating_point() else got,
                                v.view(torch.int32) if v.is_floating_point() else v), (n, k)
             assert torch.equal(got[used], single[k][used]), (n, k)
+
+
+@pytest.mark.parametrize("scene,replay", [("triangle", False), ("mini-sandbox", False),
+                                          ("patch-wall", True)])
+def test_bench_on_the_card(cuda, scene, replay):
+    """tools/bench.run as it stands (3 warm-up frames, 3 passes) at the
+    golden size: the card named, no drops, CUDA-event frame intervals, the
+    last eager frame bit-equal to render_frame and each replayed frame to
+    the eager frame of its scene (the CPU runs: tests/test_torch_bench.py)."""
+    import io
+    import json
+
+    from renderer_tpu_torch.tools import bench
+
+    out = io.StringIO()
+    result = bench.run(4, scene=scene, replay=replay, device=cuda, width=W, height=H,
+                       out=out)
+    line = json.loads(out.getvalue().splitlines()[-1])
+    assert line == result.line and not result.dropped
+    assert line["device"]["name"] == torch.cuda.get_device_name(0)
+    assert line["measures"] != "CPU run, not a device number"
+    assert len(line["passes_fps"]) == 3 and line["frame_ms"]["n"] == 3
+    if replay:
+        assert result.images.shape[0] == 4
+        for img, (sc, _) in zip(result.images, result.frames, strict=True):
+            assert torch.equal(img, result.renderer.render_frame_device(sc, 0))
+    else:
+        sc, ui = result.frames[-1]
+        np.testing.assert_array_equal(result.images.cpu().numpy(),
+                                      result.renderer.render_frame(sc, 0, ui=ui))

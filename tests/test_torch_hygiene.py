@@ -35,7 +35,7 @@ def test_every_module_imports_without_jax():
             "renderer_tpu_torch.tools.startup_probe",
             "renderer_tpu_torch.tools.native", "renderer_tpu_torch.tools.make_ntex",
             "renderer_tpu_torch.tools.resample",
-            "renderer_tpu_torch.tools.shard_workcount",
+            "renderer_tpu_torch.tools.shard_workcount", "renderer_tpu_torch.tools.bench",
             "renderer_tpu_torch.parallel", "renderer_tpu_torch.parallel.mesh"} <= set(mods)
     code = (
         "import sys\n"
