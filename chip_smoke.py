@@ -143,13 +143,23 @@ its live elements alone —, each input and output byte of the frame's calls
 once at 3.35 TB/s — for the fused S3 the HDR samples read once and written
 where their bits change), and the kernel's
 registers, spills, local and shared bytes and the blocks an SM that the
-host computed for its launches (kernel_resources). It times scene C's UI
+host computed for its launches (kernel_resources). The candidate kernels
+C1-C3 (csrc/candidates.cu: candidates.extract_candidates, masked_merge,
+resolve) get the same on each scene: every call of the frame recorded
+(tools/candidate_check, the tensors C2 and C3 update in place copied as
+the call found them), run again through the kernel and the plain version
+(0 values may differ in bits; NaN where NaN), and one row a kernel with
+ms issued and queued, plain ms, a bound from the bytes the calls' data
+needs (candidate_work) and the registers, stack and spills of the
+instantiations they ran. It times scene C's UI
 pass piece by piece (tools.frame_profile.ui_pass_ms: its raster and the
 fused S3), then replays frames A, B and C
 as CUDA graphs (engine.stats.fused_frame_ms; the multi-frame path has no UI
 pass) beside phase 6's eager frames, and profiles one eager frame of B and
-C with torch.profiler (tools.frame_profile.profile_frame): kernel count,
-top ops, and the device share of S1-S3, the fused S3 and K1/K2.
+C with torch.profiler (tools.frame_profile.profile_frame): kernel count
+and device-busy ms beside those of the candidate loops as torch ops
+(TORCH_LOOPS_PROFILE), top ops, and the device
+share of S1-S3, the fused S3, K1/K2 and C1-C3.
 
 Phase 13 ("bench") runs the port's bench (tools/bench.run, in this
 process) at 1920×1080: the default scene (here the triangle: the Sponza
@@ -210,6 +220,7 @@ from renderer_tpu_torch.materials import atlas_device, bc7
 from renderer_tpu_torch.materials.atlas import build_atlas
 from renderer_tpu_torch.raster import (
     binning,
+    candidates,
     layers,
     pipeline,
     raster_kernel,
@@ -222,6 +233,7 @@ from renderer_tpu_torch.raster.pipeline import STANDARD_SAMPLE_POSITIONS, STAT_N
 from renderer_tpu_torch.scene import draw_stream
 from renderer_tpu_torch.tools import (
     binning_scaling,
+    candidate_check,
     frame_capture,
     frame_profile,
     make_ntex,
@@ -277,7 +289,8 @@ FLOPS_PER_S = 67e12  # H100 SXM FP32 outside the tensor cores (data sheet)
 # pipeline.launch_counts' keys → this script's counter names
 PIPELINE_KEYS = {"k1": "k1", "masked": "k2_masked", "blended": "k2_blended",
                  "ui": "k2_ui", "shade": "s1", "alpha": "s2", "ui_shade": "s3",
-                 "ui_composite": "s3c"}
+                 "ui_composite": "s3c", "cand_extract": "c1", "cand_merge": "c2",
+                 "cand_resolve": "c3"}
 # the shading kernels: (entry point, what it replaces in the JAX package)
 SHADE_KERNELS = {
     "s1": ("S1 shade_stack", "renderer_tpu/raster/shade.py:329"),
@@ -293,7 +306,20 @@ JPEG_LAYOUTS = ("written-ycck", "written-411", "arith-420-progressive-dac-restar
 # phase 13's bench runs: frames a pass (3 passes) of each scene
 BENCH_FRAMES = {"default": 30, "mini-sandbox": 30, "patch-wall": 8}
 # the main path's kernels (S3 alone, shade_ui_layer, is off it)
-MAIN_PATH_KERNELS = ("k1", "k2_masked", "k2_blended", "k2_ui", "s1", "s2", "s3c")
+MAIN_PATH_KERNELS = ("k1", "k2_masked", "k2_blended", "k2_ui", "s1", "s2", "s3c",
+                     "c1", "c2", "c3")
+# the candidate kernels: (entry point, what it replaces in the JAX package,
+# the device function's name in csrc/candidates.cu)
+CANDIDATE_KERNELS = {
+    "c1": ("C1 extract_candidates", "renderer_tpu/raster/pipeline.py:118", "extract_kernel"),
+    "c2": ("C2 masked_merge", "renderer_tpu/raster/pipeline.py:407-439", "merge_kernel"),
+    "c3": ("C3 resolve (solid select + blended composite)",
+           "renderer_tpu/raster/pipeline.py:452-490", "resolve_kernel"),
+}
+# the profiled eager frames B and C when the candidate loops ran as torch
+# ops, before kernels C1-C3 (this script's phase 12 on an NVIDIA H100 80GB
+# HBM3 at 700 W): kernels and copies, device-busy ms
+TORCH_LOOPS_PROFILE = {"B": (9065, 52.50), "C": (9649, 50.66)}
 
 
 def scene_a():
@@ -1745,6 +1771,188 @@ def shading_rows(scene, renderer, sc, ui, main_launches, card) -> list:
     return rows
 
 
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts if t is not None)
+
+
+def _last_match(tid: torch.Tensor, cands: torch.Tensor) -> torch.Tensor:
+    """Index of the last candidate equal to tid ([..., h, w] against
+    [n, h, w]), -1 where none is (`_select`)."""
+    idx = torch.full(tid.shape, -1, dtype=torch.int64, device=tid.device)
+    for j in range(cands.shape[0]):
+        idx = torch.where(tid == cands[j], j, idx)
+    return idx
+
+
+def _distinct_refs(idx: torch.Tensor, n: int) -> int:
+    """Distinct (candidate, pixel) pairs that the [..., h, w] indices `idx`
+    (< 0: none) reference."""
+    flat = idx.reshape(-1, *idx.shape[-2:])
+    return sum(int((flat == j).any(0).sum()) for j in range(n))
+
+
+def candidate_work(kind: str, args: tuple, kw: dict) -> tuple[int, int]:
+    """(operations, bytes) one recorded candidate call needs on its data.
+    Bytes: each value the function must read, once, and each value it
+    must write, once (csrc/candidates.cu reads no more):
+    - C1: a pixel's slots up to the one that fills its candidate list (all
+      of them when it never fills, or when counting), the candidates (and
+      the count) written;
+    - C2: the masked ids and the candidates in full; alpha and cutoff of
+      each (candidate, pixel) a live layer matches; a sample's solid id
+      and depth (the depth read, both written) where a layer passes; the
+      clamp mask written where a live layer matches no candidate;
+    - C3: the solid ids, both candidate lists and the blended ids in full;
+      the rgb of each (candidate, pixel) a covered sample selects and the
+      rgba of each one a blended layer selects (candidate 0 where it
+      matches none); the HDR samples written; the clamp mask as in C2.
+    Operations: at most the compares and arithmetic the kernel makes (C1
+    a compare with -1 and one with each candidate a slot, and, counting,
+    each earlier slot; C2 a match and three compares a slot; C3 a match a
+    solid sample and a match and ten f32 operations a blended layer), an
+    upper count, below the bytes' time on every call of these scenes."""
+    if kind == "C1":
+        slots, n = args
+        n_slots, h, w = slots.shape
+        count = kw.get("count", False)
+        ops = h * w * n_slots * (n + 1 + ((n_slots - 1) // 2 if count else 0))
+        if count:
+            reads = n_slots * h * w
+        else:
+            cands = candidates.extract_candidates(slots, n)
+            hit = slots == cands[n - 1]
+            filled = hit.any(0) & (cands[n - 1] != -2)
+            reads = int(torch.where(filled, hit.int().argmax(0) + 1, n_slots).sum())
+        return ops, 4 * reads + (n + int(count)) * h * w * 4
+    if kind == "C2":
+        lt, lz, cands, alpha, cutoff, solid_tid, solid_z, clamp = args
+        n_s, k, h, w = lt.shape
+        n = cands.shape[0]
+        idx = _last_match(lt, cands)
+        live = lt >= 0
+        matched = live & (idx >= 0)
+        pix = torch.arange(h * w, device=lt.device)
+        sel = idx.clamp(min=0).reshape(n_s * k, h * w)
+        a = alpha.reshape(n, h * w)[sel, pix].reshape(lt.shape)
+        co = cutoff.reshape(n, h * w)[sel, pix].reshape(lt.shape)
+        floor = torch.tensor([(s + 0.5) / n_s if n_s > 1 else 0.0 for s in range(n_s)],
+                             dtype=torch.float32, device=lt.device).reshape(n_s, 1, 1, 1)
+        moved = (matched & (a > co) & (a > floor)).any(1)
+        clamped = (live & (idx < 0)).any((0, 1))
+        n_bytes = (_nbytes(lt, cands) + 8 * _distinct_refs(torch.where(matched, idx, -1), n)
+                   + 12 * int(moved.sum()) + int(clamped.sum()))
+        return h * w * n_s * k * (n + 3), n_bytes
+    solid_tid, cands_s, shaded_s, clamp, *blended = (*args, *kw.values())
+    lt_b, cands_b, shaded_b = (blended + [None] * 3)[:3]
+    n_s, h, w = solid_tid.shape
+    idx_s = _last_match(solid_tid, cands_s).clamp(min=0)
+    covered = solid_tid >= 0
+    clamped = (covered & (_last_match(solid_tid, cands_s) < 0)).any(0)
+    n_bytes = (_nbytes(solid_tid, cands_s, lt_b, cands_b) + n_s * h * w * 12
+               + 12 * _distinct_refs(torch.where(covered, idx_s, -1), cands_s.shape[0]))
+    ops = h * w * n_s * cands_s.shape[0]
+    if lt_b is not None:
+        idx_b = _last_match(lt_b, cands_b)
+        clamped |= ((lt_b >= 0) & (idx_b < 0)).any((0, 1))
+        n_bytes += 16 * _distinct_refs(idx_b.clamp(min=0), cands_b.shape[0])
+        ops += h * w * n_s * lt_b.shape[1] * (cands_b.shape[0] + 10)
+    return ops, n_bytes + int(clamped.sum())
+
+
+def candidate_resources(fn: str, ncs: set) -> dict:
+    """Registers (the most), stack and spill bytes (summed) of the
+    instantiations `ncs` of csrc/candidates.cu's `fn` (the build's ptxas
+    report)."""
+    report = kernels.ptxas_report()
+    got = [v for k, v in report.items() if any(f"{len(fn)}{fn}ILi{nc}E" in k for nc in ncs)]
+    if len(got) != len(ncs):
+        raise RuntimeError(f"build.log: {len(got)} ptxas reports for {fn} {sorted(ncs)}")
+    return dict(registers=max(v["registers"] for v in got),
+                **{key: sum(v[key] for v in got)
+                   for key in ("stack", "spill_stores", "spill_loads")})
+
+
+def _bucket(n: int) -> int:
+    """csrc/candidates.cu's instantiation for n candidates (RC_DISPATCH)."""
+    return next(nc for nc in (1, 2, 4, 8, 16, 24) if n <= nc)
+
+
+def candidate_rows(scene, renderer, sc, ui, main_launches, card) -> list:
+    """Phase 12's candidate kernels on one scene: records one frame's calls
+    of C1-C3, runs each through the kernel and the plain version (0 values
+    may differ; plain_ms is that run's CUDA-event ms), and returns one
+    kernels-line row a kernel with the frame's calls timed together."""
+    with candidate_check.recorded_candidates() as calls:
+        renderer.render_frame_device(sc, 0, ui=ui)
+    torch.cuda.synchronize()
+    rows = []
+    for counter, (entry, replaces, fn) in CANDIDATE_KERNELS.items():
+        kind = counter.upper()
+        mine = [(a, k) for c, a, k in calls if c == kind]
+        if not mine:
+            continue
+        counts = {"values": 0, "differing": 0, "nan": 0, "max_abs_err": 0.0}
+        plain_ms, ops, n_bytes, ncs = 0.0, 0, 0, set()
+        for args, kw in mine:
+            got = candidate_check.run_candidates(kind, args, kw, plain=False)
+            e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            e0.record()
+            want = candidate_check.run_candidates(kind, args, kw, plain=True)
+            e1.record()
+            torch.cuda.synchronize()
+            plain_ms += e0.elapsed_time(e1)
+            for key, v in candidate_check.compare(got, want).items():
+                counts[key] = max(counts[key], v) if key == "max_abs_err" else counts[key] + v
+            o, b = candidate_work(kind, args, kw)
+            ops, n_bytes = ops + o, n_bytes + b
+            if kind == "C3":
+                blended = kw.get("cands_b", args[5] if len(args) > 5 else None)
+                ncs.add(0 if blended is None else _bucket(blended.shape[0]))
+            else:
+                ncs.add(_bucket(args[1] if kind == "C1" else args[2].shape[0]))
+            del got, want
+        if counts["differing"]:
+            raise RuntimeError(f"{kind} on scene {scene}: {counts['differing']} of "
+                               f"{counts['values']} values differ from the plain version")
+        # the in-place tensors copied once, so that no copy is timed (a
+        # repeated merge or resolve stores the same values)
+        name, _, inplace = candidate_check.ENTRY_POINTS[kind]
+        work = [(tuple(a.clone() if i in inplace else a for i, a in enumerate(args)), kw)
+                for args, kw in mine]
+        entry_fn = getattr(candidates, name)
+
+        def run(work=work, entry_fn=entry_fn):
+            for args, kw in work:
+                entry_fn(*args, **kw)
+
+        res = candidate_resources(fn, ncs)
+        ops_ms, bytes_ms = ops / FLOPS_PER_S * 1e3, n_bytes / BYTES_PER_S * 1e3
+        shapes = [tuple(a[0].shape) for a, _ in mine]
+        row = dict(
+            name=f"{entry} (scene {scene}, {W}x{H}, the frame's {len(mine)} calls, "
+                 f"first inputs {shapes})",
+            route="cuda", source="renderer_tpu_torch/csrc/candidates.cu", replaces=replaces,
+            launches=main_launches[counter], **counts,
+            ms=cuda_ms(run, 10), ms_queued=queued_ms(run, 10), plain_ms=plain_ms,
+            bound_ms=max(ops_ms, bytes_ms),
+            bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+            library_ms=None, launches_per_frame=None, operations=ops, bytes=n_bytes,
+            resources=res, scene=scene, counter=counter)
+        row["share"] = row["bound_ms"] / row["ms"]
+        print(f"kernel: {row['name']}: {counts['differing']} of {counts['values']} values "
+              f"differ in bits from the plain version ({counts['nan']} NaN; max_abs_err "
+              f"{counts['max_abs_err']:.3e}) | "
+              f"{row['ms']:.4f} ms (queued {row['ms_queued']:.4f}) vs plain "
+              f"{plain_ms:.2f} ms | bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
+              f"{n_bytes / 1e6:.1f} MB, at most {ops / 1e9:.2f} G operations), share "
+              f"{row['share']:.1%} ({row['bound_ms'] / row['ms_queued']:.1%} queued) | "
+              f"{res['registers']} registers, {res['stack']} B stack, spills "
+              f"{res['spill_stores']} B stored / {res['spill_loads']} B loaded "
+              f"(instantiations {sorted(ncs)}) | {card}", flush=True)
+        rows.append(row)
+    return rows
+
+
 def phase12(dev, card, main_launches, frame_ms) -> tuple[list, dict]:
     """Phase 12 (module docstring): the shading kernels against their plain
     versions on scenes A, B and C, the frames replayed as graphs, and one
@@ -1762,6 +1970,7 @@ def phase12(dev, card, main_launches, frame_ms) -> tuple[list, dict]:
     for name, r, sc, ui in (("A", ra, sc_a, None), ("B", rb, sc_b, None),
                             ("C", rc, sc_c, ui_c)):
         rows += shading_rows(name, r, sc, ui, main_launches, card)
+        rows += candidate_rows(name, r, sc, ui, main_launches, card)
     ui_msaa = ui_msaa_checks(frames_c, cfg_c, pol_c, dev, card)
     reset_counters()  # the tool's own launches (S3 among them)
     ui_pass = frame_profile.ui_pass_ms(rc, ui_c)
@@ -1782,8 +1991,10 @@ def phase12(dev, card, main_launches, frame_ms) -> tuple[list, dict]:
     for name, p in profiles.items():
         own = ", ".join(f"{k} {v['device_ms']:.3f} ms x{v['launches']} "
                         f"({v['share']:.1%})" for k, v in p["own_kernels"].items())
+        was_n, was_ms = TORCH_LOOPS_PROFILE[name]
         print(f"shading: profiled eager frame {name}: {p['kernels_and_copies']} kernels "
-              f"and copies, device busy {p['device_busy_ms']:.2f} ms of "
+              f"and copies (loops as torch ops: {was_n}), device busy "
+              f"{p['device_busy_ms']:.2f} ms (loops as torch ops: {was_ms:.2f}) of "
               f"{p['profiled_frame_ms']:.2f} ms | {own} | top ops "
               f"{[(k, round(ms, 3), n) for k, ms, n in p['top_ops_device_ms'][:6]]} "
               f"| {card}", flush=True)
@@ -1930,11 +2141,12 @@ def main() -> int:
     main_launches = counters()
     first_s = time.perf_counter() - t0
     for name, moved in (("A", moved_a), ("B", moved_b), ("C", moved_c)):
-        if moved["k1"] < 1 or moved["s1"] < 1:
-            raise RuntimeError(f"K1 or S1 not launched for {name}: {moved}")
+        if moved["k1"] < 1 or moved["s1"] < 1 or moved["c1"] < 1 or moved["c3"] < 1:
+            raise RuntimeError(f"K1, S1, C1 or C3 not launched for {name}: {moved}")
     for name, moved in (("B", moved_b), ("C", moved_c)):
-        if moved["k2_masked"] < 1 or moved["k2_blended"] < 1 or moved["s2"] < 1:
-            raise RuntimeError(f"K2 (both modes) or S2 not launched for {name}: {moved}")
+        if (moved["k2_masked"] < 1 or moved["k2_blended"] < 1 or moved["s2"] < 1
+                or moved["c2"] < 1):
+            raise RuntimeError(f"K2 (both modes), S2 or C2 not launched for {name}: {moved}")
     if moved_c["k2_ui"] < 1 or moved_c["s3c"] < 1:
         raise RuntimeError(f"K2's UI launch or the fused S3 not made for C: {moved_c}")
     print(f"main path: A {moved_a} B {moved_b} C {moved_c} first frames "

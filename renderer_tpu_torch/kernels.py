@@ -61,6 +61,15 @@ _SIGNATURES = {
     "rt_shade_composite_ui": (_P, _P),
     # kernel (1 S1, 2 S2, 3 S3, 4 the fused S3), bf16, per_tap, long long out[6]
     "rt_shade_info": (_I, _I, _I, _P),
+    # the candidate loops (csrc/candidates.cu)
+    # slots, cands, count, n_slots, n, plane, stream
+    "rt_extract_candidates": (_P, _P, _P, _I, _I, _L, _P),
+    # lt, lz, cands, alpha, cutoff, solid_tid, solid_z, clamp, n_s, k, n,
+    # plane, stream
+    "rt_masked_merge": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _P),
+    # solid_tid, cands_s, shaded_s, lt_b, cands_b, shaded_b, hdr, clamp, n_s,
+    # n_cs, k, n_cb, plane, stream
+    "rt_resolve": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _P),
 }
 
 

@@ -40,6 +40,7 @@ from renderer_tpu_torch.core import constants
 from renderer_tpu_torch.core.config import RenderConfig
 from renderer_tpu_torch.raster import (
     binning,
+    candidates,
     layers,
     post,
     raster_kernel,
@@ -92,24 +93,6 @@ STAT_NAMES = (
 N_STATS = len(STAT_NAMES)
 
 
-def _extract_candidates(tids: list, n: int) -> list:
-    """Per-pixel: the first `n` DISTINCT triangle ids across the slot list
-    (slot order = priority). Returns n candidate maps ([H,W] i32, -2 where
-    fewer than n distinct ids exist). The -1 background sentinel is skipped —
-    background samples/layers never consult the shaded candidates."""
-    cands: list = []
-    for _ in range(n):
-        nxt = torch.full_like(tids[0], -2)
-        # reversed so the EARLIEST slot with a new value wins the overwrite
-        for t in reversed(tids):
-            is_new = t != -1
-            for c in cands:
-                is_new = is_new & (t != c)
-            nxt = torch.where(is_new, t, nxt)
-        cands.append(nxt)
-    return cands
-
-
 def _pick_strip_rows(c: int, hp: int, wp: int, tile_h: int, budget: int) -> int:
     """Strip height (pixel rows, a whole-tile-row multiple) for striped
     stacked shading: the LARGEST tile-row multiple whose [c, strip, wp]
@@ -138,23 +121,6 @@ def _shade_striped(stack, row0, strip_h: int, fn):
     if isinstance(outs[0], tuple):
         return tuple(torch.cat(xs, dim=1) for xs in zip(*outs))
     return torch.cat(outs, dim=1)
-
-
-def _select(tid, cands: list, values: list):
-    """values: list (per candidate) of tensors whose leading dims are [H, W]
-    (optionally a trailing channel dim). Returns (selected, unmatched mask)."""
-    def pick(hit, a, b):
-        if a.ndim == hit.ndim + 1:
-            hit = hit[..., None]
-        return torch.where(hit, a, b)
-
-    out = values[0]
-    matched = tid == cands[0]
-    for c, v in zip(cands[1:], values[1:]):
-        hit = tid == c
-        out = pick(hit, v, out)
-        matched = matched | hit
-    return out, ~matched
 
 
 def render_shard(
@@ -257,23 +223,25 @@ def render_shard(
         return torch.clamp(c, min=-1)
 
     def striped(cands, fn):
-        stack = clampc(torch.stack(cands))
+        stack = clampc(cands)
         sh = _pick_strip_rows(stack.shape[0], stack.shape[1], stack.shape[2],
                               cfg.tile_h, cfg.shade_strip_elems)
         return _shade_striped(stack, row0, sh, fn)
 
-    def shade_candidates(cands: list) -> list:
-        """Shade all candidate maps in ONE stacked [C,H,W] call, in
-        tile-row strips past cfg.shade_strip_elems."""
-        out = striped(cands, lambda tid, r0: shade.shade_stack(
+    def shade_candidates(cands: torch.Tensor) -> torch.Tensor:
+        """Shade all candidate maps [C, H, W] in ONE stacked call, in
+        tile-row strips past cfg.shade_strip_elems: [C, H, W, 4]."""
+        return striped(cands, lambda tid, r0: shade.shade_stack(
             tid.contiguous(), r0, geom, vs, frame, materials, **shade_kw))
-        return [out[i] for i in range(len(cands))]
+
+    def slot_stack(lt):  # [S, K, H, W] layers → [S·K, H, W] slots, s-major
+        return lt.reshape(lt.shape[0] * lt.shape[1], *lt.shape[2:])
 
     # -- phase 1: opaque + masked visibility (all samples per kernel pass) ---
     mask_sat = blend_sat = mask_demand = blend_demand = zero
     zs, ts = raster_kernel.rasterize_binned(*bins_opaque, **raster_kw)
-    solid_z = [zs[s] for s in range(msaa)]
-    solid_tid = [ts[s] for s in range(msaa)]
+    # per-sample solid depth and id [S, H, W], merged into in place (phase 2)
+    solid_z, solid_tid = zs.contiguous(), ts.contiguous()
     if has_masked:
         lz_m, lt_m, aux_m = layers.rasterize_layers(
             *bins_masked, zs, mode="masked", n_layers=cfg.mask_layers, **raster_kw)
@@ -282,76 +250,43 @@ def render_shard(
 
     # -- phase 2: masked alpha test (alpha deduped per distinct tid) + merge --
     if has_masked:
-        slots = [lt_m[s, k] for s in range(msaa) for k in range(cfg.mask_layers)]
-        cands = _extract_candidates(slots, min(len(slots), cfg.mask_layers + extra))
-        a_all, co_all = striped(cands, lambda tid, r0: shade.alpha_stack(
+        slots = slot_stack(lt_m)
+        cands = candidates.extract_candidates(
+            slots, min(slots.shape[0], cfg.mask_layers + extra))
+        alpha, cutoff = striped(cands, lambda tid, r0: shade.alpha_stack(
             tid.contiguous(), r0, geom, vs, frame, materials, **shade_kw))
-        alphas = [a_all[i] for i in range(len(cands))]
-        cutoffs = [co_all[i] for i in range(len(cands))]
-        for s in range(msaa):
-            # a2c: with MSAA, alpha additionally gates per-sample coverage
-            # (sample s covered iff a·S > s + 0.5).
-            a2c_floor = (s + 0.5) / msaa if msaa > 1 else 0.0
-            # far → near so the nearest passing fragment wins.
-            for k in reversed(range(cfg.mask_layers)):
-                t = lt_m[s, k]
-                alpha, unmatched_a = _select(t, cands, alphas)
-                cutoff, _ = _select(t, cands, cutoffs)
-                live = t >= 0
-                # unmatched fragments have unknown alpha → treated as failing
-                # the cutoff (counted in shade_clamped_px)
-                clamp_mask = clamp_mask | (live & unmatched_a)
-                passes = live & ~unmatched_a & (alpha > cutoff) & (alpha > a2c_floor)
-                solid_tid[s] = torch.where(passes, t, solid_tid[s])
-                solid_z[s] = torch.where(passes, lz_m[s, k], solid_z[s])
+        candidates.masked_merge(lt_m, lz_m, cands, alpha, cutoff, solid_tid,
+                                solid_z, clamp_mask)
 
     # -- phase 3: blended visibility (floor = merged per-sample solid depth) --
+    lt_b = cands_b = shaded_b = None
     if has_blended:
         _, lt_b, aux_b = layers.rasterize_layers(
-            *bins_blended, torch.stack(solid_z).contiguous(), mode="blended",
-            n_layers=cfg.blend_layers, **raster_kw)
+            *bins_blended, solid_z, mode="blended", n_layers=cfg.blend_layers,
+            **raster_kw)
         blend_sat = saturated_px(aux_b, cfg.blend_layers)
         blend_demand = demand_max(aux_b)
 
     # -- phase 4: solid shading, once per distinct candidate -----------------
     # demand signal: distinct REAL solid tids per pixel across samples
+    n_c = min(msaa, max(cfg.msaa_shade_candidates, 1))
     if msaa > 1:
-        distinct = torch.zeros_like(solid_tid[0])
-        for i, t in enumerate(solid_tid):
-            is_new = t != -1
-            for u in solid_tid[:i]:
-                is_new = is_new & (t != u)
-            distinct = distinct + is_new.to(torch.int32)
+        cands_s, distinct = candidates.extract_candidates(solid_tid, n_c, count=True)
         shade_demand = torch.amax(distinct[:out_rows, : cfg.width])
     else:
+        cands_s = candidates.extract_candidates(solid_tid, n_c)
         shade_demand = zero
-    n_c = min(msaa, max(cfg.msaa_shade_candidates, 1))
-    cands_s = _extract_candidates(solid_tid, n_c)
     shaded_s = shade_candidates(cands_s)
-    hdr = []
-    for s in range(msaa):
-        color, unmatched = _select(solid_tid[s], cands_s, shaded_s)
-        covered_s = solid_tid[s] >= 0
-        clamp_mask = clamp_mask | (unmatched & covered_s)
-        # a BACKGROUND sample whose -1 didn't fit the candidate set must
-        # resolve to the clear color, not candidate 0's fallback color
-        hdr.append(torch.where(covered_s[..., None], color[..., :3],
-                               torch.zeros_like(color[..., :3])))
 
-    # -- phase 5: blended shading (deduped) + per-sample ordered composite ---
+    # -- phase 5: blended shading (deduped); then each sample's solid select
+    # and its blended layers' ordered composite, into the HDR samples -------
     if has_blended:
-        slots = [lt_b[s, k] for s in range(msaa) for k in range(cfg.blend_layers)]
-        cands_b = _extract_candidates(slots, min(len(slots), cfg.blend_layers + extra))
+        slots = slot_stack(lt_b)
+        cands_b = candidates.extract_candidates(
+            slots, min(slots.shape[0], cfg.blend_layers + extra))
         shaded_b = shade_candidates(cands_b)
-        for s in range(msaa):
-            for k in range(cfg.blend_layers):
-                t = lt_b[s, k]
-                color_k, unmatched = _select(t, cands_b, shaded_b)
-                live = (t >= 0) & ~unmatched
-                clamp_mask = clamp_mask | ((t >= 0) & unmatched)
-                a = torch.where(live[..., None], color_k[..., 3:4],
-                                torch.zeros_like(color_k[..., 3:4]))
-                hdr[s] = hdr[s] * (1.0 - a) + color_k[..., :3] * a
+    hdr = candidates.resolve(solid_tid, cands_s, shaded_s, clamp_mask, lt_b,
+                             cands_b, shaded_b)  # [S, H, W, 3]
 
     # -- phase 6: UI overlay into the HDR buffer of every sample (the
     # reference's ImGui pipeline position: blended, no depth, last in the
@@ -371,10 +306,10 @@ def render_shard(
         ui_demand = demand_max(aux_ui)
         # ALL layers (and sample sets under ui_msaa) shaded and composited
         # into the samples' HDR buffers in layer order, in one call
-        ui_stage.shade_composite_ui(hdr, lt_ui[0] if len(ui_spos) == 1 else lt_ui,
+        ui_stage.shade_composite_ui(list(hdr), lt_ui[0] if len(ui_spos) == 1 else lt_ui,
                                     ui, materials, config=cfg, row0=row0)
 
-    img = post.tonemap(torch.stack(hdr) if msaa > 1 else hdr[0])
+    img = post.tonemap(hdr if msaa > 1 else hdr[0])
     clamped = torch.sum(clamp_mask[:out_rows, : cfg.width].to(torch.int32))
     stats = torch.stack(
         [ov_opaque, ov_masked, ov_blended, ov_ui, mask_sat, blend_sat, ui_sat,
@@ -458,11 +393,13 @@ def _identity(tensors: dict) -> tuple:
 
 
 def launch_counts() -> dict:
-    """The hand-written kernels' launch counters: K1's, K2's per mode, and
-    the shading kernels S1 ("shade"), S2 ("alpha"), S3 ("ui_shade") and the
-    fused S3 ("ui_composite")."""
+    """The hand-written kernels' launch counters: K1's, K2's per mode, the
+    shading kernels S1 ("shade"), S2 ("alpha"), S3 ("ui_shade") and the
+    fused S3 ("ui_composite"), and the candidate kernels C1
+    ("cand_extract"), C2 ("cand_merge") and C3 ("cand_resolve")."""
     return {"k1": raster_kernel.launches, **layers.launches, **shade.launches,
-            "ui_shade": ui_stage.launches, "ui_composite": ui_stage.composite_launches}
+            "ui_shade": ui_stage.launches, "ui_composite": ui_stage.composite_launches,
+            **candidates.launches}
 
 
 def add_launches(delta: dict) -> None:
@@ -473,6 +410,8 @@ def add_launches(delta: dict) -> None:
         shade.launches[which] += delta[which]
     ui_stage.launches += delta["ui_shade"]
     ui_stage.composite_launches += delta["ui_composite"]
+    for which in candidates.launches:
+        candidates.launches[which] += delta[which]
 
 
 class CapturedGraph:

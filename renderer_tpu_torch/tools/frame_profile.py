@@ -10,7 +10,8 @@ the next, unprofiled one; the summed device time of the profiled frame's
 kernels and copies (device-side events only) and their count; the device
 idle share (1 − busy / unprofiled frame); the ten PyTorch ops with the most
 device time; the device time and share of the hand-written shading kernels
-S1-S3 and the fused S3 (csrc/shade.cu) and of K1/K2; and the UI pass of the
+S1-S3 and the fused S3 (csrc/shade.cu), of K1/K2 and of the candidate
+kernels C1-C3 (csrc/candidates.cu); and the UI pass of the
 frame's own DrawList, piece by piece (`ui_pass_ms`): its raster (bin + K2's
 UI launch) and the fused S3 (shade and composite, the pipeline's call).
 Needs CUDA; without it, it exits with an error. `profile_frame`
@@ -66,7 +67,9 @@ def _queued_ms(fn, reps: int = 5) -> float:
 #: (namespace, function) of the hand-written kernels' device functions
 KERNEL_NAMES = {"S1": ("rs", "shade_kernel"), "S2": ("rs", "alpha_kernel"),
                 "S3": ("rs", "ui_kernel"), "S3C": ("rs", "ui_composite_kernel"),
-                "K1": ("rt", "binned_kernel"), "K2": ("rt", "layer_kernel")}
+                "K1": ("rt", "binned_kernel"), "K2": ("rt", "layer_kernel"),
+                "C1": ("rc", "extract_kernel"), "C2": ("rc", "merge_kernel"),
+                "C3": ("rc", "resolve_kernel")}
 
 
 def _is_kernel(key: str, ns: str, fn: str) -> bool:

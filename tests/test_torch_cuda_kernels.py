@@ -8,7 +8,9 @@ equal (the differing counts are printed; on the scenes they are 0); the
 tests of S1's compaction, S2's alpha-only sampler, S3 and the fused S3
 (the UI shade with its composite) hold them bit for bit. The vertex stage
 gives a slice of the vertex stream the whole stream's bits (the mesh's
-bit-equality with one device rests on it).
+bit-equality with one device rests on it). The candidate kernels C1-C3
+(csrc/candidates.cu) equal their plain versions bit for bit, NaN where
+NaN, on crafted and 1080p inputs, on frames' calls and from a graph.
 
 These need an NVIDIA GPU with nvcc; without one every test skips. This file
 imports no jax, so it runs on a machine without it:
@@ -26,9 +28,18 @@ import torch
 import renderer_tpu_torch as trt
 from renderer_tpu_torch import kernels
 from renderer_tpu_torch.assets import demo_scenes
-from renderer_tpu_torch.raster import binning, layers, raster_kernel, setup, shade, ui_stage
+from renderer_tpu_torch.raster import (
+    binning,
+    candidates,
+    layers,
+    raster_kernel,
+    setup,
+    shade,
+    ui_stage,
+)
 from renderer_tpu_torch.raster.pipeline import STANDARD_SAMPLE_POSITIONS
 from renderer_tpu_torch.tools.shade_check import compare, recorded_shading, run_shading
+from tests import torch_candidate_cases as cand_cases
 from tests.torch_bins import (
     CASES,
     UI_CASES,
@@ -213,7 +224,8 @@ def test_renderer_on_card_matches_sandbox_goldens(cuda, key):
     before = pipeline_launches()
     img = r.render_frame(sandbox.scene, 0, ui=ui)
     moved = {k: v - before[k] for k, v in pipeline_launches().items()}
-    assert all(moved[k] > 0 for k in ("ui", "shade", "alpha", "ui_composite")), moved
+    assert all(moved[k] > 0 for k in ("ui", "shade", "alpha", "ui_composite", "cand_extract",
+                                      "cand_merge", "cand_resolve")), moved
     expected = np.load(Path(__file__).parent / "golden" / "sandbox-golden.npz")[key]
     diff = np.abs(img.astype(int) - expected.astype(int)).max(axis=-1)
     assert (diff > 2).mean() < 0.005
@@ -326,7 +338,8 @@ def test_replays_add_the_capture_launch_counts(cuda):
     graph = r.frame_graphs.graph
     assert graph.captured.launches == {"k1": 1, "masked": 1, "blended": 1, "ui": 0,
                                        "shade": 2, "alpha": 1, "ui_shade": 0,
-                                       "ui_composite": 0}
+                                       "ui_composite": 0, "cand_extract": 3,
+                                       "cand_merge": 1, "cand_resolve": 1}
     before = pipeline.launch_counts()
     r.render_frames_device(scenes + scenes[:1])
     assert r.frame_graphs.graph is graph
@@ -890,3 +903,165 @@ def test_bench_on_the_card(cuda, scene, replay):
         sc, ui = result.frames[-1]
         np.testing.assert_array_equal(result.images.cpu().numpy(),
                                       result.renderer.render_frame(sc, 0, ui=ui))
+
+
+# -- the candidate kernels C1-C3 (csrc/candidates.cu) -----------------------
+
+def _candidate_calls(inp: dict, dev, case: str, msaa: int):
+    """The loops of one frame on `inp` (torch_candidate_cases.loop_inputs)
+    as render_shard makes them: (kind, args, kwargs) of C1 on the masked
+    slots, C2, C1 on the merged solid ids (counting at MSAA > 1), C1 on the
+    blended slots and C3, with alphas, cutoffs and shades from the case."""
+    def t(a):
+        return torch.from_numpy(np.array(a)).to(dev)
+
+    s, k, h, w = inp["lt_m"].shape
+    lt_m, lt_b = t(inp["lt_m"]), t(inp["lt_b"])
+    cands_m = candidates.extract_candidates_plain(lt_m.reshape(s * k, h, w), inp["n_masked"])
+    alpha, cutoff = (t(a) for a in cand_cases.alpha_cutoff(case, msaa, inp["n_masked"], h, w))
+    solid_tid, solid_z = t(inp["solid_tid"]), t(inp["solid_z"])
+    clamp = torch.zeros((h, w), dtype=torch.bool, device=dev)
+    calls = [("C1", (lt_m.reshape(s * k, h, w), inp["n_masked"]), {}),
+             ("C2", (lt_m, t(inp["lz_m"]), cands_m, alpha, cutoff, solid_tid.clone(),
+                     solid_z.clone(), clamp.clone()), {})]
+    candidates.masked_merge_plain(lt_m, t(inp["lz_m"]), cands_m, alpha, cutoff,
+                                  solid_tid, solid_z, clamp)
+    calls.append(("C1", (solid_tid, inp["n_solid"]), {"count": msaa > 1}))
+    cands_s = candidates.extract_candidates_plain(solid_tid, inp["n_solid"])
+    slots_b = lt_b.reshape(s * lt_b.shape[1], h, w)
+    cands_b = candidates.extract_candidates_plain(slots_b, inp["n_blended"])
+    calls.append(("C1", (slots_b, inp["n_blended"]), {}))
+    shaded_s = t(cand_cases.shades(case, inp["n_solid"], h, w, seed=3))
+    shaded_b = t(cand_cases.shades(case, inp["n_blended"], h, w))
+    calls.append(("C3", (solid_tid, cands_s, shaded_s, clamp, lt_b, cands_b, shaded_b), {}))
+    calls.append(("C3", (solid_tid, cands_s, shaded_s, clamp), {}))
+    return calls
+
+
+CANDIDATE_COUNTERS = {"C1": "cand_extract", "C2": "cand_merge", "C3": "cand_resolve"}
+
+
+def _assert_candidates_equal(calls, what: str) -> None:
+    """Each call through its kernel (one launch) and its plain version: 0
+    values differing in bits, NaN where NaN."""
+    from renderer_tpu_torch.tools.candidate_check import compare, run_candidates
+
+    for i, (kind, args, kw) in enumerate(calls):
+        before = candidates.launches[CANDIDATE_COUNTERS[kind]]
+        got = run_candidates(kind, args, kw, plain=False)
+        assert candidates.launches[CANDIDATE_COUNTERS[kind]] == before + 1
+        want = run_candidates(kind, args, kw, plain=True)
+        counts = compare(got, want)
+        assert counts["differing"] == 0, (what, i, kind, counts)
+
+
+@pytest.mark.parametrize("k", [1, 4, 16])
+@pytest.mark.parametrize("msaa", [1, 2, 4, 8])
+@pytest.mark.parametrize("case", cand_cases.CASES)
+def test_candidate_kernels_bit_equal_on_crafted_inputs(cuda, case, msaa, k):
+    """C1-C3 against their plain versions on the crafted cases at 64×128
+    (every MSAA count, 1-16 layers: up to 128 slots and 23 candidates)."""
+    inp = cand_cases.loop_inputs(case, msaa, k, 64, 128, seed=msaa * 100 + k)
+    _assert_candidates_equal(_candidate_calls(inp, cuda, case, msaa), f"{case} {msaa} {k}")
+
+
+def test_candidate_kernels_bit_equal_at_1080p(cuda):
+    """Random inputs at scene B's sizes: 1088×1920, 4×MSAA, 8 masked and 4
+    blended layers, 11 / 4 / 7 candidates."""
+    inp = cand_cases.loop_inputs("random", 4, 8, 1088, 1920, seed=7)
+    _, _, n_b = cand_cases.candidate_counts(4, 4)
+    inp["lt_b"] = inp["lt_b"][:, :4]
+    inp["n_blended"] = n_b
+    assert (inp["n_masked"], inp["n_solid"], n_b) == (11, 4, 7)
+    _assert_candidates_equal(_candidate_calls(inp, cuda, "random", 4), "1080p")
+
+
+def test_candidate_kernels_raise_past_their_limits(cuda):
+    """129 slots, 24 candidates, 9 solid candidates and non-contiguous
+    inputs raise ValueError before any launch."""
+    z = torch.zeros((129, 8, 8), dtype=torch.int32, device=cuda)
+    before = dict(candidates.launches)
+    with pytest.raises(ValueError):
+        candidates.extract_candidates(z, 4)
+    with pytest.raises(ValueError):
+        candidates.extract_candidates(z[:128], 24)
+    with pytest.raises(ValueError):
+        candidates.extract_candidates(z[:8, :, ::2], 4)
+    lt = z[:16].reshape(4, 4, 8, 8)
+    f = torch.zeros((4, 4, 8, 8), device=cuda)
+    with pytest.raises(ValueError):
+        candidates.masked_merge(lt, f, z[:24], f[0, :1].expand(24, 8, 8).contiguous(),
+                                f[0, :1].expand(24, 8, 8).contiguous(), z[:4], f[0],
+                                torch.zeros((8, 8), dtype=torch.bool, device=cuda))
+    clamp = torch.zeros((8, 8), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError):
+        candidates.resolve(z[:4], z[:9], torch.zeros((9, 8, 8, 4), device=cuda), clamp)
+    with pytest.raises(ValueError):
+        candidates.resolve(z[:4], z[:4], torch.zeros((4, 8, 8, 4), device=cuda), clamp,
+                           lt, z[:24], torch.zeros((24, 8, 8, 4), device=cuda))
+    assert candidates.launches == before
+
+
+def test_candidate_kernels_replay_from_a_graph(cuda):
+    """C1 → C2 → C1 (counting) → C1 → C3 captured into one CUDA graph
+    (pipeline.CapturedGraph): a replay into outputs overwritten first
+    gives the eager run's bits, which equal the plain versions'."""
+    from renderer_tpu_torch.raster.pipeline import CapturedGraph
+
+    inp = cand_cases.loop_inputs("random", 4, 8, 256, 384, seed=3)
+    calls = _candidate_calls(inp, cuda, "random", 4)
+    (_, (slots_m, n_m), _), (_, (lt_m, lz_m, _, alpha, cutoff, tid0, z0, _), _) = calls[:2]
+    _, (_, n_s), _ = calls[2]
+    _, (slots_b, n_b), _ = calls[3]
+    _, (_, _, shaded_s, _, lt_b, _, shaded_b), _ = calls[4]
+    base_tid, base_z = torch.from_numpy(inp["solid_tid"]).to(cuda), torch.from_numpy(
+        inp["solid_z"]).to(cuda)
+
+    def frame(ext=candidates.extract_candidates, merge=candidates.masked_merge,
+              resolve=candidates.resolve):
+        tid, z = base_tid.clone(), base_z.clone()
+        clamp = torch.zeros(tid.shape[1:], dtype=torch.bool, device=cuda)
+        cands = ext(slots_m, n_m)
+        merge(lt_m, lz_m, cands, alpha, cutoff, tid, z, clamp)
+        cs, distinct = ext(tid, n_s, count=True)
+        cb = ext(slots_b, n_b)
+        hdr = resolve(tid, cs, shaded_s, clamp, lt_b, cb, shaded_b)
+        return cands, tid, z, cs, distinct, cb, hdr, clamp
+
+    eager = frame()
+    want = frame(candidates.extract_candidates_plain, candidates.masked_merge_plain,
+                 candidates.resolve_plain)
+    g = CapturedGraph(frame, cuda)
+    for out in g.out:
+        out.fill_(True if out.dtype == torch.bool else -7)
+    g.replay()
+    torch.cuda.synchronize()
+    from renderer_tpu_torch.tools.candidate_check import compare
+
+    assert compare(eager, want)["differing"] == 0
+    assert compare(g.out, eager)["differing"] == 0
+    assert g.launches["cand_extract"] == 3 and g.launches["cand_merge"] == 1
+    assert g.launches["cand_resolve"] == 1
+
+
+@pytest.mark.parametrize("scene", ["B", "C"])
+def test_candidate_kernels_equal_plain_on_scenes(cuda, scene):
+    """Every C1-C3 call of a 4×MSAA frame of chip_smoke.py's scene B and C
+    at 320×192 (tools/candidate_check), bit-equal to the plain versions."""
+    from renderer_tpu_torch.tools.candidate_check import recorded_candidates
+
+    cfg = trt.RenderConfig(width=320, height=192, msaa_samples=4)
+    if scene == "B":
+        registry, sc = demo_scenes.patch_wall_scene()
+        r = trt.Renderer(registry, cfg, overflow_policy="sync", device=cuda)
+        ui = None
+    else:
+        frames = demo_scenes.SandboxFrames()
+        r = trt.Renderer(frames.registry, cfg, profiler=frames.profiler,
+                         overflow_policy="sync", device=cuda)
+        sc, ui = frames.next()
+    r.render_frame(sc, 0, ui=ui)  # grows the capacities
+    with recorded_candidates() as calls:
+        r.render_frame(sc, 0, ui=ui)
+    assert [kind for kind, _, _ in calls] == ["C1", "C2", "C1", "C1", "C3"]
+    _assert_candidates_equal(calls, f"scene {scene}")
