@@ -150,8 +150,10 @@ resolve) get the same on each scene: every call of the frame recorded
 the call found them), run again through the kernel and the plain version
 (0 values may differ in bits; NaN where NaN), and one row a kernel with
 ms issued and queued, plain ms, a bound from the bytes the calls' data
-needs (candidate_work) and the registers, stack and spills of the
-instantiations they ran. It times scene C's UI
+needs (candidate_work) and the registers, stack, spills and static
+shared bytes of the instantiations they ran (for C2 also its launch:
+tile pixels, the dynamic shared bytes of its ring of staged slot ids,
+blocks an SM, grid; kernels.merge_info). It times scene C's UI
 pass piece by piece (tools.frame_profile.ui_pass_ms: its raster and the
 fused S3), then replays frames A, B and C
 as CUDA graphs (engine.stats.fused_frame_ms; the multi-frame path has no UI
@@ -1868,6 +1870,7 @@ def candidate_resources(fn: str, ncs: set) -> dict:
     if len(got) != len(ncs):
         raise RuntimeError(f"build.log: {len(got)} ptxas reports for {fn} {sorted(ncs)}")
     return dict(registers=max(v["registers"] for v in got),
+                shared=max(v["shared"] for v in got),
                 **{key: sum(v[key] for v in got)
                    for key in ("stack", "spill_stores", "spill_loads")})
 
@@ -1926,6 +1929,10 @@ def candidate_rows(scene, renderer, sc, ui, main_launches, card) -> list:
                 entry_fn(*args, **kw)
 
         res = candidate_resources(fn, ncs)
+        if kind == "C2":  # its tile, ring of staged ids and blocks an SM
+            lt, cands = mine[0][0][0], mine[0][0][2]
+            res["launch"] = kernels.merge_info(lt.shape[0], lt.shape[1], cands.shape[0],
+                                               lt.shape[2] * lt.shape[3])
         ops_ms, bytes_ms = ops / FLOPS_PER_S * 1e3, n_bytes / BYTES_PER_S * 1e3
         shapes = [tuple(a[0].shape) for a, _ in mine]
         row = dict(
@@ -1947,8 +1954,10 @@ def candidate_rows(scene, renderer, sc, ui, main_launches, card) -> list:
               f"{n_bytes / 1e6:.1f} MB, at most {ops / 1e9:.2f} G operations), share "
               f"{row['share']:.1%} ({row['bound_ms'] / row['ms_queued']:.1%} queued) | "
               f"{res['registers']} registers, {res['stack']} B stack, spills "
-              f"{res['spill_stores']} B stored / {res['spill_loads']} B loaded "
-              f"(instantiations {sorted(ncs)}) | {card}", flush=True)
+              f"{res['spill_stores']} B stored / {res['spill_loads']} B loaded, "
+              f"{res['shared']} B static shared (instantiations {sorted(ncs)})"
+              + (f", launch {res['launch']}" if "launch" in res else "")
+              + f" | {card}", flush=True)
         rows.append(row)
     return rows
 

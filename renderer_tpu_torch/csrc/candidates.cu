@@ -19,9 +19,10 @@
 // ~8,000 PyTorch launches a 1080p frame, each a pass over a [1088, 1920]
 // map.
 //
-// Design: one thread a pixel, 256 a block, the pixel index fastest, so a
-// warp reads and writes each [h, w] plane of slots, candidates, alphas and
-// shades coalesced; no shared memory. A pixel's candidate ids sit in
+// Design (C1, C3; C2 below stages its ids in shared memory): one thread a
+// pixel, 256 a block, the pixel index fastest, so a warp reads and writes
+// each [h, w] plane of slots, candidates, alphas and shades coalesced; no
+// shared memory. A pixel's candidate ids sit in
 // registers (NC, the count rounded up to 1, 2, 4, 8, 16 or 24, unrolled so
 // no array spills to local memory), each slot is matched against them,
 // and a value per candidate (alpha, cutoff, shade) is read only for the
@@ -32,6 +33,9 @@
 // In-place outputs (C2's solid ids and depths, the clamp mask) are stored
 // only where their value changes; the others are written whole.
 #include <cuda_runtime.h>
+
+#include <algorithm>
+#include <cstdint>
 
 namespace rc {
 
@@ -115,47 +119,300 @@ extract_kernel(const int* __restrict__ slots, int* __restrict__ cands,
 // when alpha > cutoff and alpha > floor_s (the f32 of (s + 0.5) / S, 0 at
 // S = 1; a NaN passes neither). A pass moves (t, its depth) into the solid
 // id and depth of sample s, in place.
+//
+// Computed here the other way round, with the same result:
+// - The floors rise with s, so candidate j passes sample s exactly when
+//   s < m_j, m_j = #{s : a_j > cutoff_j and a_j > floor_s} (0 for a NaN).
+//   A pixel reads the alpha and cutoff of each candidate its live slots
+//   match once, and keeps m_j (a byte in shared memory).
+// - The far-to-near overwrite leaves the NEAREST passing layer: the scan
+//   runs k = 0 .. K-1 and takes the first, and reads only its depth and id.
+// - Every slot is still matched (the clamp mask): a -1 may sit anywhere.
+// The slot and candidate ids are ~93% of the bytes; on frames B and C
+// only 3.4% and 0.8% of the slots are live, so the gathers are few but
+// each waits a whole memory latency. Each warp is therefore a pipeline of
+// its own, on tiles of 32 pixels (a lane a pixel): cp.async copies the
+// tile's [S*K + n] rows of ids into the warp's stage in shared memory;
+// pass 1 matches every slot against the pixel's candidates (registers;
+// the warp compares only up to its lanes' last candidate >= 0, since a
+// negative one never matches a live slot) and keeps each match as a byte;
+// the stage is then refilled with the warp's next tile at once, so its
+// copy is in flight while the warp waits on its gathers (alpha and
+// cutoff, then the nearest passing layers' depths and ids); no barrier
+// wider than the warp holds one warp for another's gathers. Persistent
+// blocks; a warp walks the tiles gw, gw + warps, ... Reading a pixel's
+// slots one after another (one or two loads in flight a thread) reached
+// 48% of the bytes bound on frame B; block-wide tiles behind
+// __syncthreads, whose gathers stalled every warp's copies, 44-55%.
+constexpr int C2_WARPS = 8;                 // warps a block at most
+constexpr int C2_STAGES = 1;                // tiles a warp copies ahead
+constexpr int C2_SHARED = 110 * 1024;       // dynamic shared bytes a block at most
+constexpr int C2_GROUP = 4;                 // samples whose depths are read together
+constexpr int C2_CHUNK = 8;                 // slots whose ids are read at once
+constexpr int C2_GATHER = 4;                // candidates whose alpha and cutoff are read at once
+
+__device__ __forceinline__ unsigned shared_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(shared_addr(dst)),
+               "l"(__cvta_generic_to_global(src))
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(shared_addr(dst)),
+               "l"(__cvta_generic_to_global(src))
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// One warp starts the copy of its tile, pixels [p0, p0 + 32) of the
+// n_slots slot planes and then the n candidate planes, into dst [rows][32];
+// 16 bytes a copy when `vec` (plane a multiple of 4, both bases 16-byte
+// aligned), else 4. Pixels past the plane are not copied.
+__device__ __forceinline__ void stage_tile(int* dst, const int* __restrict__ lt,
+                                           const int* __restrict__ cands, int n_slots,
+                                           int rows, long long plane, long long p0, bool vec,
+                                           int lane) {
+  const long long left = plane - p0;
+  const int valid = left < 32 ? static_cast<int>(left) : 32;
+  const int shift = vec ? 3 : 5;  // copies a row = 1 << shift
+  const int step = vec ? 4 : 1;
+  const int total = rows << shift;
+  for (int i = lane; i < total; i += 32) {
+    const int r = i >> shift;
+    const int q = (i & ((1 << shift) - 1)) * step;
+    if (q >= valid) continue;
+    const int* src = (r < n_slots ? lt + r * plane : cands + (r - n_slots) * plane) + p0 + q;
+    if (vec) {
+      cp_async16(dst + r * 32 + q, src);
+    } else {
+      cp_async4(dst + r * 32 + q, src);
+    }
+  }
+}
+
+// m_j of one candidate: the samples it passes (a prefix of 0 .. S-1);
+// `fl` holds the first C2_GROUP floors.
+__device__ __forceinline__ int pass_count(float a, float co, const float (&fl)[C2_GROUP],
+                                          const float* floors, int n_s) {
+  int m = 0;
+  if (!(a > co)) return 0;
+  if (n_s <= C2_GROUP) {
+#pragma unroll
+    for (int s = 0; s < C2_GROUP; ++s) m += s < n_s && a > fl[s];
+    return m;
+  }
+  while (m < n_s && a > floors[m]) ++m;
+  return m;
+}
+
+// Pass 1 of one staged tile, one lane a pixel: each slot's match (the last
+// candidate equal to a live id; -1 for none or a dead slot) into the byte
+// rows `match` [n_slots][32], C2_CHUNK slots' ids read at once. Returns
+// the candidates matched (a bit each); a live slot that matches none sets
+// `clamped`.
 template <int NC>
-__global__ void __launch_bounds__(THREADS)
+__device__ __forceinline__ unsigned match_tile(const int* stage, signed char* match,
+                                               int n_slots, int n, bool valid, int lane,
+                                               bool& clamped) {
+  const int* col = stage + lane;
+  const int* cs = stage + n_slots * 32 + lane;
+  int c[NC];
+  int last = 0;
+#pragma unroll
+  for (int j = 0; j < NC; ++j) {
+    c[j] = valid && j < n ? cs[j * 32] : -1;
+    if (c[j] >= 0) last = j + 1;
+  }
+  // a negative candidate never matches a live slot: the warp's compares
+  // stop after its lanes' last candidate >= 0
+  const int scan = __reduce_max_sync(0xffffffffu, last);
+  unsigned need = 0;
+  if (scan == 0) {  // no candidate in the warp: only the clamp mask
+    if (valid) {
+      for (int r = 0; r < n_slots; ++r) clamped |= col[r * 32] >= 0;
+    }
+    return 0;
+  }
+  for (int r0 = 0; r0 < n_slots; r0 += C2_CHUNK) {
+    int t[C2_CHUNK], idx[C2_CHUNK];
+#pragma unroll
+    for (int u = 0; u < C2_CHUNK; ++u) {
+      t[u] = valid && r0 + u < n_slots ? col[(r0 + u) * 32] : -1;
+      idx[u] = -1;
+    }
+#pragma unroll
+    for (int j = 0; j < NC; ++j) {
+      if (j >= scan) break;
+#pragma unroll
+      for (int u = 0; u < C2_CHUNK; ++u) {
+        if (c[j] == t[u]) idx[u] = j;
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < C2_CHUNK; ++u) {
+      if (r0 + u >= n_slots) break;
+      if (t[u] < 0) {
+        idx[u] = -1;  // not a match: a candidate < 0 may equal a dead id
+      } else if (idx[u] < 0) {
+        clamped = true;
+      } else {
+        need |= 1u << idx[u];
+      }
+      match[(r0 + u) * 32 + lane] = static_cast<signed char>(idx[u]);
+    }
+  }
+  return need;
+}
+
+// The rest of one pixel once its tile's ids are no longer needed: the
+// matched candidates' alpha and cutoff (read once, all in flight) become
+// pass counts [n][32] (bytes), then each sample's nearest passing layer,
+// its depth and id read together (the id from lt, just streamed: in L2),
+// and stored.
+template <int NC>
+__device__ __forceinline__ void merge_pixel(
+    const signed char* match, unsigned char* passes, const float (&fl)[C2_GROUP],
+    const float* floors, const int* __restrict__ lt, const float* __restrict__ lz,
+    const float* __restrict__ alpha, const float* __restrict__ cutoff,
+    int* __restrict__ solid_tid, float* __restrict__ solid_z, int n_s, int k_layers,
+    long long plane, long long p, int lane, unsigned need) {
+  // C2_GATHER candidates a round (a pixel matches one to three, mostly)
+  for (unsigned rest = need; rest != 0;) {
+    int j[C2_GATHER];
+    float a[C2_GATHER], co[C2_GATHER];
+#pragma unroll
+    for (int q = 0; q < C2_GATHER; ++q) {
+      j[q] = rest != 0 ? __ffs(rest) - 1 : -1;
+      rest &= rest - 1;
+    }
+#pragma unroll
+    for (int q = 0; q < C2_GATHER; ++q) {
+      a[q] = co[q] = 0.0f;
+      if (j[q] >= 0) {
+        a[q] = __ldg(alpha + j[q] * plane + p);
+        co[q] = __ldg(cutoff + j[q] * plane + p);
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < C2_GATHER; ++q) {
+      if (j[q] >= 0)
+        passes[j[q] * 32 + lane] =
+            static_cast<unsigned char>(pass_count(a[q], co[q], fl, floors, n_s));
+    }
+  }
+  for (int s0 = 0; s0 < n_s; s0 += C2_GROUP) {
+    int row[C2_GROUP];
+#pragma unroll
+    for (int u = 0; u < C2_GROUP; ++u) {
+      const int s = s0 + u;
+      row[u] = -1;
+      if (s >= n_s) continue;
+      for (int k0 = 0; k0 < k_layers && row[u] < 0; k0 += C2_CHUNK) {
+        const int r0 = s * k_layers + k0;
+        int idx[C2_CHUNK], m[C2_CHUNK];
+#pragma unroll
+        for (int v = 0; v < C2_CHUNK; ++v)
+          idx[v] = k0 + v < k_layers ? match[(r0 + v) * 32 + lane] : -1;
+#pragma unroll
+        for (int v = 0; v < C2_CHUNK; ++v) m[v] = idx[v] >= 0 ? passes[idx[v] * 32 + lane] : 0;
+#pragma unroll
+        for (int v = 0; v < C2_CHUNK; ++v) {
+          if (row[u] < 0 && s < m[v]) row[u] = r0 + v;
+        }
+      }
+    }
+    int t[C2_GROUP];
+    float z[C2_GROUP];
+#pragma unroll
+    for (int u = 0; u < C2_GROUP; ++u) {
+      if (row[u] < 0) continue;
+      t[u] = __ldg(lt + row[u] * plane + p);
+      z[u] = __ldg(lz + row[u] * plane + p);
+    }
+#pragma unroll
+    for (int u = 0; u < C2_GROUP; ++u) {
+      if (row[u] < 0) continue;
+      solid_tid[(s0 + u) * plane + p] = t[u];
+      solid_z[(s0 + u) * plane + p] = z[u];
+    }
+  }
+}
+
+// Shared bytes of one warp: C2_STAGES stages of [S*K + n][32] ids, then
+// [S*K][32] matches and [n][32] pass counts (bytes).
+__host__ __device__ constexpr int merge_warp_bytes(int rows) {
+  return (C2_STAGES * rows * 4 + rows) * 32;
+}
+
+// The persistent kernel. Each warp is a pipeline of its own: it walks the
+// 32-pixel tiles gw, gw + warps, ... (gw its index in the grid), copies
+// C2_STAGES tiles ahead into its ring and refills a stage as soon as pass
+// 1 has read it, so its copies stay in flight while it waits on its
+// gathers; no block-wide barrier holds a warp back for another's gathers.
+template <int NC>
+__global__ void __launch_bounds__(C2_WARPS * 32)
 merge_kernel(const int* __restrict__ lt, const float* __restrict__ lz,
              const int* __restrict__ cands, const float* __restrict__ alpha,
              const float* __restrict__ cutoff, int* __restrict__ solid_tid,
              float* __restrict__ solid_z, unsigned char* __restrict__ clamp,
-             int n_s, int k_layers, int n, long long plane) {
-  const long long p = pixel_index();
-  if (p >= plane) return;
-  int c[NC];
-  load_ids(c, cands, n, plane, p);
-  bool clamped = false;
-  for (int s = 0; s < n_s; ++s) {
-    const float floor_s =
-        n_s > 1 ? static_cast<float>((s + 0.5) / n_s) : 0.0f;
-    const long long base = static_cast<long long>(s) * k_layers;
-    int tid = -1;
-    float z = 0.0f;
-    bool moved = false;
-    for (int k = k_layers - 1; k >= 0; --k) {
-      const int t = __ldg(lt + (base + k) * plane + p);
-      if (t < 0) continue;
-      const int idx = last_match(c, n, t);
-      if (idx < 0) {
-        clamped = true;
-        continue;
-      }
-      const float a = __ldg(alpha + idx * plane + p);
-      const float co = __ldg(cutoff + idx * plane + p);
-      if (a > co && a > floor_s) {
-        tid = t;
-        z = __ldg(lz + (base + k) * plane + p);
-        moved = true;
-      }
-    }
-    if (moved) {
-      solid_tid[s * plane + p] = tid;
-      solid_z[s * plane + p] = z;
-    }
+             int n_s, int k_layers, int n, long long plane, int vec) {
+  extern __shared__ __align__(16) int c2_shared[];
+  __shared__ float floors[MAX_SLOTS];
+  const int n_slots = n_s * k_layers, rows = n_slots + n;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int* ring = c2_shared + warp * (merge_warp_bytes(rows) / 4);
+  signed char* match = reinterpret_cast<signed char*>(ring + C2_STAGES * rows * 32);
+  unsigned char* passes = reinterpret_cast<unsigned char*>(match + n_slots * 32);
+  for (int s = threadIdx.x; s < n_s; s += blockDim.x)
+    floors[s] = n_s > 1 ? static_cast<float>((s + 0.5) / n_s) : 0.0f;
+  __syncthreads();
+  float fl[C2_GROUP];
+#pragma unroll
+  for (int s = 0; s < C2_GROUP; ++s) fl[s] = s < n_s ? floors[s] : 0.0f;
+  const long long tiles = (plane + 31) >> 5;
+  const long long step = static_cast<long long>(gridDim.x) * (blockDim.x >> 5);
+  const long long first = static_cast<long long>(blockIdx.x) * (blockDim.x >> 5) + warp;
+#pragma unroll
+  for (int i = 0; i < C2_STAGES; ++i) {
+    const long long tile = first + i * step;
+    if (tile < tiles)
+      stage_tile(ring + i * rows * 32, lt, cands, n_slots, rows, plane, tile << 5, vec != 0,
+                 lane);
+    cp_async_commit();
   }
-  if (clamped) clamp[p] = 1;
+  int here = 0;
+  for (long long tile = first; tile < tiles; tile += step) {
+    const long long p = (tile << 5) + lane;
+    const bool valid = p < plane;
+    cp_async_wait<C2_STAGES - 1>();
+    __syncwarp();  // every lane's copies into the stage have landed
+    bool clamped = false;
+    const unsigned need = match_tile<NC>(ring + here * rows * 32, match, n_slots, n, valid,
+                                         lane, clamped);
+    __syncwarp();  // the stage is read: refill it
+    const long long ahead = tile + C2_STAGES * step;
+    if (ahead < tiles)
+      stage_tile(ring + here * rows * 32, lt, cands, n_slots, rows, plane, ahead << 5,
+                 vec != 0, lane);
+    cp_async_commit();
+    here = here == C2_STAGES - 1 ? 0 : here + 1;
+    if (need != 0)
+      merge_pixel<NC>(match, passes, fl, floors, lt, lz, alpha, cutoff, solid_tid, solid_z,
+                      n_s, k_layers, plane, p, lane, need);
+    if (clamped) clamp[p] = 1;
+  }
 }
 
 __device__ __forceinline__ float4 load4(const float* __restrict__ src, long long i) {
@@ -270,22 +527,104 @@ extern "C" int rt_extract_candidates(const int* slots, int* cands, int* count,
 #undef RC_CASE
 }
 
+namespace {
+
+// C2's launch: warps a block (as many as let their stages and bytes fit
+// C2_SHARED), its dynamic shared bytes, the blocks an SM holds and the
+// persistent grid. The occupancy is asked when the shape changes (a frame
+// launches C2 at one shape), so a repeated launch asks the runtime only
+// for the current device.
+struct MergeLaunch {
+  int warps = 0, shared = 0, blocks_per_sm = 0, sms = 0;
+  long long grid = 0;
+};
+
+template <int NC>
+cudaError_t merge_launch(int n_s, int k, int n, long long plane, MergeLaunch* out) {
+  static MergeLaunch last[64];  // a device's last shape, sms = 0 before its first
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  MergeLaunch m;
+  const int warp_bytes = rc::merge_warp_bytes(n_s * k + n);
+  m.warps = std::min(rc::C2_WARPS, rc::C2_SHARED / warp_bytes);
+  if (m.warps < 1) return cudaErrorInvalidValue;
+  m.shared = m.warps * warp_bytes;
+  MergeLaunch& c = last[dev];
+  if (c.sms == 0) {
+    err = cudaFuncSetAttribute(rc::merge_kernel<NC>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, rc::C2_SHARED);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&m.sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return err;
+  } else {
+    m.sms = c.sms;
+  }
+  if (c.sms == 0 || c.warps != m.warps || c.shared != m.shared) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&m.blocks_per_sm, rc::merge_kernel<NC>,
+                                                        m.warps * 32, m.shared);
+    if (err != cudaSuccess) return err;
+    c = m;
+  }
+  m.blocks_per_sm = c.blocks_per_sm;
+  const long long tiles = (plane + 31) / 32;
+  m.grid = std::min((tiles + m.warps - 1) / m.warps,
+                    static_cast<long long>(m.sms) * std::max(m.blocks_per_sm, 1));
+  *out = m;
+  return cudaSuccess;
+}
+
+}  // namespace
+
 // lt, lz [n_s, k, plane]; cands, alpha, cutoff [n, plane]; solid_tid,
-// solid_z [n_s, plane] and clamp [plane] (u8) updated in place.
+// solid_z [n_s, plane] and clamp [plane] (u8) updated in place. At most
+// MAX_SLOTS slots (n_s * k) and MAX_CANDIDATES candidates.
 extern "C" int rt_masked_merge(const int* lt, const float* lz, const int* cands,
                                const float* alpha, const float* cutoff,
                                int* solid_tid, float* solid_z, unsigned char* clamp,
                                int n_s, int k, int n, long long plane, void* stream) {
   if (plane <= 0 || n_s <= 0 || k <= 0) return 0;
-  if (n < 1 || n > rc::MAX_CANDIDATES || !rc::grid_fits(plane))
+  if (n < 1 || n > rc::MAX_CANDIDATES || n_s * k > rc::MAX_SLOTS || !rc::grid_fits(plane))
     return static_cast<int>(cudaErrorInvalidValue);
   auto st = static_cast<cudaStream_t>(stream);
-#define RC_CASE(NC)                                                      \
-  {                                                                      \
-    rc::merge_kernel<NC><<<rc::blocks_for(plane), rc::THREADS, 0, st>>>( \
-        lt, lz, cands, alpha, cutoff, solid_tid, solid_z, clamp, n_s, k, \
-        n, plane);                                                       \
-    return static_cast<int>(cudaGetLastError());                         \
+  const bool vec = plane % 4 == 0 && reinterpret_cast<uintptr_t>(lt) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(cands) % 16 == 0;
+#define RC_CASE(NC)                                                                  \
+  {                                                                                  \
+    MergeLaunch m;                                                                   \
+    cudaError_t err = merge_launch<NC>(n_s, k, n, plane, &m);                        \
+    if (err != cudaSuccess) return static_cast<int>(err);                            \
+    rc::merge_kernel<NC><<<static_cast<unsigned>(m.grid), m.warps * 32, m.shared, st>>>( \
+        lt, lz, cands, alpha, cutoff, solid_tid, solid_z, clamp, n_s, k, n, plane,   \
+        vec ? 1 : 0);                                                                \
+    return static_cast<int>(cudaGetLastError());                                     \
+  }
+  RC_DISPATCH(n, RC_CASE)
+#undef RC_CASE
+}
+
+// C2's launch for these sizes on the current device: out[0..5]
+// = threads a block (32 a warp, a warp a 32-pixel tile), dynamic shared
+// bytes a block, blocks an SM, SMs, grid, and the kernel's registers a
+// thread (cudaFuncGetAttributes).
+extern "C" int rt_merge_info(int n_s, int k, int n, long long plane, long long* out) {
+  if (n < 1 || n > rc::MAX_CANDIDATES || n_s <= 0 || k <= 0 || n_s * k > rc::MAX_SLOTS)
+    return static_cast<int>(cudaErrorInvalidValue);
+#define RC_CASE(NC)                                                     \
+  {                                                                     \
+    MergeLaunch m;                                                      \
+    cudaFuncAttributes fa;                                              \
+    cudaError_t err = merge_launch<NC>(n_s, k, n, plane, &m);           \
+    if (err == cudaSuccess) err = cudaFuncGetAttributes(&fa, rc::merge_kernel<NC>); \
+    if (err != cudaSuccess) return static_cast<int>(err);               \
+    out[0] = m.warps * 32;                                              \
+    out[1] = m.shared;                                                  \
+    out[2] = m.blocks_per_sm;                                           \
+    out[3] = m.sms;                                                     \
+    out[4] = m.grid;                                                    \
+    out[5] = fa.numRegs;                                                \
+    return 0;                                                           \
   }
   RC_DISPATCH(n, RC_CASE)
 #undef RC_CASE

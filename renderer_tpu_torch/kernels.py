@@ -67,6 +67,8 @@ _SIGNATURES = {
     # lt, lz, cands, alpha, cutoff, solid_tid, solid_z, clamp, n_s, k, n,
     # plane, stream
     "rt_masked_merge": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _L, _P),
+    # n_s, k, n, plane, long long out[6] (MERGE_INFO)
+    "rt_merge_info": (_I, _I, _I, _L, _P),
     # solid_tid, cands_s, shaded_s, lt_b, cands_b, shaded_b, hdr, clamp, n_s,
     # n_cs, k, n_cb, plane, stream
     "rt_resolve": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _P),
@@ -196,16 +198,37 @@ def shade_info(kernel: str, bf16: bool = False, per_tap: bool = True) -> dict:
     return dict(zip(SHADE_INFO, (int(v) for v in out)))
 
 
+#: rt_merge_info's fields, in order
+MERGE_INFO = ("threads", "dynamic_shared_bytes", "blocks_per_sm", "sms", "grid",
+              "registers")
+
+
+def merge_info(n_s: int, k: int, n: int, plane: int) -> dict:
+    """The launch of C2 (csrc/candidates.cu `merge_kernel`) for S = n_s
+    samples, k layers, n candidates and a plane of `plane` pixels on the
+    current device: a block's threads (a warp a 32-pixel tile), its
+    dynamic shared bytes (each warp's ring of staged ids, its matches and
+    pass counts), the blocks an SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), the SMs, the
+    persistent grid and the instantiation's registers a thread."""
+    out = (ctypes.c_longlong * len(MERGE_INFO))()
+    check_launch("merge_info", load().rt_merge_info(n_s, k, n, plane, out))
+    return dict(zip(MERGE_INFO, (int(v) for v in out)))
+
+
 def ptxas_report(log: Path | None = None) -> dict:
     """{mangled kernel name: {"registers", "stack", "spill_stores",
-    "spill_loads"}} from the `ptxas -v` output in the build's build.log."""
+    "spill_loads", "shared"}} from the `ptxas -v` output in the build's
+    build.log ("shared": static shared bytes, 0 where ptxas prints none)."""
     text = (log or BUILD_DIR / "build.log").read_text()
     out = {}
     for m in re.finditer(
             r"Function properties for (\S+)\n\s*(\d+) bytes stack frame, (\d+) bytes "
-            r"spill stores, (\d+) bytes spill loads\n[^\n]*Used (\d+) registers", text):
+            r"spill stores, (\d+) bytes spill loads\n[^\n]*Used (\d+) registers"
+            r"(?:[^\n]*?(\d+) bytes smem)?", text):
         out[m.group(1)] = dict(stack=int(m.group(2)), spill_stores=int(m.group(3)),
-                               spill_loads=int(m.group(4)), registers=int(m.group(5)))
+                               spill_loads=int(m.group(4)), registers=int(m.group(5)),
+                               shared=int(m.group(6) or 0))
     return out
 
 

@@ -35,9 +35,9 @@ from renderer_tpu_torch.raster.shade import check_tensor
 #: ("cand_merge") and C3 ("cand_resolve"); the plain versions do not count
 launches = {"cand_extract": 0, "cand_merge": 0, "cand_resolve": 0}
 
-#: the kernels' limits (csrc/candidates.cu): slots (8 samples × 16 layers,
-#: layers.MAX_KERNEL_LAYERS), candidates (16 layers + 7 extra candidates)
-#: and solid candidates in C3 (at most the MSAA count)
+#: the kernels' limits (csrc/candidates.cu): slots in C1 and C2 (8 samples ×
+#: 16 layers, layers.MAX_KERNEL_LAYERS), candidates (16 layers + 7 extra
+#: candidates) and solid candidates in C3 (at most the MSAA count)
 MAX_SLOTS, MAX_CANDIDATES, MAX_SOLID = 128, 23, 8
 
 
@@ -193,11 +193,13 @@ def masked_merge(lt: torch.Tensor, lz: torch.Tensor, cands: torch.Tensor,
     solid_z f32 [S, h, w], updated in place); a live layer matching no
     candidate sets clamp [h, w] bool (in place). CPU tensors run
     masked_merge_plain; CUDA tensors launch C2 (csrc/candidates.cu, for
-    the JAX package's XLA-fused merge, renderer_tpu/raster/pipeline.py:407-439)."""
+    the JAX package's XLA-fused merge, renderer_tpu/raster/pipeline.py:407-439),
+    which takes 1..MAX_SLOTS slots (S·K) and 1..MAX_CANDIDATES candidates."""
     if _device(lt, "masked_merge") == "cpu":
         return masked_merge_plain(lt, lz, cands, alpha, cutoff, solid_tid, solid_z, clamp)
-    if lt.ndim != 4:
-        raise ValueError(f"masked_merge: lt must be [S, K, h, w], got {tuple(lt.shape)}")
+    if lt.ndim != 4 or not 1 <= lt.shape[0] * lt.shape[1] <= MAX_SLOTS:
+        raise ValueError(f"masked_merge: lt {tuple(lt.shape)}; the kernel takes [S, K, h, w] "
+                         f"with 1..{MAX_SLOTS} slots S·K")
     n_s, k, h, w = lt.shape
     n = cands.shape[0] if cands.ndim == 3 else 0
     if not 1 <= n <= MAX_CANDIDATES:

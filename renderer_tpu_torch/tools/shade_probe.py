@@ -80,12 +80,13 @@ def load(so: Path) -> ctypes.CDLL:
 
 
 @contextlib.contextmanager
-def using(lib):
-    """Inside the block the wrappers launch `lib`'s S1 and S2; every other
-    kernel stays the library's."""
+def using(lib, names=("rt_shade_stack", "rt_alpha_stack")):
+    """Inside the block the wrappers launch `lib`'s entry points `names`
+    (S1 and S2 by default); every other kernel stays the library's."""
     base = kernels.load()
     mixed = types.SimpleNamespace(**{n: getattr(base, n) for n in kernels._SIGNATURES})
-    mixed.rt_shade_stack, mixed.rt_alpha_stack = lib.rt_shade_stack, lib.rt_alpha_stack
+    for name in names:
+        setattr(mixed, name, getattr(lib, name))
     original = kernels.load
     kernels.load = lambda: mixed
     try:

@@ -993,6 +993,11 @@ def test_candidate_kernels_raise_past_their_limits(cuda):
         candidates.masked_merge(lt, f, z[:24], f[0, :1].expand(24, 8, 8).contiguous(),
                                 f[0, :1].expand(24, 8, 8).contiguous(), z[:4], f[0],
                                 torch.zeros((8, 8), dtype=torch.bool, device=cuda))
+    with pytest.raises(ValueError):  # 9 × 16 = 144 slots
+        lt9 = torch.zeros((9, 16, 8, 8), dtype=torch.int32, device=cuda)
+        candidates.masked_merge(lt9, lt9.float(), z[:4], f[0], f[0], z[:9],
+                                lt9[:, 0].float(), torch.zeros((8, 8), dtype=torch.bool,
+                                                               device=cuda))
     clamp = torch.zeros((8, 8), dtype=torch.bool, device=cuda)
     with pytest.raises(ValueError):
         candidates.resolve(z[:4], z[:9], torch.zeros((9, 8, 8, 4), device=cuda), clamp)
@@ -1000,6 +1005,23 @@ def test_candidate_kernels_raise_past_their_limits(cuda):
         candidates.resolve(z[:4], z[:4], torch.zeros((4, 8, 8, 4), device=cuda), clamp,
                            lt, z[:24], torch.zeros((24, 8, 8, 4), device=cuda))
     assert candidates.launches == before
+
+
+def test_merge_info_on_the_card(cuda):
+    """C2's launch (kernels.merge_info): at frame B's 4 samples × 8 layers
+    and 11 candidates, 8 warps a block, each with its stage of 43 rows × 32
+    pixels of ids, its matches and pass counts; fewer warps as the slots
+    grow; a persistent grid of SMs × the blocks an SM holds, no more blocks
+    than the tiles need; no spill in any instantiation."""
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    frame_b = kernels.merge_info(4, 8, 11, 1088 * 1920)
+    assert frame_b["threads"] == 256 and frame_b["blocks_per_sm"] >= 1, frame_b
+    assert frame_b["sms"] == sms and frame_b["grid"] == sms * frame_b["blocks_per_sm"]
+    assert frame_b["dynamic_shared_bytes"] == 8 * (43 * 4 + 43) * 32
+    widest = kernels.merge_info(8, 16, 23, 100)  # 151 rows: 4 warps, 4 tiles
+    assert widest["threads"] == 128 and widest["grid"] == 1, widest
+    report = {k: v for k, v in kernels.ptxas_report().items() if "12merge_kernel" in k}
+    assert len(report) == 6 and not any(v["spill_stores"] for v in report.values()), report
 
 
 def test_candidate_kernels_replay_from_a_graph(cuda):
