@@ -153,7 +153,16 @@ ms issued and queued, plain ms, a bound from the bytes the calls' data
 needs (candidate_work) and the registers, stack, spills and static
 shared bytes of the instantiations they ran (for C2 also its launch:
 tile pixels, the dynamic shared bytes of its ring of staged slot ids,
-blocks an SM, grid; kernels.merge_info). It times scene C's UI
+blocks an SM, grid; kernels.merge_info). The front end's kernels F1-F4
+(csrc/frontend.cu: setup.triangle_setup, and binning.bin_triangle_classes
+with its two cumsums and stable sort between the kernels) get the same:
+every setup and binning call of the frame (C's UI pass adds one of each)
+recorded (tools/frontend_probe), run again through the kernels and the
+plain versions (0 values may differ in bits, NaN included), each step
+timed queued behind a spin (frontend_probe.step_ms) beside its bound
+(frontend_probe.frontend_work), the whole call timed as issued; one row a
+kernel with the frame's calls summed, the plain version's ms that of the
+whole function. It times scene C's UI
 pass piece by piece (tools.frame_profile.ui_pass_ms: its raster and the
 fused S3), then replays frames A, B and C
 as CUDA graphs (engine.stats.fused_frame_ms; the multi-frame path has no UI
@@ -238,6 +247,7 @@ from renderer_tpu_torch.tools import (
     candidate_check,
     frame_capture,
     frame_profile,
+    frontend_probe,
     make_ntex,
     native,
     prologue_probe,
@@ -292,7 +302,9 @@ FLOPS_PER_S = 67e12  # H100 SXM FP32 outside the tensor cores (data sheet)
 PIPELINE_KEYS = {"k1": "k1", "masked": "k2_masked", "blended": "k2_blended",
                  "ui": "k2_ui", "shade": "s1", "alpha": "s2", "ui_shade": "s3",
                  "ui_composite": "s3c", "cand_extract": "c1", "cand_merge": "c2",
-                 "cand_resolve": "c3"}
+                 "cand_resolve": "c3", "setup": "f1", "bin_spans": "f2_spans",
+                 "bin_rows": "f2_rows", "bin_pairs": "f3", "bin_scan": "f4_scan",
+                 "bin_scatter": "f4_scatter"}
 # the shading kernels: (entry point, what it replaces in the JAX package)
 SHADE_KERNELS = {
     "s1": ("S1 shade_stack", "renderer_tpu/raster/shade.py:329"),
@@ -309,7 +321,9 @@ JPEG_LAYOUTS = ("written-ycck", "written-411", "arith-420-progressive-dac-restar
 BENCH_FRAMES = {"default": 30, "mini-sandbox": 30, "patch-wall": 8}
 # the main path's kernels (S3 alone, shade_ui_layer, is off it)
 MAIN_PATH_KERNELS = ("k1", "k2_masked", "k2_blended", "k2_ui", "s1", "s2", "s3c",
-                     "c1", "c2", "c3")
+                     "c1", "c2", "c3", "f1", "f2_spans", "f2_rows", "f3", "f4_scan",
+                     "f4_scatter")
+FRONTEND = ("f1", "f2_spans", "f2_rows", "f3", "f4_scan", "f4_scatter")
 # the candidate kernels: (entry point, what it replaces in the JAX package,
 # the device function's name in csrc/candidates.cu)
 CANDIDATE_KERNELS = {
@@ -317,6 +331,19 @@ CANDIDATE_KERNELS = {
     "c2": ("C2 masked_merge", "renderer_tpu/raster/pipeline.py:407-439", "merge_kernel"),
     "c3": ("C3 resolve (solid select + blended composite)",
            "renderer_tpu/raster/pipeline.py:452-490", "resolve_kernel"),
+}
+# the front end's kernels, by step of tools/frontend_probe: (counter, what
+# it replaces in the JAX package, XLA-fused there, no Pallas kernel)
+FRONTEND_KERNELS = {
+    "F1 setup": ("f1", "renderer_tpu/raster/setup.py:57 (XLA-fused; no Pallas)"),
+    "F2 spans": ("f2_spans", "renderer_tpu/raster/binning.py:66 (XLA-fused; no Pallas)"),
+    "F2 rows": ("f2_rows", "renderer_tpu/raster/binning.py:234-278 (XLA-fused; no Pallas)"),
+    "F3 pairs": ("f3", "renderer_tpu/raster/binning.py:279-343,352-354 "
+                       "(XLA-fused; no Pallas)"),
+    "F4 scan": ("f4_scan", "renderer_tpu/raster/binning.py:356-362,387-394 "
+                           "(XLA-fused; no Pallas)"),
+    "F4 scatter": ("f4_scatter", "renderer_tpu/raster/binning.py:344,364-380 "
+                                 "(XLA-fused; no Pallas)"),
 }
 # the profiled eager frames B and C when the candidate loops ran as torch
 # ops, before kernels C1-C3 (this script's phase 12 on an NVIDIA H100 80GB
@@ -860,7 +887,7 @@ def frames_checks(dev, rb, sc_b, card) -> dict:
 
     t0 = time.perf_counter()
     stages = {paced: engine_stats.device_stage_timings(rb, sc_b, iters=STAGE_ITERS,
-                                                        paced=paced)
+                                                        paced=paced, frame_binning=True)
               for paced in ("device", "host")}
     out["stage_timings_ms"] = stages["device"]
     out["stage_timings_host_paced_ms"] = stages["host"]
@@ -1962,6 +1989,76 @@ def candidate_rows(scene, renderer, sc, ui, main_launches, card) -> list:
     return rows
 
 
+def frontend_rows(scene, renderer, sc, ui, main_launches, card) -> list:
+    """Phase 12's front-end kernels on one scene: records one frame's
+    setup and binning calls (tools/frontend_probe), holds F1-F4 to the
+    plain versions bit for bit on each, times each step queued and each
+    call as issued, and returns one kernels-line row a kernel with the
+    frame's calls summed."""
+    calls = frontend_probe.frame_calls(renderer, sc, ui)
+    report = kernels.ptxas_report()
+    steps: dict[str, dict] = {}
+    plain_ms = {"F1": 0.0, "BIN": 0.0}
+    for i, (kind, args, kw) in enumerate(calls):
+        what = f"scene {scene}{' UI pass' if i >= 2 else ''} {kind}"
+        got = frontend_probe.run_frontend(kind, args, kw, plain=False)
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        want = frontend_probe.run_frontend(kind, args, kw, plain=True)
+        e1.record()
+        torch.cuda.synchronize()
+        plain = e0.elapsed_time(e1)
+        plain_ms[kind] += plain
+        diff = frontend_probe.compare(got, want)
+        if diff["differing"]:
+            raise RuntimeError(f"{what}: {diff['differing']} of {diff['values']} values "
+                               "differ in bits from the plain version")
+        work = frontend_probe.frontend_work(kind, args, kw, want)
+        queued = frontend_probe.step_ms(kind, args, kw)
+        issued = cuda_ms(lambda: frontend_probe.run_frontend(kind, args, kw, False), 10)
+        print(f"frontend: {what}: {diff['values']} values bit-equal ({diff['nan']} NaN) | "
+              f"issued {issued:.4f} ms, steps queued {sum(queued.values()):.4f} ms, plain "
+              f"{plain:.3f} ms | " + ", ".join(
+                  f"{k} {v:.4f} ms (bound {work[k] / BYTES_PER_S * 1e3:.4f})"
+                  for k, v in queued.items()) + f" | {card}", flush=True)
+        for k, v in queued.items():
+            acc = steps.setdefault(k, {"ms": 0.0, "bytes": 0, "kind": kind, "calls": 0})
+            acc["ms"] += v
+            acc["bytes"] += work[k]
+            acc["calls"] += 1
+        del got, want
+    rows = []
+    for step, (counter, replaces) in FRONTEND_KERNELS.items():
+        acc = steps[step]
+        res = frontend_probe.resources(report, step)
+        bound_ms = acc["bytes"] / BYTES_PER_S * 1e3
+        row = dict(
+            name=f"{step} (scene {scene}, {W}x{H}, the frame's {acc['calls']} calls)",
+            route="cuda", source="renderer_tpu_torch/csrc/frontend.cu", replaces=replaces,
+            launches=main_launches[counter], max_abs_err=0.0, ms=acc["ms"],
+            ms_queued=acc["ms"], plain_ms=plain_ms[acc["kind"]], bound_ms=bound_ms,
+            bound_by="bytes", library_ms=None, launches_per_frame=None,
+            bytes=acc["bytes"], resources=res,
+            plain_of=("triangle_setup_plain" if acc["kind"] == "F1"
+                      else "bin_triangle_classes_plain (the whole binning call)"),
+            scene=scene, counter=counter)
+        row["share"] = bound_ms / acc["ms"]
+        print(f"kernel: {row['name']}: bit-equal | {acc['ms']:.4f} ms queued vs plain "
+              f"{row['plain_ms']:.3f} ms ({row['plain_of']}) | bound {bound_ms:.4f} ms "
+              f"(bytes: {acc['bytes'] / 1e6:.2f} MB), share {row['share']:.1%} | "
+              f"{res['registers']} registers, {res['stack']} B stack, spills "
+              f"{res['spill_stores']} B stored / {res['spill_loads']} B loaded, "
+              f"{res['shared']} B static shared | {card}", flush=True)
+        rows.append(row)
+    for step in binning.STEPS:
+        if step[1] is None:
+            acc = steps[step[0]]
+            print(f"frontend: library step {step[0]} (scene {scene}, {acc['calls']} calls): "
+                  f"{acc['ms']:.4f} ms queued, bound {acc['bytes'] / BYTES_PER_S * 1e3:.4f} "
+                  f"ms | {card}", flush=True)
+    return rows
+
+
 def phase12(dev, card, main_launches, frame_ms) -> tuple[list, dict]:
     """Phase 12 (module docstring): the shading kernels against their plain
     versions on scenes A, B and C, the frames replayed as graphs, and one
@@ -1980,6 +2077,7 @@ def phase12(dev, card, main_launches, frame_ms) -> tuple[list, dict]:
                             ("C", rc, sc_c, ui_c)):
         rows += shading_rows(name, r, sc, ui, main_launches, card)
         rows += candidate_rows(name, r, sc, ui, main_launches, card)
+        rows += frontend_rows(name, r, sc, ui, main_launches, card)
     ui_msaa = ui_msaa_checks(frames_c, cfg_c, pol_c, dev, card)
     reset_counters()  # the tool's own launches (S3 among them)
     ui_pass = frame_profile.ui_pass_ms(rc, ui_c)
@@ -2158,6 +2256,10 @@ def main() -> int:
             raise RuntimeError(f"K2 (both modes), S2 or C2 not launched for {name}: {moved}")
     if moved_c["k2_ui"] < 1 or moved_c["s3c"] < 1:
         raise RuntimeError(f"K2's UI launch or the fused S3 not made for C: {moved_c}")
+    for name, moved in (("A", moved_a), ("B", moved_b), ("C", moved_c)):
+        # C's UI pass runs setup and binning a second time
+        if any(moved[k] < (2 if name == "C" else 1) for k in FRONTEND):
+            raise RuntimeError(f"F1-F4 not launched in every pass of {name}: {moved}")
     print(f"main path: A {moved_a} B {moved_b} C {moved_c} first frames "
           f"{first_s:.1f} s | A total_pairs {stats_a['total_pairs']} | B total_pairs "
           f"{stats_b['total_pairs']} masked_demand {stats_b['masked_demand_max']} "

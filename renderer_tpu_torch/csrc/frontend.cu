@@ -1,0 +1,634 @@
+// F1-F4: the raster front end, triangle setup and tile binning.
+//
+// Replace what the JAX package leaves to XLA to fuse inside its jitted
+// frame: no Pallas kernel of its own. Plain versions: raster/setup.py
+// `triangle_setup_plain` and raster/binning.py `bin_triangle_classes_plain`.
+// - F1 rt_setup (setup_kernel): renderer_tpu/raster/setup.py:57
+//   `triangle_setup`, one thread a triangle.
+// - F2 rt_bin_spans + rt_bin_rows (spans_kernel, rows_kernel):
+//   renderer_tpu/raster/binning.py:66 `_tile_spans` and stage 1 of
+//   `bin_triangle_classes` (:234-278, the repeat at :239): a triangle's
+//   tile span, class, band clip and z-bucket, then one thread a row slot.
+// - F3 rt_bin_pairs (pairs_kernel): stage 2 (:279-343, the repeat at
+//   :283), one thread a pair slot: the tile, the key and the extent
+//   reject, and the group counts that stand for the searchsorted pair
+//   (:352-354).
+// - F4 rt_bin_scan + rt_bin_scatter (scan_kernel, scatter_kernel): the
+//   128-aligned starts (:356-362), the per-class overflow (:387-394) and
+//   the scatter of the sorted pairs into the binned buffer (:364-380).
+// Between them the wrapper runs two torch.cumsum and one stable torch.sort
+// of the keys (jnp.cumsum and jnp.argsort in the JAX package).
+//
+// What bounds them on an H100: device memory, and at frame B's sizes
+// (301,056 triangles, 1<<19 pair slots) the launches themselves. Eagerly,
+// the plain versions are ~550 PyTorch launches, each a pass over one
+// [Tc], [row_capacity] or [pair_capacity] vector; here one pass a stage.
+//
+// Design: one thread an element (triangle, row slot, pair slot, binned
+// column), 256 a block, consecutive threads on consecutive elements so the
+// SoA rows are read and written coalesced. The ragged repeats become a
+// binary search of a thread's slot in the inclusive cumsum (the top of the
+// search is the same for a warp, so it hits L1). The scatter is a gather:
+// one thread a column of the binned buffer finds its (class, tile) group
+// by a binary search of the 128-aligned starts and copies its pair's 16
+// rows, or zeros, so the buffer is written once and needs no memset.
+// Class and group counts are integer atomics (the class totals summed in
+// shared memory first); integer sums do not depend on their order.
+//
+// Bit-equality with the plain versions: every product, sum and quotient
+// is the intrinsic of the torch op it repeats (__fmul_rn, __fadd_rn,
+// __fsub_rn, __fdiv_rn; torch.reciprocal is 1 / x), in torch's order,
+// built with --fmad=false; torch.maximum / minimum / clamp keep a NaN
+// operand, amin / amax reduce three values as torch's reduction does
+// (v0 with v2, then v1); f32_to_i32 is __float2int_rz (truncation,
+// saturation, NaN to 0); integer arithmetic wraps as int32 tensors do.
+// Where the JAX package divides by a tile size, the plain version and the
+// kernels multiply by its f32 reciprocal, as XLA does with a constant
+// divisor (binning._reciprocal).
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace rf {
+
+constexpr int THREADS = 256;
+constexpr int SCAN_THREADS = 1024;
+constexpr int ROWS = 24;        // setup.py ROWS
+constexpr int B_ROWS = 16;      // binning.py B_ROWS: rows 0-14 and the id
+constexpr int B_TID = 15;
+constexpr int ALIGN = 128;      // binning.py ALIGN
+constexpr int MAX_CLASSES = 3;  // opaque, masked, blended
+constexpr float W_EPS = 1e-6f;  // setup.py W_EPS
+
+// A count the caller gives as a Python number or a one-element int32 /
+// int64 tensor on the device (read there: the host never waits for it).
+struct Count {
+  const void* ptr;
+  long long value;
+  int is64;
+};
+
+__device__ __forceinline__ long long read_count(const void* ptr, long long value, int is64) {
+  if (ptr == nullptr) return value;
+  return is64 ? *static_cast<const long long*>(ptr) : *static_cast<const int*>(ptr);
+}
+
+__device__ __forceinline__ long long thread_index() {
+  return static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
+}
+
+// int32 arithmetic that wraps, as torch's int32 tensors do
+__device__ __forceinline__ int wadd(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) + static_cast<unsigned>(b));
+}
+__device__ __forceinline__ int wsub(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) - static_cast<unsigned>(b));
+}
+__device__ __forceinline__ int wmul(int a, int b) {
+  return static_cast<int>(static_cast<unsigned>(a) * static_cast<unsigned>(b));
+}
+
+// torch.maximum / torch.minimum on floats (a NaN operand is returned)
+__device__ __forceinline__ float tmax(float a, float b) {
+  return a != a ? a : (b != b ? b : fmaxf(a, b));
+}
+__device__ __forceinline__ float tmin(float a, float b) {
+  return a != a ? a : (b != b ? b : fminf(a, b));
+}
+// torch.clamp(x, lo, hi) on floats (NaN stays NaN)
+__device__ __forceinline__ float tclamp(float x, float lo, float hi) {
+  return x != x ? x : fminf(fmaxf(x, lo), hi);
+}
+// torch.amin / amax over three values: the CUDA reduction runs two threads
+// an output, (v0, v2) and (v1), combined in that order; ties keep the
+// later operand and a NaN wins
+__device__ __forceinline__ float amin3(float v0, float v1, float v2) {
+  auto f = [](float a, float b) { return (a != a || a < b) ? a : b; };
+  return f(f(v0, v2), v1);
+}
+__device__ __forceinline__ float amax3(float v0, float v1, float v2) {
+  auto f = [](float a, float b) { return (a != a || a > b) ? a : b; };
+  return f(f(v0, v2), v1);
+}
+
+// binning.f32_to_i32: truncate, saturate, NaN to 0
+__device__ __forceinline__ int f32_to_i32(float x) { return __float2int_rz(x); }
+
+// torch.div(a, b, rounding_mode="floor") for b > 0
+__device__ __forceinline__ int floor_div(int a, int b) {
+  int q = a / b;
+  return (a % b != 0 && a < 0) ? q - 1 : q;
+}
+
+// First index in [0, n) whose value exceeds x (n if none): the slot's
+// element in an inclusive cumsum, as the ragged repeat assigns it.
+__device__ __forceinline__ int upper_bound(const int* __restrict__ a, int n, long long x) {
+  int lo = 0, hi = n;
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (static_cast<long long>(__ldg(a + mid)) > x) hi = mid;
+    else lo = mid + 1;
+  }
+  return lo;
+}
+
+// The edge plane (a, b, c) = u_a x u_b of setup.cross
+struct Plane {
+  float a, b, c;
+};
+__device__ __forceinline__ Plane cross(float xa, float ya, float wa, float xb, float yb,
+                                       float wb) {
+  return {__fsub_rn(__fmul_rn(ya, wb), __fmul_rn(wa, yb)),
+          __fsub_rn(__fmul_rn(wa, xb), __fmul_rn(xa, wb)),
+          __fsub_rn(__fmul_rn(xa, yb), __fmul_rn(ya, xb))};
+}
+
+// ---------------------------------------------------------------------------
+// F1. triangle_setup: gathers a triangle's three clip vertices and writes
+// its column of the [24, tc] SoA, zero where it is invalid.
+template <bool DOUBLE_SIDED>
+__global__ void __launch_bounds__(THREADS)
+setup_kernel(const float* __restrict__ clip, const int* __restrict__ tri_v, Count num_tris,
+             float* __restrict__ out, int tc, long long n_verts, float width, float height,
+             float bbox_pad, float maxdim) {
+  const long long t = thread_index();
+  if (t >= tc) return;
+  float xs[3], ys[3], ws[3], zs[3];
+#pragma unroll
+  for (int v = 0; v < 3; ++v) {
+    long long vi = __ldg(tri_v + 3 * t + v);
+    if (vi < 0) vi += n_verts;  // torch's negative index
+    if (vi < 0 || vi >= n_verts) vi = 0;  // out of range: the plain version's assert
+    const float* c = clip + 4 * vi;
+    const float cx = __ldg(c), cy = __ldg(c + 1), cz = __ldg(c + 2), cw = __ldg(c + 3);
+    const float hw = __fmul_rn(cw, 0.5f);
+    xs[v] = __fmul_rn(__fadd_rn(__fmul_rn(cx, 0.5f), hw), width);
+    ys[v] = __fmul_rn(__fadd_rn(__fmul_rn(cy, 0.5f), hw), height);
+    ws[v] = cw;
+    zs[v] = cz;
+  }
+  // v1 <-> v2 (setup.py `order`)
+  const float x0 = xs[0], x1 = xs[2], x2 = xs[1];
+  const float y0 = ys[0], y1 = ys[2], y2 = ys[1];
+  const float w0 = ws[0], w1 = ws[2], w2 = ws[1];
+  const float z0 = zs[0], z1 = zs[2], z2 = zs[1];
+
+  Plane e0 = cross(x1, y1, w1, x2, y2, w2);
+  Plane e1 = cross(x2, y2, w2, x0, y0, w0);
+  Plane e2 = cross(x0, y0, w0, x1, y1, w1);
+  float det = __fadd_rn(__fadd_rn(__fmul_rn(e0.a, x0), __fmul_rn(e0.b, y0)),
+                        __fmul_rn(e0.c, w0));
+  if (DOUBLE_SIDED) {
+    const float flip = det < 0.0f ? -1.0f : 1.0f;
+    auto flipped = [flip](const Plane& e) {
+      return Plane{__fmul_rn(e.a, flip), __fmul_rn(e.b, flip), __fmul_rn(e.c, flip)};
+    };
+    e0 = flipped(e0);
+    e1 = flipped(e1);
+    e2 = flipped(e2);
+    det = __fmul_rn(det, flip);
+  }
+  const bool front = det > 0.0f;
+  const float inv_det = __fdiv_rn(1.0f, front ? det : 1.0f);
+  const float w_a = __fmul_rn(__fadd_rn(__fadd_rn(e0.a, e1.a), e2.a), inv_det);
+  const float w_b = __fmul_rn(__fadd_rn(__fadd_rn(e0.b, e1.b), e2.b), inv_det);
+  const float w_c = __fmul_rn(__fadd_rn(__fadd_rn(e0.c, e1.c), e2.c), inv_det);
+
+  const bool all_front = ws[0] > W_EPS && ws[1] > W_EPS && ws[2] > W_EPS;
+  const bool any_front = ws[0] > W_EPS || ws[1] > W_EPS || ws[2] > W_EPS;
+  float px[3], py[3], sz[3];
+#pragma unroll
+  for (int v = 0; v < 3; ++v) {
+    const float inv_w = __fdiv_rn(1.0f, fabsf(ws[v]) > W_EPS ? ws[v] : 1.0f);
+    px[v] = __fmul_rn(xs[v], inv_w);
+    py[v] = __fmul_rn(ys[v], inv_w);
+    sz[v] = __fmul_rn(zs[v], inv_w);
+  }
+  // depth plane: screen-space differences when all in front, else the
+  // homogeneous form
+  const float sx0 = px[0], sx1 = px[2], sx2 = px[1];
+  const float sy0 = py[0], sy1 = py[2], sy2 = py[1];
+  const float sz0 = sz[0], sz1 = sz[2], sz2 = sz[1];
+  const float dx1 = __fsub_rn(sx1, sx0), dx2 = __fsub_rn(sx2, sx0);
+  const float dy1 = __fsub_rn(sy1, sy0), dy2 = __fsub_rn(sy2, sy0);
+  const float dz1 = __fsub_rn(sz1, sz0), dz2 = __fsub_rn(sz2, sz0);
+  const float area2 = __fsub_rn(__fmul_rn(dx1, dy2), __fmul_rn(dy1, dx2));
+  const float inv_area = __fdiv_rn(1.0f, fabsf(area2) > 1e-20f ? area2 : 1.0f);
+  const float zss_a = __fmul_rn(__fsub_rn(__fmul_rn(dz1, dy2), __fmul_rn(dz2, dy1)), inv_area);
+  const float zss_b = __fmul_rn(__fsub_rn(__fmul_rn(dz2, dx1), __fmul_rn(dz1, dx2)), inv_area);
+  const float zss_c = __fsub_rn(__fsub_rn(sz0, __fmul_rn(zss_a, sx0)), __fmul_rn(zss_b, sy0));
+  auto hom = [&](float p0, float p1, float p2) {
+    return __fmul_rn(__fadd_rn(__fadd_rn(__fmul_rn(z0, p0), __fmul_rn(z1, p1)),
+                               __fmul_rn(z2, p2)), inv_det);
+  };
+  const float z_a = all_front ? zss_a : hom(e0.a, e1.a, e2.a);
+  const float z_b = all_front ? zss_b : hom(e0.b, e1.b, e2.b);
+  const float z_c = all_front ? zss_c : hom(e0.c, e1.c, e2.c);
+
+  const float xmin = all_front ? __fsub_rn(amin3(px[0], px[1], px[2]), bbox_pad) : 0.0f;
+  const float xmax = all_front ? __fadd_rn(amax3(px[0], px[1], px[2]), bbox_pad) : width;
+  const float ymin = all_front ? __fsub_rn(amin3(py[0], py[1], py[2]), bbox_pad) : 0.0f;
+  const float ymax = all_front ? __fadd_rn(amax3(py[0], py[1], py[2]), bbox_pad) : height;
+  const bool on_screen = xmax >= 0.0f && xmin <= width && ymax >= 0.0f && ymin <= height;
+
+  // f32 tolerance of a·px + b·py + c, folded into c by the ownership rule
+  const float abs_c = tmax(fabsf(e0.c), tmax(fabsf(e1.c), fabsf(e2.c)));
+  const float abs_ab = tmax(tmax(fabsf(e0.a), fabsf(e0.b)),
+                            tmax(tmax(fabsf(e1.a), fabsf(e1.b)),
+                                 tmax(fabsf(e2.a), fabsf(e2.b))));
+  const float eps = __fmul_rn(__fadd_rn(abs_c, __fmul_rn(maxdim, abs_ab)), 0x1p-21f);
+  auto shift = [&](const Plane& e) {
+    const bool own = e.a > 0.0f || (e.a == 0.0f && e.b > 0.0f);
+    return __fadd_rn(e.c, own ? eps : -eps);
+  };
+  const float c0 = shift(e0), c1 = shift(e1), c2 = shift(e2);
+
+  const bool in_range = t < read_count(num_tris.ptr, num_tris.value, num_tris.is64);
+  const bool valid = in_range && front && any_front && on_screen;
+  const float rows[ROWS] = {e0.a, e0.b, c0, e1.a, e1.b, c1, e2.a, e2.b, c2,
+                            z_a, z_b, z_c, w_a, w_b, w_c,
+                            xmin, ymin, xmax, ymax, 1.0f, 0.0f, eps, 0.0f, 0.0f};
+#pragma unroll
+  for (int r = 0; r < ROWS; ++r) out[r * static_cast<long long>(tc) + t] = valid ? rows[r] : 0.0f;
+}
+
+// ---------------------------------------------------------------------------
+// The binning kernels share one argument structure (kernels.py BinArgs).
+struct BinArgs {
+  const float* td;       // [24, tc] triangle_setup's SoA
+  int* n_rows;           // [tc] a triangle's tile rows in this call's row set
+  int4* tri_info;        // [tc] (tx0, span_w, k0, cls + 4 * z-bucket)
+  const int* cum_r;      // [tc] inclusive cumsum of n_rows
+  int* row_span;         // [rc] a row's tile columns
+  int4* row_rec;         // [rc] (triangle, first column, local row k, cls + 4 * z-bucket)
+  const int* cum_p;      // [rc] inclusive cumsum of row_span
+  int* key;              // [pc] (class, tile, z-bucket) key, or `dead`
+  int* tri_pair;         // [pc] a pair's triangle
+  const long long* order;  // [pc] the stable sort's permutation of the keys
+  int* acc;              // counts [n_keys] | class_pairs [C] | keys below 0 [1]
+  int* scan;             // padded_starts [n_keys] | starts_raw [n_keys] |
+                         // overflow [C] | row_overflow | pair demand | row demand
+  float* binned;         // [16, p_total]
+  const void* bound_ptr[MAX_CLASSES + 1];
+  long long bound_value[MAX_CLASSES + 1];
+  long long p_total;
+  int bound_is64[MAX_CLASSES + 1];
+  int tc, rc, pc, n_classes, tiles_x, tiles_y, tile_w, tile_h;
+  int tile_row_lo, local_tiles_y, row_stride, zbuckets;
+};
+
+__device__ __forceinline__ long long bound(const BinArgs& A, int c) {
+  return read_count(A.bound_ptr[c], A.bound_value[c], A.bound_is64[c]);
+}
+
+__device__ __forceinline__ int n_keys(const BinArgs& A) {
+  return A.n_classes * A.tiles_x * A.local_tiles_y;
+}
+
+// _tile_spans' span: the first tile and the tile count covering any pixel
+// centre of [lo, hi]
+__device__ __forceinline__ void tile_span(float lo, float hi, int size, int n, int* t0,
+                                          int* span) {
+  const float inv = __fdiv_rn(1.0f, static_cast<float>(size));
+  const float nm1 = static_cast<float>(n - 1);
+  *t0 = f32_to_i32(tclamp(ceilf(__fsub_rn(__fmul_rn(__fadd_rn(lo, 0.5f), inv), 1.0f)),
+                          0.0f, nm1));
+  const int t1 = f32_to_i32(tclamp(floorf(__fmul_rn(__fsub_rn(hi, 0.5f), inv)), 0.0f, nm1));
+  *span = max(wadd(wsub(t1, *t0), 1), 0);
+}
+
+// F2, its first pass: per triangle, the tile span, class, band clip and
+// z-bucket, and its row count for the cumsum. Zeroes the atomic counters.
+__global__ void __launch_bounds__(THREADS) spans_kernel(const BinArgs A) {
+  const long long i = thread_index();
+  const int n_acc = n_keys(A) + A.n_classes + 1;
+  if (i < n_acc) A.acc[i] = 0;
+  if (i >= A.tc) return;
+  const int t = static_cast<int>(i);
+  const long long tc = A.tc;
+  const float* td = A.td;
+  const float xmin = __ldg(td + 15 * tc + t), ymin = __ldg(td + 16 * tc + t);
+  const float xmax = __ldg(td + 17 * tc + t), ymax = __ldg(td + 18 * tc + t);
+  const bool valid = __ldg(td + 19 * tc + t) > 0.0f && t >= bound(A, 0) &&
+                     t < bound(A, A.n_classes);
+  int cls = 0;
+  for (int c = 1; c < A.n_classes; ++c) cls += t >= bound(A, c);
+  int tx0, span_w, ty0, span_h;
+  tile_span(xmin, xmax, A.tile_w, A.tiles_x, &tx0, &span_w);
+  tile_span(ymin, ymax, A.tile_h, A.tiles_y, &ty0, &span_h);
+  const int n_pairs = valid ? wmul(span_w, span_h) : 0;
+  // the band: rows {row_lo + k * stride}, k in [0, local_tiles_y)
+  const int ty1 = wsub(wadd(ty0, span_h), 1);
+  const int k0 = max(wsub(0, floor_div(wsub(A.tile_row_lo, ty0), A.row_stride)), 0);
+  const int k1 = min(floor_div(wsub(ty1, A.tile_row_lo), A.row_stride), A.local_tiles_y - 1);
+  const int band_h = max(wadd(wsub(k1, k0), 1), 0);
+  const bool has_pairs = n_pairs > 0 && wmul(span_w, band_h) > 0;
+  int zb = 0;
+  if (A.zbuckets > 1) {
+    // nearest-first sub-key: the z plane's corner max over the bbox
+    const float za = __ldg(td + 9 * tc + t), zbp = __ldg(td + 10 * tc + t);
+    const float zc = __ldg(td + 11 * tc + t);
+    const float z_near = tclamp(
+        __fadd_rn(__fadd_rn(__fmul_rn(za, za > 0.0f ? xmax : xmin),
+                            __fmul_rn(zbp, zbp > 0.0f ? ymax : ymin)), zc), 0.0f, 1.0f);
+    const int q = f32_to_i32(__fmul_rn(__fsub_rn(1.0f, z_near),
+                                       static_cast<float>(A.zbuckets)));
+    zb = min(max(q, 0), A.zbuckets - 1);
+  }
+  A.n_rows[t] = has_pairs ? band_h : 0;
+  A.tri_info[t] = make_int4(tx0, span_w, k0, cls + 4 * zb);
+}
+
+// F2, its second pass: one thread a row slot r < rc. A live row (r below
+// the row demand) finds its triangle in the cumsum, takes its tile row,
+// narrows the triangle's columns to the edges' x-window over the row's
+// padded extent and adds the row's columns to its class's pair total.
+__global__ void __launch_bounds__(THREADS) rows_kernel(const BinArgs A) {
+  __shared__ int class_pairs[MAX_CLASSES];
+  if (threadIdx.x < MAX_CLASSES) class_pairs[threadIdx.x] = 0;
+  __syncthreads();
+  const long long r = thread_index();
+  const int live_rows = min(__ldg(A.cum_r + A.tc - 1), A.rc);
+  if (r < A.rc) {
+    int span = 0;
+    if (r < live_rows) {
+      const long long tc = A.tc;
+      const int t = upper_bound(A.cum_r, A.tc, r);
+      const int4 info = A.tri_info[t];
+      const int cum_start = wsub(__ldg(A.cum_r + t), __ldg(A.n_rows + t));
+      const int row_k = wadd(info.z, wsub(static_cast<int>(r), cum_start));
+      const int row_ty = wadd(A.tile_row_lo, wmul(row_k, A.row_stride));
+      const float ext_y0 = __fsub_rn(__fmul_rn(__int2float_rn(row_ty),
+                                               static_cast<float>(A.tile_h)), 0.5f);
+      const float ext_y1 = __fadd_rn(ext_y0, static_cast<float>(A.tile_h) + 1.0f);
+      float xlo = __ldg(A.td + 15 * tc + t), xhi = __ldg(A.td + 17 * tc + t);
+      bool alive = true;
+#pragma unroll
+      for (int e = 0; e < 3; ++e) {
+        const float a = __ldg(A.td + (3 * e) * tc + t);
+        const float b = __ldg(A.td + (3 * e + 1) * tc + t);
+        const float c = __ldg(A.td + (3 * e + 2) * tc + t);
+        const float bb = __fadd_rn(__fmul_rn(b, b > 0.0f ? ext_y1 : ext_y0), c);
+        const float x = __fdiv_rn(-bb, a == 0.0f ? 1.0f : a);
+        if (a > 0.0f) xlo = tmax(xlo, x);
+        if (a < 0.0f) xhi = tmin(xhi, x);
+        alive = alive && (a != 0.0f || bb >= 0.0f);
+      }
+      xlo = __fsub_rn(xlo, 1.0f);
+      xhi = __fadd_rn(xhi, 1.0f);
+      const float inv_w = __fdiv_rn(1.0f, static_cast<float>(A.tile_w));
+      const int rx_lo = max(info.x, f32_to_i32(ceilf(__fsub_rn(
+                                        __fmul_rn(__fsub_rn(xlo, 0.5f), inv_w), 1.0f))));
+      const int rx_hi = min(wsub(wadd(info.x, info.y), 1),
+                            f32_to_i32(floorf(__fmul_rn(__fadd_rn(xhi, 0.5f), inv_w))));
+      span = alive ? max(wadd(wsub(rx_hi, rx_lo), 1), 0) : 0;
+      A.row_rec[r] = make_int4(t, rx_lo, row_k, info.w);
+      if (span != 0) atomicAdd(&class_pairs[info.w & 3], span);
+    }
+    A.row_span[r] = span;
+  }
+  __syncthreads();
+  if (threadIdx.x < A.n_classes && class_pairs[threadIdx.x] != 0)
+    atomicAdd(A.acc + n_keys(A) + threadIdx.x, class_pairs[threadIdx.x]);
+}
+
+// F3: one thread a pair slot p < pc. A live pair (p below the pair demand)
+// finds its row in the cumsum, takes its tile, its key and the extent
+// reject (every edge's most-inside corner of the tile's sample extent
+// padded a pixel); a kept pair counts in its (class, tile) group. The
+// counts are aggregated over the warp first (__match_any_sync): a warp's
+// pairs are consecutive in the stream, and small triangles bin many pairs
+// of one tile next to each other (on the 1M-triangle field one atomic a
+// pair took 6x the kernel's time).
+__global__ void __launch_bounds__(THREADS) pairs_kernel(const BinArgs A) {
+  const long long p = thread_index();
+  if (p >= A.pc) return;
+  const int keys = n_keys(A);
+  const int zbuckets = A.zbuckets;
+  const int dead = wmul(keys, zbuckets);
+  const int live_pairs = min(__ldg(A.cum_p + A.rc - 1), A.pc);
+  // the counter a kept pair adds to: its group, keys (keys below 0, which
+  // sort first and shift every group's sorted start; only an int32 wrap of
+  // a window makes one), or none (-1: dead, rejected or past `dead`)
+  int counter = -1;
+  if (p >= live_pairs) {
+    A.key[p] = dead;
+  } else {
+    const long long tc = A.tc;
+    const int row = upper_bound(A.cum_p, A.rc, p);
+    const int4 rec = A.row_rec[row];
+    const int cum_start = wsub(__ldg(A.cum_p + row), __ldg(A.row_span + row));
+    const int tile_x = wadd(rec.y, wsub(static_cast<int>(p), cum_start));
+    const int tile_y = wadd(A.tile_row_lo, wmul(rec.z, A.row_stride));
+    const int cls = rec.w & 3;
+    const int group = wadd(wmul(cls, A.tiles_x * A.local_tiles_y),
+                           wadd(wmul(rec.z, A.tiles_x), tile_x));
+    int key = group;
+    if (zbuckets > 1) key = wadd(wmul(group, zbuckets), cls == 0 ? rec.w >> 2 : 0);
+    const float fw = static_cast<float>(A.tile_w), fh = static_cast<float>(A.tile_h);
+    const float ext_x0 = __fsub_rn(__fmul_rn(__int2float_rn(tile_x), fw), 0.5f);
+    const float ext_x1 = __fadd_rn(ext_x0, fw + 1.0f);
+    const float ext_y0 = __fsub_rn(__fmul_rn(__int2float_rn(tile_y), fh), 0.5f);
+    const float ext_y1 = __fadd_rn(ext_y0, fh + 1.0f);
+    bool covers = true;
+#pragma unroll
+    for (int e = 0; e < 3; ++e) {
+      const float a = __ldg(A.td + (3 * e) * tc + rec.x);
+      const float b = __ldg(A.td + (3 * e + 1) * tc + rec.x);
+      const float c = __ldg(A.td + (3 * e + 2) * tc + rec.x);
+      const float e_max = __fadd_rn(__fadd_rn(__fmul_rn(a, a > 0.0f ? ext_x1 : ext_x0),
+                                              __fmul_rn(b, b > 0.0f ? ext_y1 : ext_y0)), c);
+      covers = covers && e_max >= 0.0f;
+    }
+    if (!covers) key = dead;
+    A.key[p] = key;
+    A.tri_pair[p] = rec.x;
+    if (covers) counter = key < 0 ? keys : (key < dead ? key / zbuckets : -1);
+  }
+  // the warp's lanes below pc (the others returned at the top)
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  const long long in_warp = A.pc - (p - lane);
+  const unsigned lanes = in_warp >= 32 ? 0xffffffffu : (1u << in_warp) - 1u;
+  const unsigned peers = __match_any_sync(lanes, counter);
+  if (counter >= 0 && lane == __ffs(peers) - 1) {
+    int* acc = counter == keys ? A.acc + keys + A.n_classes : A.acc + counter;
+    atomicAdd(acc, __popc(peers));
+  }
+}
+
+// Inclusive block-wide sums of two values (SCAN_THREADS threads); `total`
+// gets the block's sums.
+__device__ __forceinline__ void block_scan2(int& a, int& b, int2& total) {
+  __shared__ int2 warp_sums[SCAN_THREADS / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const int ua = __shfl_up_sync(0xffffffffu, a, off);
+    const int ub = __shfl_up_sync(0xffffffffu, b, off);
+    if (lane >= off) {
+      a = wadd(a, ua);
+      b = wadd(b, ub);
+    }
+  }
+  if (lane == 31) warp_sums[warp] = make_int2(a, b);
+  __syncthreads();
+  if (warp == 0) {
+    int2 s = lane < SCAN_THREADS / 32 ? warp_sums[lane] : make_int2(0, 0);
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int ua = __shfl_up_sync(0xffffffffu, s.x, off);
+      const int ub = __shfl_up_sync(0xffffffffu, s.y, off);
+      if (lane >= off) {
+        s.x = wadd(s.x, ua);
+        s.y = wadd(s.y, ub);
+      }
+    }
+    warp_sums[lane] = s;
+  }
+  __syncthreads();
+  if (warp > 0) {
+    a = wadd(a, warp_sums[warp - 1].x);
+    b = wadd(b, warp_sums[warp - 1].y);
+  }
+  total = warp_sums[SCAN_THREADS / 32 - 1];
+  __syncthreads();
+}
+
+// F4, its first pass (one block): each group's sorted start (keys below 0
+// first) and 128-aligned start, and the scalars: per-class overflow, row
+// overflow, the pair and row demands.
+__global__ void __launch_bounds__(SCAN_THREADS) scan_kernel(const BinArgs A) {
+  const int keys = n_keys(A);
+  const int* counts = A.acc;
+  int carry_raw = A.acc[keys + A.n_classes], carry_pad = 0;
+  for (int base = 0; base < keys; base += SCAN_THREADS) {
+    const int i = base + threadIdx.x;
+    const int c = i < keys ? counts[i] : 0;
+    const int padded = (c + ALIGN - 1) / ALIGN * ALIGN;
+    int raw = c, pad = padded;
+    int2 total;
+    block_scan2(raw, pad, total);
+    if (i < keys) {
+      A.scan[i] = wsub(wadd(carry_pad, pad), padded);
+      A.scan[keys + i] = wsub(wadd(carry_raw, raw), c);
+    }
+    carry_raw = wadd(carry_raw, total.x);
+    carry_pad = wadd(carry_pad, total.y);
+  }
+  if (threadIdx.x == 0) {
+    int* out = A.scan + 2 * keys;
+    const int* class_pairs = A.acc + keys;
+    int e_c = 0;
+    for (int c = 0; c < A.n_classes; ++c) {
+      e_c = wadd(e_c, class_pairs[c]);
+      const int s_c = wsub(e_c, class_pairs[c]);
+      out[c] = wsub(max(wsub(e_c, A.pc), 0), max(wsub(s_c, A.pc), 0));
+    }
+    const int row_demand = A.cum_r[A.tc - 1];
+    out[A.n_classes] = max(wsub(row_demand, A.rc), 0);
+    out[A.n_classes + 1] = A.cum_p[A.rc - 1];
+    out[A.n_classes + 2] = row_demand;
+  }
+}
+
+// F4, its second pass: one thread a column d of the binned buffer. Its
+// group is the last whose 128-aligned start is <= d; a column within the
+// group's count takes the sorted pair at the group's sorted start + rank:
+// the triangle's 15 plane rows and its id; every other column is zero.
+__global__ void __launch_bounds__(THREADS) scatter_kernel(const BinArgs A) {
+  const long long d = thread_index();
+  if (d >= A.p_total) return;
+  const int keys = n_keys(A);
+  const int* padded_starts = A.scan;
+  const int g = upper_bound(padded_starts, keys, d) - 1;
+  const long long rank = d - __ldg(padded_starts + g);
+  const long long pt = A.p_total;
+  if (rank < __ldg(A.acc + g)) {
+    const long long i = __ldg(A.scan + keys + g) + rank;
+    const int tri = __ldg(A.tri_pair + __ldg(A.order + i));
+    const long long tc = A.tc;
+#pragma unroll
+    for (int r = 0; r < B_TID; ++r) A.binned[r * pt + d] = __ldg(A.td + r * tc + tri);
+    A.binned[B_TID * pt + d] = __int2float_rn(tri);
+  } else {
+#pragma unroll
+    for (int r = 0; r < B_ROWS; ++r) A.binned[r * pt + d] = 0.0f;
+  }
+}
+
+inline unsigned blocks_for(long long n) {
+  return static_cast<unsigned>((n + THREADS - 1) / THREADS);
+}
+
+inline bool grid_fits(long long n) { return n > 0 && (n + THREADS - 1) / THREADS < (1LL << 31); }
+
+}  // namespace rf
+
+// F1: clip [n_verts, 4] f32, tri_v [tc, 3] i32 -> out [24, tc] f32.
+// num_tris: the pointer (int32, or int64 when num_is64) or, when null, num_value.
+extern "C" int rt_setup(const float* clip, const int* tri_v, const void* num_ptr,
+                        long long num_value, int num_is64, float* out, int tc,
+                        long long n_verts, float width, float height, float bbox_pad,
+                        float maxdim, int double_sided, void* stream) {
+  if (tc <= 0) return 0;
+  if (n_verts <= 0 || !rf::grid_fits(tc)) return static_cast<int>(cudaErrorInvalidValue);
+  auto st = static_cast<cudaStream_t>(stream);
+  const rf::Count num{num_ptr, num_value, num_is64};
+  if (double_sided)
+    rf::setup_kernel<true><<<rf::blocks_for(tc), rf::THREADS, 0, st>>>(
+        clip, tri_v, num, out, tc, n_verts, width, height, bbox_pad, maxdim);
+  else
+    rf::setup_kernel<false><<<rf::blocks_for(tc), rf::THREADS, 0, st>>>(
+        clip, tri_v, num, out, tc, n_verts, width, height, bbox_pad, maxdim);
+  return static_cast<int>(cudaGetLastError());
+}
+
+namespace {
+
+bool bin_args_ok(const rf::BinArgs* a) {
+  return a->tc > 0 && a->rc > 0 && a->pc > 0 && a->n_classes >= 1 &&
+         a->n_classes <= rf::MAX_CLASSES && a->tiles_x > 0 && a->tiles_y > 0 &&
+         a->local_tiles_y > 0 && a->tile_w > 0 && a->tile_h > 0 && a->row_stride > 0 &&
+         a->zbuckets >= 1 && a->p_total > 0;
+}
+
+}  // namespace
+
+#define RF_LAUNCH(kernel, n, threads)                                               \
+  {                                                                                 \
+    if (!bin_args_ok(args) || !rf::grid_fits(n))                                    \
+      return static_cast<int>(cudaErrorInvalidValue);                               \
+    rf::kernel<<<(threads) == rf::THREADS ? rf::blocks_for(n) : 1, threads, 0,      \
+                 static_cast<cudaStream_t>(stream)>>>(*args);                       \
+    return static_cast<int>(cudaGetLastError());                                    \
+  }
+
+// F2 (spans): n_rows, tri_info; zeroes acc.
+extern "C" int rt_bin_spans(const rf::BinArgs* args, void* stream) {
+  const long long n_acc =
+      static_cast<long long>(args->n_classes) * args->tiles_x * args->local_tiles_y +
+      args->n_classes + 1;
+  RF_LAUNCH(spans_kernel, (args->tc > n_acc ? args->tc : n_acc), rf::THREADS)
+}
+
+// F2 (rows): row_span, row_rec and the class pair totals, after cum_r.
+extern "C" int rt_bin_rows(const rf::BinArgs* args, void* stream) {
+  RF_LAUNCH(rows_kernel, args->rc, rf::THREADS)
+}
+
+// F3: key, tri_pair and the group counts, after cum_p.
+extern "C" int rt_bin_pairs(const rf::BinArgs* args, void* stream) {
+  RF_LAUNCH(pairs_kernel, args->pc, rf::THREADS)
+}
+
+// F4 (scan): padded and sorted starts, the overflow and demand scalars.
+extern "C" int rt_bin_scan(const rf::BinArgs* args, void* stream) {
+  RF_LAUNCH(scan_kernel, 1, rf::SCAN_THREADS)
+}
+
+// F4 (scatter): the binned buffer, after the sort's permutation.
+extern "C" int rt_bin_scatter(const rf::BinArgs* args, void* stream) {
+  RF_LAUNCH(scatter_kernel, args->p_total, rf::THREADS)
+}
+
+#undef RF_LAUNCH

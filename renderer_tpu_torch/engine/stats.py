@@ -144,8 +144,8 @@ def fused_frame_ms(renderer, scene, iters: int = 16) -> float:
     return statistics.median(renderer.frame_graphs.graph.replay_ms())
 
 
-def device_stage_timings(renderer, scene, iters: int = 10,
-                         paced: str = "device") -> dict[str, float]:
+def device_stage_timings(renderer, scene, iters: int = 10, paced: str = "device",
+                         frame_binning: bool = False) -> dict[str, float]:
     """Runs the frame pipeline stage by stage (each stage on inputs made
     once) and returns {stage: ms}. Covers every pass the production frame
     runs for this scene — opaque, masked layer raster + alpha test, blended
@@ -153,7 +153,11 @@ def device_stage_timings(renderer, scene, iters: int = 10,
     the single-sample stages run on sample 0's visibility, and the deferred
     shade on the default sampler arguments), plus the fused full frame at
     the renderer's real MSAA config (fused_frame_ms). The stage sum differs
-    from the full frame, which shades MSAA candidates in strips.
+    from the full frame, which shades MSAA candidates in strips. With
+    `frame_binning`, a row after "binning (opaque)" times the frame's own
+    binning call (every alpha class, the configured z-buckets and row
+    capacity, on the setup with the frame's bbox pad), which the JAX
+    package's table does not have.
 
     `paced` ("device" or "host") says how a stage is timed on the card
     (_time_call): its device time, from a captured graph's replays queued
@@ -198,6 +202,20 @@ def device_stage_timings(renderer, scene, iters: int = 10,
     )
     timings["binning (opaque)"] = timed(bin_fn, td, 0, frame["n_opaque"])
     b, s, c, _ = bin_fn(td, 0, frame["n_opaque"])
+    if frame_binning:
+        # the frame's own front end (pipeline.render_shard): setup with the
+        # MSAA bbox pad, then every alpha class in one binning call
+        pad = 0.5 if cfg.msaa_samples > 1 else 0.0
+        td_frame = setup_fn(vs["clip"], geom["tri_v"], frame["num_tris"], bbox_pad=pad)
+        n_om = frame["n_opaque"] + frame["n_masked"]
+        frame_bin_fn = partial(
+            binning.bin_triangle_classes, tiles_x=cfg.tiles_x, tiles_y=cfg.tiles_y,
+            tile_w=cfg.tile_w, tile_h=cfg.tile_h, pair_capacity=cfg.pair_capacity,
+            row_capacity=cfg.row_capacity, zbuckets=cfg.opaque_z_buckets)
+        timings[f"binning (frame: all classes, {cfg.opaque_z_buckets} z-buckets, "
+                f"bbox_pad {pad})"] = timed(
+            lambda td_, b0, b1, b2: frame_bin_fn(td_, (0, b0, b1, b2)),
+            td_frame, frame["n_opaque"], n_om, frame["num_tris"])
 
     raster_fn = partial(
         raster_kernel.rasterize_binned,

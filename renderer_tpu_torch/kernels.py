@@ -43,6 +43,7 @@ build_seconds = 0.0
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_longlong
+_F = ctypes.c_float
 _SIGNATURES = {
     # binned, pp, starts, counts, depth, tid, n_tiles, tiles_x, tile_h,
     # tile_w, hp, wp, tile_row_offset, row_stride, n_s, sample_xy, stream
@@ -72,6 +73,16 @@ _SIGNATURES = {
     # solid_tid, cands_s, shaded_s, lt_b, cands_b, shaded_b, hdr, clamp, n_s,
     # n_cs, k, n_cb, plane, stream
     "rt_resolve": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _L, _P),
+    # the raster front end (csrc/frontend.cu)
+    # clip, tri_v, num_ptr, num_value, num_is64, out, tc, n_verts, width,
+    # height, bbox_pad, maxdim, double_sided, stream
+    "rt_setup": (_P, _P, _P, _L, _I, _P, _I, _L, _F, _F, _F, _F, _I, _P),
+    # the binning kernels take a pointer to BinArgs and the stream
+    "rt_bin_spans": (_P, _P),
+    "rt_bin_rows": (_P, _P),
+    "rt_bin_pairs": (_P, _P),
+    "rt_bin_scan": (_P, _P),
+    "rt_bin_scatter": (_P, _P),
 }
 
 
@@ -105,6 +116,22 @@ UiArgs = _struct(
      *(f"hdr{i}" for i in range(MAX_HDR))),
     ("n_cand", "n_tris", "n_verts", "n_cmds", "n_atlas", "n_tex"),
     ("h", "w", "atlas_w", "n_samples", "n_layers", "per_sample", "round_px"))
+
+
+#: csrc/frontend.cu MAX_CLASSES: the alpha classes one binning call takes
+MAX_BIN_CLASSES = 3
+
+#: csrc/frontend.cu `BinArgs`, field for field (bound_ptr0..3 and the
+#: others of the same stem are its arrays)
+BinArgs = _struct(
+    "BinArgs",
+    ("td", "n_rows", "tri_info", "cum_r", "row_span", "row_rec", "cum_p", "key",
+     "tri_pair", "order", "acc", "scan", "binned",
+     *(f"bound_ptr{i}" for i in range(MAX_BIN_CLASSES + 1))),
+    (*(f"bound_value{i}" for i in range(MAX_BIN_CLASSES + 1)), "p_total"),
+    (*(f"bound_is64{i}" for i in range(MAX_BIN_CLASSES + 1)), "tc", "rc", "pc",
+     "n_classes", "tiles_x", "tiles_y", "tile_w", "tile_h", "tile_row_lo",
+     "local_tiles_y", "row_stride", "zbuckets"))
 
 
 def _nvcc() -> str:

@@ -22,13 +22,26 @@ the reference's later-submission-wins depth-tie semantics. The opaque class
 may additionally be sub-ordered nearest-first at z-bucket granularity
 (`zbuckets`, riding the same sort) — output-invariant because the opaque
 kernel's merge is a lexicographic (z, id) max.
+
+`bin_triangle_classes` (and `bin_triangles` through it) dispatches on the
+device as raster/candidates.py does: CPU tensors run
+`bin_triangle_classes_plain`; CUDA tensors run kernels F2-F4 of
+csrc/frontend.cu (for the JAX package's XLA-fused
+renderer_tpu/raster/binning.py:66 and :141) with two torch.cumsum and one
+stable torch.sort between them (`binning_steps`), bit-equal to the plain
+version on the card, or raise.
 """
 
 from __future__ import annotations
 
+import ctypes
+
+import numpy as np
 import torch
 
-from renderer_tpu_torch.raster.setup import BBOX_ROWS, TID_ROW, VALID_ROW
+from renderer_tpu_torch import kernels
+from renderer_tpu_torch.raster.setup import BBOX_ROWS, ROWS, TID_ROW, VALID_ROW, count_arg
+from renderer_tpu_torch.raster.shade import check_tensor
 
 # Per-tile bin starts are aligned to this.
 ALIGN = 128
@@ -46,6 +59,20 @@ B_TID = 15
 
 _I32_MIN = -(2**31)
 _I32_MAX = 2**31 - 1
+
+#: launches of the binning kernels in this process: F2 (its per-triangle
+#: pass "bin_spans" and its row pass "bin_rows"), F3 ("bin_pairs") and F4
+#: (its scan "bin_scan" and its scatter "bin_scatter"); the plain version
+#: does not count
+launches = {"bin_spans": 0, "bin_rows": 0, "bin_pairs": 0, "bin_scan": 0,
+            "bin_scatter": 0}
+
+#: the CUDA path's steps in order (binning_steps): (name, the launch
+#: counter of its kernel, or None for a library call)
+STEPS = (("F2 spans", "bin_spans"), ("cumsum of the row counts", None),
+         ("F2 rows", "bin_rows"), ("cumsum of the row spans", None),
+         ("F3 pairs", "bin_pairs"), ("stable sort of the keys", None),
+         ("F4 scan", "bin_scan"), ("F4 scatter", "bin_scatter"))
 
 
 def padded_capacity_classes(pair_capacity: int, n_tiles: int, n_classes: int) -> int:
@@ -74,6 +101,16 @@ def _ragged_repeat(n: int, reps: torch.Tensor, capacity: int) -> torch.Tensor:
                                    output_size=capacity)
 
 
+def _reciprocal(size: int) -> float:
+    """The f32 reciprocal of a tile size. The plain version multiplies by
+    it where the JAX package divides by the size: its jitted binning
+    divides by the constant as XLA does, a product with the f32 reciprocal,
+    and so does torch on the card with a Python divisor, while torch on the
+    CPU divides truly. The product rounds alike on every device and in the
+    JAX package (for a size such as 24 or 384 the quotient does not)."""
+    return float(np.float32(1.0) / np.float32(size))
+
+
 def _tile_spans(tri_data, bounds, n_classes, *, tiles_x, tiles_y,
                 tile_w, tile_h):
     """Per-triangle first tile (tx0, ty0), span (span_w, span_h), bbox pair
@@ -87,8 +124,9 @@ def _tile_spans(tri_data, bounds, n_classes, *, tiles_x, tiles_y,
         cls = cls + (tri_idx >= bounds[c]).to(torch.int32)
 
     def span(lo, hi, size, n):
-        t0 = f32_to_i32(torch.clamp(torch.ceil((lo + 0.5) / size - 1.0), 0, n - 1))
-        t1 = f32_to_i32(torch.clamp(torch.floor((hi - 0.5) / size), 0, n - 1))
+        inv = _reciprocal(size)
+        t0 = f32_to_i32(torch.clamp(torch.ceil((lo + 0.5) * inv - 1.0), 0, n - 1))
+        t1 = f32_to_i32(torch.clamp(torch.floor((hi - 0.5) * inv), 0, n - 1))
         return t0, torch.clamp(t1 - t0 + 1, min=0)
 
     # tile index ranges covering any pixel CENTER in [min, max]
@@ -133,6 +171,134 @@ def bin_triangles(
 
 
 def bin_triangle_classes(
+    tri_data: torch.Tensor,
+    bounds,
+    *,
+    tiles_x: int,
+    tiles_y: int,
+    tile_w: int,
+    tile_h: int,
+    pair_capacity: int,
+    row_capacity: int | None = None,
+    tile_row_lo: int = 0,
+    local_tiles_y: int | None = None,
+    zbuckets: int = 1,
+    row_stride: int = 1,
+):
+    """Bins the triangles of every alpha class with one sort
+    (bin_triangle_classes_plain, which documents the arguments and the
+    outputs). CPU tensors run the plain version; CUDA tensors run F2-F4
+    (binning_steps) and raise ValueError on inputs they do not take."""
+    kw = dict(tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w, tile_h=tile_h,
+              pair_capacity=pair_capacity, row_capacity=row_capacity,
+              tile_row_lo=tile_row_lo, local_tiles_y=local_tiles_y,
+              zbuckets=zbuckets, row_stride=row_stride)
+    if tri_data.device.type == "cpu":
+        return bin_triangle_classes_plain(tri_data, bounds, **kw)
+    steps, result = binning_steps(tri_data, bounds, **kw)
+    for _name, run in steps:
+        run()
+    return result()
+
+
+def binning_steps(
+    tri_data: torch.Tensor,
+    bounds,
+    *,
+    tiles_x: int,
+    tiles_y: int,
+    tile_w: int,
+    tile_h: int,
+    pair_capacity: int,
+    row_capacity: int | None = None,
+    tile_row_lo: int = 0,
+    local_tiles_y: int | None = None,
+    zbuckets: int = 1,
+    row_stride: int = 1,
+):
+    """bin_triangle_classes on CUDA tensors as its steps (STEPS), so that
+    each can be timed alone (tools/frontend_probe.py): returns ([(name,
+    run)], result). Running the steps in order, then result(), gives
+    bin_triangle_classes' outputs. The kernels take 1..3 classes whose
+    bounds are numbers or int32 / int64 values; every buffer is allocated
+    here, the host never waits, and every launch is on the current stream."""
+    dev = tri_data.device
+    tri_data = tri_data.contiguous()
+    check_tensor("tri_data", tri_data, torch.float32, (ROWS, None), dev)
+    tc = tri_data.shape[1]
+    row_capacity = pair_capacity if row_capacity is None else row_capacity
+    local_tiles_y = tiles_y if local_tiles_y is None else local_tiles_y
+    n_classes = len(bounds) - 1
+    n_tiles = tiles_x * local_tiles_y
+    p_total = padded_capacity_classes(pair_capacity, n_tiles, n_classes)
+    if not 1 <= n_classes <= kernels.MAX_BIN_CLASSES:
+        raise ValueError(f"bin_triangle_classes: {n_classes} classes; the kernels take "
+                         f"1..{kernels.MAX_BIN_CLASSES}")
+    sizes = dict(triangles=tc, row_capacity=row_capacity, pair_capacity=pair_capacity,
+                 tiles_x=tiles_x, tiles_y=tiles_y, local_tiles_y=local_tiles_y,
+                 tile_w=tile_w, tile_h=tile_h, row_stride=row_stride, zbuckets=zbuckets)
+    bad = {k: v for k, v in sizes.items() if not 1 <= v < 2**31}
+    if bad or p_total >= 2**31 or n_classes * n_tiles * zbuckets >= 2**31:
+        raise ValueError(f"bin_triangle_classes: sizes {bad or sizes} out of the kernels' "
+                         "range (1 .. 2^31 - 1, keys and binned columns below 2^31)")
+    bound_args = [count_arg(b, dev, f"bounds[{c}]") for c, b in enumerate(bounds)]
+    if dev.type != "cuda":
+        raise ValueError(f"bin_triangle_classes: unsupported device {dev}")
+    i32 = dict(dtype=torch.int32, device=dev)
+    n_keys = n_classes * n_tiles
+    bufs = dict(
+        n_rows=torch.empty(tc, **i32), tri_info=torch.empty((tc, 4), **i32),
+        cum_r=torch.empty(tc, **i32), row_span=torch.empty(row_capacity, **i32),
+        row_rec=torch.empty((row_capacity, 4), **i32),
+        cum_p=torch.empty(row_capacity, **i32), key=torch.empty(pair_capacity, **i32),
+        tri_pair=torch.empty(pair_capacity, **i32),
+        order=torch.empty(pair_capacity, dtype=torch.int64, device=dev),
+        acc=torch.empty(n_keys + n_classes + 1, **i32),
+        scan=torch.empty(2 * n_keys + n_classes + 3, **i32),
+        binned=torch.empty((B_ROWS, p_total), dtype=torch.float32, device=dev))
+    key_sorted = torch.empty(pair_capacity, **i32)
+    args = kernels.BinArgs(
+        td=tri_data.data_ptr(), **{k: v.data_ptr() for k, v in bufs.items()},
+        p_total=p_total, tc=tc, rc=row_capacity, pc=pair_capacity, n_classes=n_classes,
+        tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w, tile_h=tile_h,
+        tile_row_lo=tile_row_lo, local_tiles_y=local_tiles_y, row_stride=row_stride,
+        zbuckets=zbuckets)
+    for c, (ptr, value, is64) in enumerate(bound_args):
+        setattr(args, f"bound_ptr{c}", ptr)
+        setattr(args, f"bound_value{c}", value)
+        setattr(args, f"bound_is64{c}", is64)
+    lib = kernels.load()
+
+    def kernel(fn, counter):
+        def run():
+            with torch.cuda.device(dev):
+                err = fn(ctypes.byref(args), kernels.current_stream())
+            kernels.check_launch(f"bin_triangle_classes ({counter})", err)
+            launches[counter] += 1
+        return run
+
+    library = {
+        "cumsum of the row counts": lambda: torch.cumsum(
+            bufs["n_rows"], 0, dtype=torch.int32, out=bufs["cum_r"]),
+        "cumsum of the row spans": lambda: torch.cumsum(
+            bufs["row_span"], 0, dtype=torch.int32, out=bufs["cum_p"]),
+        "stable sort of the keys": lambda: torch.sort(
+            bufs["key"], stable=True, out=(key_sorted, bufs["order"])),
+    }
+    steps = [(name, library[name] if counter is None else
+              kernel(getattr(lib, "rt_" + counter), counter)) for name, counter in STEPS]
+
+    def result():
+        scan, acc = bufs["scan"], bufs["acc"]
+        tail = scan[2 * n_keys:]
+        return (bufs["binned"], scan[:n_keys].view(n_classes, n_tiles),
+                acc[:n_keys].view(n_classes, n_tiles), tail[:n_classes],
+                tail[n_classes], tail[n_classes + 1], tail[n_classes + 2])
+
+    return steps, result
+
+
+def bin_triangle_classes_plain(
     tri_data: torch.Tensor,  # [ROWS, Tc] from triangle_setup
     bounds,  # (C+1) scalars: class c = triangles [bounds[c], bounds[c+1])
     *,
@@ -225,11 +391,12 @@ def bin_triangle_classes(
     xhi = xhi + 1.0  # can never cull a pair the extent reject would keep
     # tile columns whose padded extent [tx·tw − 0.5, tx·tw + tw + 0.5]
     # intersects the window, clipped to the triangle's bbox span
+    inv_w = _reciprocal(tile_w)
     rx_lo = torch.maximum(
-        tx0[tri_of_row], f32_to_i32(torch.ceil((xlo - 0.5) / tile_w - 1.0)))
+        tx0[tri_of_row], f32_to_i32(torch.ceil((xlo - 0.5) * inv_w - 1.0)))
     rx_hi = torch.minimum(
         tx0[tri_of_row] + span_w[tri_of_row] - 1,
-        f32_to_i32(torch.floor((xhi + 0.5) / tile_w)))
+        f32_to_i32(torch.floor((xhi + 0.5) * inv_w)))
     row_span = torch.where(alive, torch.clamp(rx_hi - rx_lo + 1, min=0),
                            torch.zeros_like(rx_hi))
 

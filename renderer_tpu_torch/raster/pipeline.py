@@ -395,11 +395,12 @@ def _identity(tensors: dict) -> tuple:
 def launch_counts() -> dict:
     """The hand-written kernels' launch counters: K1's, K2's per mode, the
     shading kernels S1 ("shade"), S2 ("alpha"), S3 ("ui_shade") and the
-    fused S3 ("ui_composite"), and the candidate kernels C1
-    ("cand_extract"), C2 ("cand_merge") and C3 ("cand_resolve")."""
+    fused S3 ("ui_composite"), the candidate kernels C1
+    ("cand_extract"), C2 ("cand_merge") and C3 ("cand_resolve"), and the
+    front end's F1 ("setup") and F2-F4 (binning.launches)."""
     return {"k1": raster_kernel.launches, **layers.launches, **shade.launches,
             "ui_shade": ui_stage.launches, "ui_composite": ui_stage.composite_launches,
-            **candidates.launches}
+            **candidates.launches, **setup.launches, **binning.launches}
 
 
 def add_launches(delta: dict) -> None:
@@ -410,8 +411,9 @@ def add_launches(delta: dict) -> None:
         shade.launches[which] += delta[which]
     ui_stage.launches += delta["ui_shade"]
     ui_stage.composite_launches += delta["ui_composite"]
-    for which in candidates.launches:
-        candidates.launches[which] += delta[which]
+    for counters in (candidates.launches, setup.launches, binning.launches):
+        for which in counters:
+            counters[which] += delta[which]
 
 
 class CapturedGraph:

@@ -33,11 +33,20 @@ Output layout: one [ROWS=24, Tc] f32 SoA tensor; rows:
   20   : original triangle id (written by binning)
   21   : eps (the folded coverage tolerance, for introspection/tests)
   22-23: reserved / padding
+
+`triangle_setup` dispatches on the device as raster/candidates.py does:
+CPU tensors run `triangle_setup_plain` (the JAX package's setup, op for
+op); CUDA tensors launch kernel F1 (csrc/frontend.cu `setup_kernel`, for
+the JAX package's XLA-fused renderer_tpu/raster/setup.py:57), bit-equal to
+the plain version on the card, or raise.
 """
 
 from __future__ import annotations
 
 import torch
+
+from renderer_tpu_torch import kernels
+from renderer_tpu_torch.raster.shade import check_tensor
 
 W_EPS = 1e-6
 ROWS = 24
@@ -46,8 +55,67 @@ TID_ROW = 20
 EPS_ROW = 21
 BBOX_ROWS = (15, 16, 17, 18)
 
+#: launches of F1 in this process; the plain version does not count
+launches = {"setup": 0}
+
+
+def count_arg(v, device: torch.device, what: str) -> tuple[int, int, int]:
+    """A count (a Python integer or a one-element int32 / int64 tensor) as
+    the front-end kernels take it: (pointer, value, is64) — a tensor on
+    `device` by its pointer (the kernel reads it, the host never waits), a
+    number or a CPU tensor by its value (pointer 0)."""
+    if not isinstance(v, torch.Tensor):
+        return 0, int(v), 0
+    if v.numel() != 1 or v.dtype not in (torch.int32, torch.int64):
+        raise ValueError(f"{what} must be one int32 or int64 value, got {v.dtype} "
+                         f"{tuple(v.shape)}")
+    if v.device.type == "cpu":
+        return 0, int(v), 0
+    if v.device != device:
+        raise ValueError(f"{what} is on {v.device}, not {device}")
+    return v.data_ptr(), 0, int(v.dtype == torch.int64)
+
 
 def triangle_setup(
+    clip: torch.Tensor,  # [VE,4]
+    tri_v: torch.Tensor,  # [Tc,3] i32 expanded-vertex ids
+    num_tris,  # i32 scalar — triangles at index ≥ num_tris are invalid
+    width: int,
+    height: int,
+    bbox_pad: float = 0.0,
+    double_sided: bool = False,
+) -> torch.Tensor:
+    """The [ROWS, Tc] f32 SoA of the triangles tri_v over the clip-space
+    vertices clip (triangle_setup_plain). CPU tensors run the plain version;
+    CUDA tensors launch F1 (clip f32 [VE, 4], tri_v i32 [Tc, 3]; num_tris
+    a number or an int32 / int64 value, on the device or the CPU) and raise
+    ValueError on other inputs."""
+    if clip.device.type == "cpu":
+        return triangle_setup_plain(clip, tri_v, num_tris, width, height,
+                                    bbox_pad=bbox_pad, double_sided=double_sided)
+    dev = clip.device
+    clip, tri_v = clip.contiguous(), tri_v.contiguous()
+    check_tensor("clip", clip, torch.float32, (None, 4), dev)
+    check_tensor("tri_v", tri_v, torch.int32, (None, 3), dev)
+    tc = tri_v.shape[0]
+    if tc and not clip.shape[0]:
+        raise ValueError("triangle_setup: triangles over no vertices")
+    num_ptr, num_value, num_is64 = count_arg(num_tris, dev, "num_tris")
+    if dev.type != "cuda":
+        raise ValueError(f"triangle_setup: unsupported device {dev}")
+    out = torch.empty((ROWS, tc), dtype=torch.float32, device=dev)
+    lib = kernels.load()
+    with torch.cuda.device(dev):
+        err = lib.rt_setup(clip.data_ptr(), tri_v.data_ptr(), num_ptr, num_value, num_is64,
+                           out.data_ptr(), tc, clip.shape[0], float(width), float(height),
+                           float(bbox_pad), float(max(width, height)), int(double_sided),
+                           kernels.current_stream())
+    kernels.check_launch("triangle_setup", err)
+    launches["setup"] += 1
+    return out
+
+
+def triangle_setup_plain(
     clip: torch.Tensor,  # [VE,4]
     tri_v: torch.Tensor,  # [Tc,3] i32 expanded-vertex ids
     num_tris,  # i32 scalar — triangles at index ≥ num_tris are invalid

@@ -11,7 +11,8 @@ kernels and copies (device-side events only) and their count; the device
 idle share (1 − busy / unprofiled frame); the ten PyTorch ops with the most
 device time; the device time and share of the hand-written shading kernels
 S1-S3 and the fused S3 (csrc/shade.cu), of K1/K2 and of the candidate
-kernels C1-C3 (csrc/candidates.cu); and the UI pass of the
+kernels C1-C3 (csrc/candidates.cu) and the front end's F1-F4
+(csrc/frontend.cu); and the UI pass of the
 frame's own DrawList, piece by piece (`ui_pass_ms`): its raster (bin + K2's
 UI launch) and the fused S3 (shade and composite, the pipeline's call).
 Needs CUDA; without it, it exits with an error. `profile_frame`
@@ -69,7 +70,10 @@ KERNEL_NAMES = {"S1": ("rs", "shade_kernel"), "S2": ("rs", "alpha_kernel"),
                 "S3": ("rs", "ui_kernel"), "S3C": ("rs", "ui_composite_kernel"),
                 "K1": ("rt", "binned_kernel"), "K2": ("rt", "layer_kernel"),
                 "C1": ("rc", "extract_kernel"), "C2": ("rc", "merge_kernel"),
-                "C3": ("rc", "resolve_kernel")}
+                "C3": ("rc", "resolve_kernel"), "F1": ("rf", "setup_kernel"),
+                "F2 spans": ("rf", "spans_kernel"), "F2 rows": ("rf", "rows_kernel"),
+                "F3": ("rf", "pairs_kernel"), "F4 scan": ("rf", "scan_kernel"),
+                "F4 scatter": ("rf", "scatter_kernel")}
 
 
 def _is_kernel(key: str, ns: str, fn: str) -> bool:

@@ -10,7 +10,11 @@ tests of S1's compaction, S2's alpha-only sampler, S3 and the fused S3
 gives a slice of the vertex stream the whole stream's bits (the mesh's
 bit-equality with one device rests on it). The candidate kernels C1-C3
 (csrc/candidates.cu) equal their plain versions bit for bit, NaN where
-NaN, on crafted and 1080p inputs, on frames' calls and from a graph.
+NaN, on crafted and 1080p inputs, on frames' calls and from a graph. The
+front end's F1-F4 (csrc/frontend.cu) equal triangle_setup_plain and
+bin_triangle_classes_plain bit for bit, NaN included, on the crafted cases
+of tests/torch_frontend_cases.py, on frames' calls and from a graph, and
+the plain binning on the card equals the CPU's.
 
 These need an NVIDIA GPU with nvcc; without one every test skips. This file
 imports no jax, so it runs on a machine without it:
@@ -40,6 +44,7 @@ from renderer_tpu_torch.raster import (
 from renderer_tpu_torch.raster.pipeline import STANDARD_SAMPLE_POSITIONS
 from renderer_tpu_torch.tools.shade_check import compare, recorded_shading, run_shading
 from tests import torch_candidate_cases as cand_cases
+from tests import torch_frontend_cases as fe_cases
 from tests.torch_bins import (
     CASES,
     UI_CASES,
@@ -339,7 +344,9 @@ def test_replays_add_the_capture_launch_counts(cuda):
     assert graph.captured.launches == {"k1": 1, "masked": 1, "blended": 1, "ui": 0,
                                        "shade": 2, "alpha": 1, "ui_shade": 0,
                                        "ui_composite": 0, "cand_extract": 3,
-                                       "cand_merge": 1, "cand_resolve": 1}
+                                       "cand_merge": 1, "cand_resolve": 1, "setup": 1,
+                                       "bin_spans": 1, "bin_rows": 1, "bin_pairs": 1,
+                                       "bin_scan": 1, "bin_scatter": 1}
     before = pipeline.launch_counts()
     r.render_frames_device(scenes + scenes[:1])
     assert r.frame_graphs.graph is graph
@@ -1087,3 +1094,160 @@ def test_candidate_kernels_equal_plain_on_scenes(cuda, scene):
         r.render_frame(sc, 0, ui=ui)
     assert [kind for kind, _, _ in calls] == ["C1", "C2", "C1", "C1", "C3"]
     _assert_candidates_equal(calls, f"scene {scene}")
+
+
+# -- the front end F1-F4 (csrc/frontend.cu) -------------------------------
+
+FRONTEND_COUNTERS = ("setup", "bin_spans", "bin_rows", "bin_pairs", "bin_scan", "bin_scatter")
+
+
+def _front_setup_args(dev, case: str, tiles: tuple, double_sided: bool):
+    """triangle_setup's arguments of a crafted case on `dev`, num_tris a
+    0-d int32 tensor there (as the pipeline passes it)."""
+    inp = fe_cases.setup_inputs(case, tiles)
+    num = torch.tensor(inp["num_tris"], dtype=torch.int32, device=dev)
+    args = (torch.from_numpy(inp["clip"]).to(dev), torch.from_numpy(inp["tri_v"]).to(dev),
+            num, inp["width"], inp["height"])
+    return args, dict(bbox_pad=0.5, double_sided=double_sided)
+
+
+def _front_bounds(bounds: tuple, dev) -> tuple:
+    """The pipeline's mix: the first bound a number, the others 0-d int32
+    tensors on the card."""
+    return (bounds[0],) + tuple(torch.tensor(b, dtype=torch.int32, device=dev)
+                                for b in bounds[1:])
+
+
+def _assert_frontend_equal(kind: str, args: tuple, kw: dict, what: str) -> None:
+    """One call through the kernels (each counter once) and through the
+    plain version: 0 values differing in bits, NaN included."""
+    from renderer_tpu_torch.raster import pipeline
+    from renderer_tpu_torch.tools.frontend_probe import compare, run_frontend
+
+    before = pipeline.launch_counts()
+    got = run_frontend(kind, args, kw, plain=False)
+    torch.cuda.synchronize()
+    after = pipeline.launch_counts()
+    moved = {k: after[k] - before[k] for k in FRONTEND_COUNTERS}
+    want_moved = {k: int((k == "setup") == (kind == "F1")) for k in FRONTEND_COUNTERS}
+    assert moved == want_moved, (what, moved)
+    want = run_frontend(kind, args, kw, plain=True)
+    counts = compare(got, want)
+    assert counts["differing"] == 0, (what, kind, counts)
+
+
+@pytest.mark.parametrize("double_sided", [False, True])
+@pytest.mark.parametrize("case", fe_cases.CASES)
+@pytest.mark.parametrize("tiles", fe_cases.TILES, ids=lambda t: f"{t[0]}x{t[1]}")
+def test_f1_setup_bit_equal_on_crafted_cases(cuda, tiles, case, double_sided):
+    args, kw = _front_setup_args(cuda, case, tiles, double_sided)
+    _assert_frontend_equal("F1", args, kw, case)
+
+
+@pytest.mark.parametrize("config", fe_cases.BIN_CONFIGS)
+@pytest.mark.parametrize("case", fe_cases.CASES)
+@pytest.mark.parametrize("tiles", fe_cases.TILES, ids=lambda t: f"{t[0]}x{t[1]}")
+def test_f2_f4_binning_bit_equal_on_crafted_cases(cuda, tiles, case, config):
+    """F2-F4 on the card's plain setup of each case: the binned buffer,
+    starts, counts, overflows and demands bit-equal to the plain version,
+    under truncation and in a band too."""
+    args, kw = _front_setup_args(cuda, case, tiles, False)
+    td = setup.triangle_setup_plain(*args, **kw)
+    bounds, bkw = fe_cases.bin_config(config, tiles, td.shape[1])
+    _assert_frontend_equal("BIN", (td, _front_bounds(bounds, cuda)), bkw, f"{case} {config}")
+
+
+@pytest.mark.parametrize("config", fe_cases.BIN_CONFIGS)
+@pytest.mark.parametrize("tiles", fe_cases.TILES, ids=lambda t: f"{t[0]}x{t[1]}")
+def test_binning_plain_on_the_card_equals_the_cpu(cuda, tiles, config):
+    """The plain version on the card against the plain version on the CPU,
+    at 384×24 tiles too: it multiplies by the tile size's f32 reciprocal
+    (binning._reciprocal) where it divided by the Python number, which
+    torch on the card turns into that product and torch on the CPU into a
+    true quotient ("tile-edges" meets the difference,
+    tests/torch_frontend_cases.RECIPROCAL_FLIP)."""
+    for case in fe_cases.CASES:
+        args, kw = _front_setup_args("cpu", case, tiles, False)
+        td = setup.triangle_setup_plain(*args, **kw)
+        bounds, bkw = fe_cases.bin_config(config, tiles, td.shape[1])
+        want = binning.bin_triangle_classes_plain(td, bounds, **bkw)
+        got = binning.bin_triangle_classes_plain(td.to(cuda), _front_bounds(bounds, cuda),
+                                                 **bkw)
+        assert all(_bits_equal(g.cpu(), w) for g, w in zip(got, want, strict=True)), case
+
+
+@pytest.mark.parametrize("scene", ["A", "B", "C"])
+def test_frontend_kernels_equal_plain_on_scenes(cuda, scene):
+    """Every setup and binning call of a 320×192 frame of chip_smoke.py's
+    scenes (C with its UI window: the UI pass's double-sided setup and
+    single-class binning too), bit-equal to the plain versions."""
+    from renderer_tpu_torch.tools.frontend_probe import frame_calls
+
+    cfg = trt.RenderConfig(width=320, height=192, msaa_samples=4)
+    ui = None
+    if scene == "A":
+        registry, sc = demo_scenes.stress_scene()
+        r = trt.Renderer(registry, trt.RenderConfig(width=320, height=192,
+                                                    max_triangles=1 << 21), device=cuda)
+    elif scene == "B":
+        registry, sc = demo_scenes.patch_wall_scene()
+        r = trt.Renderer(registry, cfg, overflow_policy="sync", device=cuda)
+    else:
+        frames = demo_scenes.SandboxFrames()
+        r = trt.Renderer(frames.registry, cfg, profiler=frames.profiler,
+                         overflow_policy="sync", device=cuda)
+        sc, ui = frames.next()
+    calls = frame_calls(r, sc, ui)
+    assert [kind for kind, _, _ in calls] == ["F1", "BIN"] * (2 if scene == "C" else 1)
+    for i, (kind, args, kw) in enumerate(calls):
+        _assert_frontend_equal(kind, args, kw, f"scene {scene} call {i}")
+
+
+def test_frontend_kernels_replay_from_a_graph(cuda):
+    """Setup, then binning of its output with device-side bounds, captured
+    into one CUDA graph (pipeline.CapturedGraph): a replay into outputs
+    overwritten first gives the eager run's bits, which equal the plain
+    versions'."""
+    from renderer_tpu_torch.raster.pipeline import CapturedGraph
+
+    args, kw = _front_setup_args(cuda, "soup", fe_cases.TILES[0], False)
+    bounds, bkw = fe_cases.bin_config("three-classes", fe_cases.TILES[0], fe_cases.N_TRIS)
+    bounds = _front_bounds(bounds, cuda)
+
+    def front(setup_fn=setup.triangle_setup, bin_fn=binning.bin_triangle_classes):
+        td = setup_fn(*args, **kw)
+        return (td, *bin_fn(td, bounds, **bkw))
+
+    eager = front()
+    want = front(setup.triangle_setup_plain, binning.bin_triangle_classes_plain)
+    g = CapturedGraph(front, cuda)
+    for out in g.out:
+        out.fill_(-7)
+    g.replay()
+    torch.cuda.synchronize()
+    assert all(_bits_equal(a, b) for a, b in zip(eager, want, strict=True))
+    assert all(_bits_equal(a, b) for a, b in zip(g.out, eager, strict=True))
+    assert {k: g.launches[k] for k in FRONTEND_COUNTERS} == dict.fromkeys(FRONTEND_COUNTERS, 1)
+
+
+def test_frontend_wrappers_check_their_inputs(cuda):
+    """F1's and F2-F4's wrappers raise on inputs the kernels do not take;
+    a bound on the CPU counts as its value."""
+    args, kw = _front_setup_args(cuda, "soup", fe_cases.TILES[0], False)
+    clip, tri_v, num, w, h = args
+    for bad in ((clip.double(), tri_v), (clip[:, :3], tri_v), (clip, tri_v.long()),
+                (clip, tri_v[:, :2])):
+        with pytest.raises(ValueError):
+            setup.triangle_setup(*bad, num, w, h)
+    with pytest.raises(ValueError):
+        setup.triangle_setup(clip, tri_v, num.float(), w, h)
+    td = setup.triangle_setup(*args, **kw)
+    bounds, bkw = fe_cases.bin_config("three-classes", fe_cases.TILES[0], td.shape[1])
+    for bad_td, bad_bounds in ((td.double(), bounds), (td[:16], bounds),
+                               (td, (0, 10, 20, 30, bounds[-1]))):
+        with pytest.raises(ValueError):
+            binning.bin_triangle_classes(bad_td, bad_bounds, **bkw)
+    cpu_bounds = tuple(torch.tensor(b, dtype=torch.int32) for b in bounds)
+    got = binning.bin_triangle_classes(td, cpu_bounds, **bkw)
+    want = binning.bin_triangle_classes_plain(td, bounds, **bkw)
+    assert all(_bits_equal(a, b) for a, b in zip(got, want, strict=True))
