@@ -8,11 +8,10 @@
 // - F2 rt_bin_spans + rt_bin_rows (spans_kernel, rows_kernel):
 //   renderer_tpu/raster/binning.py:66 `_tile_spans` and stage 1 of
 //   `bin_triangle_classes` (:234-278, the repeat at :239): a triangle's
-//   tile span, class, band clip and z-bucket, then one thread a row slot.
+//   tile span, class, band clip and z-bucket, then its tile rows.
 // - F3 rt_bin_pairs (pairs_kernel): stage 2 (:279-343, the repeat at
-//   :283), one thread a pair slot: the tile, the key and the extent
-//   reject, and the group counts that stand for the searchsorted pair
-//   (:352-354).
+//   :283): each row's pairs, their tile, key and extent reject, and the
+//   group counts that stand for the searchsorted pair (:352-354).
 // - F4 rt_bin_scan + rt_bin_scatter (scan_kernel, scatter_kernel): the
 //   128-aligned starts (:356-362), the per-class overflow (:387-394) and
 //   the scatter of the sorted pairs into the binned buffer (:364-380).
@@ -24,16 +23,40 @@
 // the plain versions are ~550 PyTorch launches, each a pass over one
 // [Tc], [row_capacity] or [pair_capacity] vector; here one pass a stage.
 //
-// Design: one thread an element (triangle, row slot, pair slot, binned
+// Design: F1, F2 spans and F4 run one thread an element (triangle, binned
 // column), 256 a block, consecutive threads on consecutive elements so the
-// SoA rows are read and written coalesced. The ragged repeats become a
-// binary search of a thread's slot in the inclusive cumsum (the top of the
-// search is the same for a warp, so it hits L1). The scatter is a gather:
-// one thread a column of the binned buffer finds its (class, tile) group
-// by a binary search of the 128-aligned starts and copies its pair's 16
-// rows, or zeros, so the buffer is written once and needs no memset.
-// Class and group counts are integer atomics (the class totals summed in
-// shared memory first); integer sums do not depend on their order.
+// SoA rows are read and written coalesced. The scatter is a gather: one
+// thread a column of the binned buffer finds its (class, tile) group by a
+// binary search of the 128-aligned starts and copies its pair's 16 rows,
+// or zeros, so the buffer is written once and needs no memset.
+// The two ragged repeats, F2 rows (triangles to tile rows) and F3 (rows to
+// pairs), are load-balanced expansions a block. A block owns a tile of
+// consecutive items (384 in F2 rows, 512 in F3) of the merge path of the
+// sources (triangles; rows) with the slots (row slots; pair slots), so a
+// run of zero-count sources (invalid, off-screen or outside the band;
+// rejected rows) takes tiles as slots do and a tile's sources stay few.
+// Warps 0 and 1 find a tile's two splits, each with 32 probes of the
+// global cumsum a step (four dependent loads and a last probe for 2^20
+// sources, where a search a slot took ~20). The block then stages in
+// shared memory, with coalesced loads, what its slots read: the cumsum
+// segment, then for the sources that own live slots of the tile F2 rows'
+// tri_info and 11 td rows (planes 0-8, xmin, xmax) by cp.async, F3's
+// row_rec and its triangles' 9 plane rows (rows are in triangle order, so a
+// warp reads a few triangles). Each source marks its slots with its
+// index, so nothing is searched a slot. F2 rows runs persistent blocks
+// that find the next tile's splits while the tile's copies are in flight.
+// Past the live count (the demand, cut at the capacity, read on the
+// device) a tile only writes the dead rows' 0 or the dead pairs' key with
+// 16-byte stores; F3's tiles over the rows past the live ones (no pairs)
+// do nothing. The grids follow the capacities (and the SMs), so a
+// captured graph replays any demand. The merges need cumsums that do not
+// wrap: the wrapper refuses sizes whose demand could pass 2^31 - 1.
+// What bounds them: the dependent loads of a tile (the splits, the
+// cumsum, the staged rows) more than the bytes (PERF.md).
+// Class and group counts are integer atomics (the class totals summed over
+// the warp and the block first, the group counts over a warp by
+// __match_any_sync);
+// integer sums do not depend on their order.
 //
 // Bit-equality with the plain versions: every product, sum and quotient
 // is the intrinsic of the torch op it repeats (__fmul_rn, __fadd_rn,
@@ -53,6 +76,17 @@ namespace rf {
 
 constexpr int THREADS = 256;
 constexpr int SCAN_THREADS = 1024;
+// F2 rows and F3: the items (sources and slots) of the merge a block takes
+// (binning.EXPAND_ITEMS mirrors them) and its threads
+constexpr int ROWS_ITEMS = 384;
+constexpr int ROWS_THREADS = 256;
+constexpr int PAIRS_ITEMS = 512;
+constexpr int PAIRS_THREADS = 256;
+// Where F2 rows and F3 stop, for tools/frontend_probe's timings of their
+// phases alone: 0 never (the kernels), 1 after the merge splits, 2 after
+// F2 rows' staging (its rows get span 0: F3 then finds no pairs); the
+// outputs are then wrong.
+constexpr int EXPAND_STOP = 0;
 constexpr int ROWS = 24;        // setup.py ROWS
 constexpr int B_ROWS = 16;      // binning.py B_ROWS: rows 0-14 and the id
 constexpr int B_TID = 15;
@@ -339,120 +373,368 @@ __global__ void __launch_bounds__(THREADS) spans_kernel(const BinArgs A) {
   A.tri_info[t] = make_int4(tx0, span_w, k0, cls + 4 * zb);
 }
 
-// F2, its second pass: one thread a row slot r < rc. A live row (r below
-// the row demand) finds its triangle in the cumsum, takes its tile row,
-// narrows the triangle's columns to the edges' x-window over the row's
-// padded extent and adds the row's columns to its class's pair total.
-__global__ void __launch_bounds__(THREADS) rows_kernel(const BinArgs A) {
-  __shared__ int class_pairs[MAX_CLASSES];
-  if (threadIdx.x < MAX_CLASSES) class_pairs[threadIdx.x] = 0;
-  __syncthreads();
-  const long long r = thread_index();
-  const int live_rows = min(__ldg(A.cum_r + A.tc - 1), A.rc);
-  if (r < A.rc) {
-    int span = 0;
-    if (r < live_rows) {
-      const long long tc = A.tc;
-      const int t = upper_bound(A.cum_r, A.tc, r);
-      const int4 info = A.tri_info[t];
-      const int cum_start = wsub(__ldg(A.cum_r + t), __ldg(A.n_rows + t));
-      const int row_k = wadd(info.z, wsub(static_cast<int>(r), cum_start));
-      const int row_ty = wadd(A.tile_row_lo, wmul(row_k, A.row_stride));
-      const float ext_y0 = __fsub_rn(__fmul_rn(__int2float_rn(row_ty),
-                                               static_cast<float>(A.tile_h)), 0.5f);
-      const float ext_y1 = __fadd_rn(ext_y0, static_cast<float>(A.tile_h) + 1.0f);
-      float xlo = __ldg(A.td + 15 * tc + t), xhi = __ldg(A.td + 17 * tc + t);
-      bool alive = true;
-#pragma unroll
-      for (int e = 0; e < 3; ++e) {
-        const float a = __ldg(A.td + (3 * e) * tc + t);
-        const float b = __ldg(A.td + (3 * e + 1) * tc + t);
-        const float c = __ldg(A.td + (3 * e + 2) * tc + t);
-        const float bb = __fadd_rn(__fmul_rn(b, b > 0.0f ? ext_y1 : ext_y0), c);
-        const float x = __fdiv_rn(-bb, a == 0.0f ? 1.0f : a);
-        if (a > 0.0f) xlo = tmax(xlo, x);
-        if (a < 0.0f) xhi = tmin(xhi, x);
-        alive = alive && (a != 0.0f || bb >= 0.0f);
-      }
-      xlo = __fsub_rn(xlo, 1.0f);
-      xhi = __fadd_rn(xhi, 1.0f);
-      const float inv_w = __fdiv_rn(1.0f, static_cast<float>(A.tile_w));
-      const int rx_lo = max(info.x, f32_to_i32(ceilf(__fsub_rn(
-                                        __fmul_rn(__fsub_rn(xlo, 0.5f), inv_w), 1.0f))));
-      const int rx_hi = min(wsub(wadd(info.x, info.y), 1),
-                            f32_to_i32(floorf(__fmul_rn(__fadd_rn(xhi, 0.5f), inv_w))));
-      span = alive ? max(wadd(wsub(rx_hi, rx_lo), 1), 0) : 0;
-      A.row_rec[r] = make_int4(t, rx_lo, row_k, info.w);
-      if (span != 0) atomicAdd(&class_pairs[info.w & 3], span);
+// F2 rows and F3 expand each source (a triangle; a row) into its slots (its
+// tile rows; its pairs), given the inclusive cumsum cum[0, n_src) of the
+// counts. A block owns ITEMS consecutive items of the merge of the sources
+// with the slots 0 .. n_slots - 1 in which slot j comes before source i iff
+// j < cum[i]: a source follows its own slots, so it stands at i + cum[i]
+// (cum cut at n_slots), and slot j's source is the number of sources
+// before it, upper_bound(cum, j). A run of zero-count sources is a run of
+// items like any other, so a block's sources are as few as its items,
+// whatever the counts.
+
+// The merge's split at diagonal d: the sources among its first d items,
+// the first i in [0, n_src) with i + min(cum[i], n_slots) >= d (n_src if
+// none). Called by a whole warp: 32 probes a step narrow the range
+// 32-fold (four steps and a last probe for 2^20 sources). The probes
+// depend on d only through the range they narrow, so every block probes
+// the same first 32 values and neighbouring blocks the same next ones.
+__device__ long long merge_split(const int* __restrict__ cum, long long n_src,
+                                 long long n_slots, long long d) {
+  const int lane = static_cast<int>(threadIdx.x & 31);
+  auto after = [&](long long i) {
+    return i + min(static_cast<long long>(__ldg(cum + i)), n_slots) >= d;
+  };
+  long long lo = 0, hi = n_src;  // the split lies in [lo, hi]
+  while (hi - lo > 32) {
+    const long long span = hi - lo;
+    const long long p = lo + span * lane / 32;
+    const unsigned m = __ballot_sync(0xffffffffu, after(p));
+    if (m == 0) {
+      lo += span * 31 / 32 + 1;
+    } else {
+      const int f = __ffs(m) - 1;
+      hi = lo + span * f / 32;
+      if (f > 0) lo += span * (f - 1) / 32 + 1;
     }
-    A.row_span[r] = span;
+  }
+  const long long p = lo + lane;
+  const unsigned m = __ballot_sync(0xffffffffu, p < hi && after(p));
+  return m ? lo + __ffs(m) - 1 : hi;
+}
+
+// v into p[lo, hi) by the whole block: 16-byte stores between the
+// unaligned ends
+__device__ void block_fill(int* __restrict__ p, long long lo, long long hi, int v) {
+  if (lo >= hi) return;
+  int* const a = p + lo;
+  int* const e = p + hi;
+  int* a4 = reinterpret_cast<int*>((reinterpret_cast<uintptr_t>(a) + 15) & ~uintptr_t{15});
+  int* e4 = reinterpret_cast<int*>(reinterpret_cast<uintptr_t>(e) & ~uintptr_t{15});
+  if (a4 > e) a4 = e;
+  if (e4 < a4) e4 = a4;
+  for (int* q = a + threadIdx.x; q < a4; q += blockDim.x) *q = v;
+  const int4 v4 = make_int4(v, v, v, v);
+  for (int4* q = reinterpret_cast<int4*>(a4) + threadIdx.x; q < reinterpret_cast<int4*>(e4);
+       q += blockDim.x)
+    *q = v4;
+  for (int* q = e4 + threadIdx.x; q < e; q += blockDim.x) *q = v;
+}
+
+// Copies to shared memory that wait for nothing until cp_async_wait_all:
+// a thread's staging loads are all in flight at once.
+__device__ __forceinline__ unsigned shared_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(shared_addr(dst)),
+               "l"(__cvta_generic_to_global(src))
+               : "memory");
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(shared_addr(dst)),
+               "l"(__cvta_generic_to_global(src))
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
+// A block's shared memory in F2 rows or F3: the tile's cumsum segment,
+// each slot's source, and an int4 record and `cols` f32 rows a source.
+struct ExpandSmem {
+  int* cum;    // [items + 2]: cum[i0 - 1 + k] (0 before the first source)
+  int* src;    // [items]: slot j0 + s belongs to source src[s]
+  int4* rec;   // [items + 1]: F2 rows' tri_info, F3's row_rec
+  float* col;  // [cols][items + 1]: td rows
+};
+__host__ __device__ constexpr int expand_smem_bytes(int items, int cols) {
+  return 4 * (items + 2) + 4 * items + 16 +  // + 16: rec 16-byte aligned
+         (16 + 4 * cols) * (items + 1);
+}
+__device__ __forceinline__ ExpandSmem expand_smem(unsigned char* base, int items) {
+  ExpandSmem m;
+  m.cum = reinterpret_cast<int*>(base);
+  m.src = m.cum + items + 2;
+  m.rec = reinterpret_cast<int4*>(
+      (reinterpret_cast<uintptr_t>(m.src + items) + 15) & ~uintptr_t{15});
+  m.col = reinterpret_cast<float*>(m.rec + items + 1);
+  return m;
+}
+
+// Whether staged source k owns slots of the tile's live ones [j0, j_live)
+__device__ __forceinline__ bool owns_slots(const ExpandSmem& m, int k, long long j0,
+                                           long long j_live) {
+  return max(static_cast<long long>(m.cum[k]), j0) <
+         min(static_cast<long long>(m.cum[k + 1]), j_live);
+}
+
+// After the cumsum segment is staged: marks each live slot with its
+// source (m.src), so that a slot reads its source instead of searching
+// for it.
+__device__ void map_slots(const ExpandSmem& m, int n_s, long long j0, long long j_live,
+                          int threads) {
+  for (int k = threadIdx.x; k < n_s; k += threads) {
+    const int lo = static_cast<int>(max(static_cast<long long>(m.cum[k]), j0));
+    const int hi = static_cast<int>(min(static_cast<long long>(m.cum[k + 1]), j_live));
+    for (int s = lo; s < hi; ++s) m.src[s - j0] = k;
+  }
+}
+
+// td rows a row's x-window reads: the edge planes 0-8, xmin and xmax; a
+// pair's extent reject: the edge planes
+constexpr int ROW_COLS = 11;
+constexpr int PAIR_COLS = 9;
+__device__ __forceinline__ int row_col(int c) { return c < 9 ? c : (c == 9 ? 15 : 17); }
+constexpr int ROWS_SMEM = expand_smem_bytes(ROWS_ITEMS, ROW_COLS);
+constexpr int PAIRS_SMEM = expand_smem_bytes(PAIRS_ITEMS, PAIR_COLS);
+static_assert(ROWS_SMEM <= 227 * 1024 && PAIRS_SMEM <= 227 * 1024, "shared memory a block");
+
+// Warps 0 and 1 find the splits at a tile's two ends (into `split`).
+// F2 rows runs persistent blocks that walk tiles of ROWS_ITEMS items of the
+// merge, gridDim apart: while a tile's staging copies are in flight, they
+// find the next tile's splits, so the search's loads and the staging's
+// overlap.
+__device__ __forceinline__ void next_split(const int* __restrict__ cum, long long n_src,
+                                           long long n_slots, long long d0, long long d1,
+                                           long long* split) {
+  const int warp = static_cast<int>(threadIdx.x >> 5);
+  if (warp < 2) {
+    const long long s = merge_split(cum, n_src, n_slots, warp ? d1 : d0);
+    if ((threadIdx.x & 31) == 0) split[warp] = s;
+  }
+}
+
+// F2, its second pass: tiles of ROWS_ITEMS items of the merge of the
+// triangles with the row slots r < rc. A live row (r below the row
+// demand) takes its triangle's tile row, narrows the triangle's columns to
+// the edges' x-window over the row's padded extent and adds the row's
+// columns to its class's pair total (summed over the thread's tiles, the
+// warp, then the block); a dead row's span is 0.
+__global__ void __launch_bounds__(ROWS_THREADS) rows_kernel(const BinArgs A) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ long long split[2];
+  __shared__ int class_pairs[MAX_CLASSES];
+  constexpr int STAGED = ROWS_ITEMS + 1;
+  const ExpandSmem m = expand_smem(smem, ROWS_ITEMS);
+  const long long n_src = A.tc, n_slots = A.rc, tc = A.tc;
+  const long long n_items = n_src + n_slots;
+  const long long tiles = (n_items + ROWS_ITEMS - 1) / ROWS_ITEMS;
+  const int live = min(__ldg(A.cum_r + A.tc - 1), A.rc);
+  // the tiles before every triangle is behind (past them: dead rows only)
+  const long long live_tiles = min(tiles, (n_src + live + ROWS_ITEMS - 1) / ROWS_ITEMS);
+  auto d_of = [&](long long t) { return min(t * ROWS_ITEMS, n_items); };
+  if (threadIdx.x < MAX_CLASSES) class_pairs[threadIdx.x] = 0;
+  if (blockIdx.x < live_tiles)
+    next_split(A.cum_r, n_src, n_slots, d_of(blockIdx.x), d_of(blockIdx.x + 1), split);
+  __syncthreads();
+  const float inv_w = __fdiv_rn(1.0f, static_cast<float>(A.tile_w));
+  int total[MAX_CLASSES] = {0, 0, 0};
+  for (long long t = blockIdx.x; t < live_tiles; t += gridDim.x) {
+    const long long d0 = d_of(t), d1 = d_of(t + 1), tn = t + gridDim.x;
+    const long long i0 = split[0], i1 = split[1], j0 = d0 - i0, j1 = d1 - i1;
+    __syncthreads();  // split is read: the next tile's may be written
+    if (j0 >= j1 || j0 >= live || EXPAND_STOP == 1) {
+      if (EXPAND_STOP != 1) block_fill(A.row_span, j0, j1, 0);
+      if (tn < live_tiles) next_split(A.cum_r, n_src, n_slots, d_of(tn), d_of(tn + 1), split);
+      __syncthreads();
+      continue;
+    }
+    // the triangles the tile's live rows can take: i0 .. min(i1, tc - 1)
+    const int n_s = static_cast<int>(min(i1, n_src - 1) - i0 + 1);
+    for (int k = threadIdx.x; k <= n_s; k += ROWS_THREADS) {
+      if (i0 + k > 0) cp_async4(m.cum + k, A.cum_r + i0 + k - 1);
+      else m.cum[k] = 0;
+    }
+    cp_async_wait_all();
+    __syncthreads();
+    const long long j_live = min(j1, static_cast<long long>(live));
+    map_slots(m, n_s, j0, j_live, ROWS_THREADS);
+    for (int k = threadIdx.x; k < n_s; k += ROWS_THREADS) {
+      if (!owns_slots(m, k, j0, j_live)) continue;
+      const long long tri = i0 + k;
+      cp_async16(m.rec + k, A.tri_info + tri);
+#pragma unroll
+      for (int r = 0; r < ROW_COLS; ++r)
+        cp_async4(m.col + r * STAGED + k, A.td + row_col(r) * tc + tri);
+    }
+    if (tn < live_tiles) next_split(A.cum_r, n_src, n_slots, d_of(tn), d_of(tn + 1), split);
+    cp_async_wait_all();
+    __syncthreads();
+    if (EXPAND_STOP == 2) {
+      for (long long j = j0 + threadIdx.x; j < j1; j += ROWS_THREADS)
+        A.row_span[j] = m.rec[0].x == 1 && m.col[0] == 1.0f && j < 0;
+      continue;
+    }
+    for (long long j = j0 + threadIdx.x; j < j1; j += ROWS_THREADS) {
+      int span = 0;
+      if (j < live) {
+        const int r = static_cast<int>(j);
+        const int k = m.src[r - j0];
+        const int4 info = m.rec[k];
+        const float* col = m.col + k;
+        // m.cum[k] = cum_r[t] - n_rows[t], the triangle's first row
+        const int row_k = wadd(info.z, wsub(r, m.cum[k]));
+        const int row_ty = wadd(A.tile_row_lo, wmul(row_k, A.row_stride));
+        const float ext_y0 = __fsub_rn(__fmul_rn(__int2float_rn(row_ty),
+                                                 static_cast<float>(A.tile_h)), 0.5f);
+        const float ext_y1 = __fadd_rn(ext_y0, static_cast<float>(A.tile_h) + 1.0f);
+        float xlo = col[9 * STAGED], xhi = col[10 * STAGED];
+        bool alive = true;
+#pragma unroll
+        for (int e = 0; e < 3; ++e) {
+          const float a = col[(3 * e) * STAGED];
+          const float b = col[(3 * e + 1) * STAGED];
+          const float c = col[(3 * e + 2) * STAGED];
+          const float bb = __fadd_rn(__fmul_rn(b, b > 0.0f ? ext_y1 : ext_y0), c);
+          const float x = __fdiv_rn(-bb, a == 0.0f ? 1.0f : a);
+          if (a > 0.0f) xlo = tmax(xlo, x);
+          if (a < 0.0f) xhi = tmin(xhi, x);
+          alive = alive && (a != 0.0f || bb >= 0.0f);
+        }
+        xlo = __fsub_rn(xlo, 1.0f);
+        xhi = __fadd_rn(xhi, 1.0f);
+        const int rx_lo = max(info.x, f32_to_i32(ceilf(__fsub_rn(
+                                          __fmul_rn(__fsub_rn(xlo, 0.5f), inv_w), 1.0f))));
+        const int rx_hi = min(wsub(wadd(info.x, info.y), 1),
+                              f32_to_i32(floorf(__fmul_rn(__fadd_rn(xhi, 0.5f), inv_w))));
+        span = alive ? max(wadd(wsub(rx_hi, rx_lo), 1), 0) : 0;
+        A.row_rec[r] = make_int4(static_cast<int>(i0) + k, rx_lo, row_k, info.w);
+#pragma unroll
+        for (int c = 0; c < MAX_CLASSES; ++c)
+          total[c] = wadd(total[c], (info.w & 3) == c ? span : 0);
+      }
+      A.row_span[j] = span;
+    }
+  }
+  // past every triangle: dead rows only
+  for (long long t = live_tiles + (blockIdx.x + gridDim.x - live_tiles % gridDim.x) % gridDim.x;
+       t < tiles; t += gridDim.x)
+    block_fill(A.row_span, d_of(t) - n_src, d_of(t + 1) - n_src, 0);
+#pragma unroll
+  for (int c = 0; c < MAX_CLASSES; ++c) {
+    const int t = __reduce_add_sync(0xffffffffu, total[c]);
+    if ((threadIdx.x & 31) == 0 && t != 0) atomicAdd(&class_pairs[c], t);
   }
   __syncthreads();
   if (threadIdx.x < A.n_classes && class_pairs[threadIdx.x] != 0)
     atomicAdd(A.acc + n_keys(A) + threadIdx.x, class_pairs[threadIdx.x]);
 }
 
-// F3: one thread a pair slot p < pc. A live pair (p below the pair demand)
-// finds its row in the cumsum, takes its tile, its key and the extent
-// reject (every edge's most-inside corner of the tile's sample extent
-// padded a pixel); a kept pair counts in its (class, tile) group. The
-// counts are aggregated over the warp first (__match_any_sync): a warp's
-// pairs are consecutive in the stream, and small triangles bin many pairs
-// of one tile next to each other (on the 1M-triangle field one atomic a
-// pair took 6x the kernel's time).
-__global__ void __launch_bounds__(THREADS) pairs_kernel(const BinArgs A) {
-  const long long p = thread_index();
-  if (p >= A.pc) return;
+// F3: a block of PAIRS_ITEMS items of the merge of the rows with the pair
+// slots p < pc. A live pair (p below the pair demand) takes its row's tile,
+// its key and the extent reject (every edge's most-inside corner of the
+// tile's sample extent padded a pixel); a kept pair counts in its (class,
+// tile) group, a dead or rejected one gets the key `dead`. The counts are
+// aggregated over the warp first (__match_any_sync): a warp's pairs are
+// consecutive in the stream, and small triangles bin many pairs of one tile
+// next to each other (on the 1M-triangle field one atomic a pair took 6x
+// the kernel's time). One block a tile: the persistent walk of F2 rows
+// made F3 slower (PERF.md).
+__global__ void __launch_bounds__(PAIRS_THREADS) pairs_kernel(const BinArgs A) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ long long split[2];
+  constexpr int STAGED = PAIRS_ITEMS + 1;
+  const ExpandSmem m = expand_smem(smem, PAIRS_ITEMS);
   const int keys = n_keys(A);
   const int zbuckets = A.zbuckets;
   const int dead = wmul(keys, zbuckets);
-  const int live_pairs = min(__ldg(A.cum_p + A.rc - 1), A.pc);
-  // the counter a kept pair adds to: its group, keys (keys below 0, which
-  // sort first and shift every group's sorted start; only an int32 wrap of
-  // a window makes one), or none (-1: dead, rejected or past `dead`)
-  int counter = -1;
-  if (p >= live_pairs) {
-    A.key[p] = dead;
-  } else {
-    const long long tc = A.tc;
-    const int row = upper_bound(A.cum_p, A.rc, p);
-    const int4 rec = A.row_rec[row];
-    const int cum_start = wsub(__ldg(A.cum_p + row), __ldg(A.row_span + row));
-    const int tile_x = wadd(rec.y, wsub(static_cast<int>(p), cum_start));
-    const int tile_y = wadd(A.tile_row_lo, wmul(rec.z, A.row_stride));
-    const int cls = rec.w & 3;
-    const int group = wadd(wmul(cls, A.tiles_x * A.local_tiles_y),
-                           wadd(wmul(rec.z, A.tiles_x), tile_x));
-    int key = group;
-    if (zbuckets > 1) key = wadd(wmul(group, zbuckets), cls == 0 ? rec.w >> 2 : 0);
-    const float fw = static_cast<float>(A.tile_w), fh = static_cast<float>(A.tile_h);
-    const float ext_x0 = __fsub_rn(__fmul_rn(__int2float_rn(tile_x), fw), 0.5f);
-    const float ext_x1 = __fadd_rn(ext_x0, fw + 1.0f);
-    const float ext_y0 = __fsub_rn(__fmul_rn(__int2float_rn(tile_y), fh), 0.5f);
-    const float ext_y1 = __fadd_rn(ext_y0, fh + 1.0f);
-    bool covers = true;
-#pragma unroll
-    for (int e = 0; e < 3; ++e) {
-      const float a = __ldg(A.td + (3 * e) * tc + rec.x);
-      const float b = __ldg(A.td + (3 * e + 1) * tc + rec.x);
-      const float c = __ldg(A.td + (3 * e + 2) * tc + rec.x);
-      const float e_max = __fadd_rn(__fadd_rn(__fmul_rn(a, a > 0.0f ? ext_x1 : ext_x0),
-                                              __fmul_rn(b, b > 0.0f ? ext_y1 : ext_y0)), c);
-      covers = covers && e_max >= 0.0f;
-    }
-    if (!covers) key = dead;
-    A.key[p] = key;
-    A.tri_pair[p] = rec.x;
-    if (covers) counter = key < 0 ? keys : (key < dead ? key / zbuckets : -1);
+  const long long n_src = A.rc, n_slots = A.pc, tc = A.tc;
+  const long long n_items = n_src + n_slots;
+  const int live_rows = min(__ldg(A.cum_r + A.tc - 1), A.rc);
+  const int live = min(__ldg(A.cum_p + A.rc - 1), A.pc);
+  const long long d0 = static_cast<long long>(blockIdx.x) * PAIRS_ITEMS;
+  const long long d1 = min(d0 + PAIRS_ITEMS, n_items);
+  // past every live pair come the dead rows (no pairs, after the live
+  // pairs), then the dead pairs (after every row)
+  if (d0 >= live_rows + live) {
+    block_fill(A.key, max(d0 - n_src, static_cast<long long>(live)),
+               max(d1 - n_src, static_cast<long long>(live)), dead);
+    return;
   }
-  // the warp's lanes below pc (the others returned at the top)
+  next_split(A.cum_p, n_src, n_slots, d0, d1, split);
+  __syncthreads();
+  const long long i0 = split[0], i1 = split[1], j0 = d0 - i0, j1 = d1 - i1;
+  if (j0 >= j1 || j0 >= live) {
+    block_fill(A.key, j0, j1, dead);
+    return;
+  }
+  if (EXPAND_STOP == 1) return;
+  // the rows the block's live pairs can take: i0 .. min(i1, live_rows - 1)
+  const int n_s = static_cast<int>(min(i1, static_cast<long long>(live_rows) - 1) - i0 + 1);
+  for (int k = threadIdx.x; k <= n_s; k += PAIRS_THREADS) {
+    m.cum[k] = i0 + k > 0 ? __ldg(A.cum_p + i0 + k - 1) : 0;
+    if (k < n_s) m.rec[k] = __ldg(reinterpret_cast<const int4*>(A.row_rec) + i0 + k);
+  }
+  __syncthreads();
+  const long long j_live = min(j1, static_cast<long long>(live));
+  // rows are in triangle order: a warp's rows read a few triangles' planes
+  for (int k = threadIdx.x; k < n_s; k += PAIRS_THREADS) {
+    if (!owns_slots(m, k, j0, j_live)) continue;
+    const int tri = m.rec[k].x;
+#pragma unroll
+    for (int r = 0; r < PAIR_COLS; ++r) m.col[r * STAGED + k] = __ldg(A.td + r * tc + tri);
+  }
+  map_slots(m, n_s, j0, j_live, PAIRS_THREADS);
+  __syncthreads();
+  const float fw = static_cast<float>(A.tile_w), fh = static_cast<float>(A.tile_h);
   const int lane = static_cast<int>(threadIdx.x & 31);
-  const long long in_warp = A.pc - (p - lane);
-  const unsigned lanes = in_warp >= 32 ? 0xffffffffu : (1u << in_warp) - 1u;
-  const unsigned peers = __match_any_sync(lanes, counter);
-  if (counter >= 0 && lane == __ffs(peers) - 1) {
-    int* acc = counter == keys ? A.acc + keys + A.n_classes : A.acc + counter;
-    atomicAdd(acc, __popc(peers));
+  // the same trip count in every thread: __match_any_sync takes whole warps
+  for (long long base = j0; base < j1; base += PAIRS_THREADS) {
+    const long long p = base + threadIdx.x;
+    // the counter a kept pair adds to: its group, keys (keys below 0, which
+    // sort first and shift every group's sorted start; only an int32 wrap
+    // of a window makes one), or none (-1: dead, rejected or past `dead`)
+    int counter = -1;
+    if (p < j1 && p >= live) {
+      A.key[p] = dead;
+    } else if (p < j1) {
+      const int q = static_cast<int>(p);
+      const int k = m.src[q - j0];
+      const int4 rec = m.rec[k];
+      const float* col = m.col + k;
+      // m.cum[k] = cum_p[row] - row_span[row], the row's first pair
+      const int tile_x = wadd(rec.y, wsub(q, m.cum[k]));
+      const int tile_y = wadd(A.tile_row_lo, wmul(rec.z, A.row_stride));
+      const int cls = rec.w & 3;
+      const int group = wadd(wmul(cls, A.tiles_x * A.local_tiles_y),
+                             wadd(wmul(rec.z, A.tiles_x), tile_x));
+      int key = group;
+      if (zbuckets > 1) key = wadd(wmul(group, zbuckets), cls == 0 ? rec.w >> 2 : 0);
+      const float ext_x0 = __fsub_rn(__fmul_rn(__int2float_rn(tile_x), fw), 0.5f);
+      const float ext_x1 = __fadd_rn(ext_x0, fw + 1.0f);
+      const float ext_y0 = __fsub_rn(__fmul_rn(__int2float_rn(tile_y), fh), 0.5f);
+      const float ext_y1 = __fadd_rn(ext_y0, fh + 1.0f);
+      bool covers = true;
+#pragma unroll
+      for (int e = 0; e < 3; ++e) {
+        const float a = col[(3 * e) * STAGED];
+        const float b = col[(3 * e + 1) * STAGED];
+        const float c = col[(3 * e + 2) * STAGED];
+        const float e_max = __fadd_rn(__fadd_rn(__fmul_rn(a, a > 0.0f ? ext_x1 : ext_x0),
+                                                __fmul_rn(b, b > 0.0f ? ext_y1 : ext_y0)), c);
+        covers = covers && e_max >= 0.0f;
+      }
+      if (!covers) key = dead;
+      A.key[p] = key;
+      A.tri_pair[p] = rec.x;
+      if (covers) counter = key < 0 ? keys : (key < dead ? key / zbuckets : -1);
+    }
+    const unsigned peers = __match_any_sync(0xffffffffu, counter);
+    if (counter >= 0 && lane == __ffs(peers) - 1) {
+      int* acc = counter == keys ? A.acc + keys + A.n_classes : A.acc + counter;
+      atomicAdd(acc, __popc(peers));
+    }
   }
 }
 
@@ -586,13 +868,48 @@ extern "C" int rt_setup(const float* clip, const int* tri_v, const void* num_ptr
 namespace {
 
 bool bin_args_ok(const rf::BinArgs* a) {
+  // the row and pair demands (at most tc * local_tiles_y and rc * tiles_x)
+  // below 2^31: their int32 cumsums never wrap, as F2 rows' and F3's
+  // merges need
   return a->tc > 0 && a->rc > 0 && a->pc > 0 && a->n_classes >= 1 &&
          a->n_classes <= rf::MAX_CLASSES && a->tiles_x > 0 && a->tiles_y > 0 &&
          a->local_tiles_y > 0 && a->tile_w > 0 && a->tile_h > 0 && a->row_stride > 0 &&
-         a->zbuckets >= 1 && a->p_total > 0;
+         a->zbuckets >= 1 && a->p_total > 0 &&
+         static_cast<long long>(a->tc) * a->local_tiles_y < (1LL << 31) &&
+         static_cast<long long>(a->rc) * a->tiles_x < (1LL << 31);
 }
 
 }  // namespace
+
+// F2 rows and F3: blocks over the tiles of `items` of the merge of n_src
+// sources and n_slots slots, one a tile or, `persistent`, as many as fit
+// the SMs at once (asked of the runtime once a device, with the dynamic
+// shared memory's limit raised)
+template <typename Kernel>
+int expand_launch(Kernel kernel, const rf::BinArgs* args, long long n_src, long long n_slots,
+                  int items, int threads, int smem, bool persistent, int* grid_cap,
+                  void* stream) {
+  if (!bin_args_ok(args)) return static_cast<int>(cudaErrorInvalidValue);
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
+  if (grid_cap[dev] == 0) {
+    int per_sm = 0, sms = 0;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
+    grid_cap[dev] = per_sm * sms;
+  }
+  const long long tiles = (n_src + n_slots + items - 1) / items;
+  const unsigned grid =
+      static_cast<unsigned>(!persistent || tiles < grid_cap[dev] ? tiles : grid_cap[dev]);
+  kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(*args);
+  return static_cast<int>(cudaGetLastError());
+}
 
 #define RF_LAUNCH(kernel, n, threads)                                               \
   {                                                                                 \
@@ -613,12 +930,16 @@ extern "C" int rt_bin_spans(const rf::BinArgs* args, void* stream) {
 
 // F2 (rows): row_span, row_rec and the class pair totals, after cum_r.
 extern "C" int rt_bin_rows(const rf::BinArgs* args, void* stream) {
-  RF_LAUNCH(rows_kernel, args->rc, rf::THREADS)
+  static int grid_cap[64];
+  return expand_launch(rf::rows_kernel, args, args->tc, args->rc, rf::ROWS_ITEMS,
+                       rf::ROWS_THREADS, rf::ROWS_SMEM, true, grid_cap, stream);
 }
 
 // F3: key, tri_pair and the group counts, after cum_p.
 extern "C" int rt_bin_pairs(const rf::BinArgs* args, void* stream) {
-  RF_LAUNCH(pairs_kernel, args->pc, rf::THREADS)
+  static int grid_cap[64];
+  return expand_launch(rf::pairs_kernel, args, args->rc, args->pc, rf::PAIRS_ITEMS,
+                       rf::PAIRS_THREADS, rf::PAIRS_SMEM, false, grid_cap, stream);
 }
 
 // F4 (scan): padded and sorted starts, the overflow and demand scalars.

@@ -57,6 +57,11 @@ KEEP_ROWS = tuple(range(15)) + (TID_ROW,)
 B_ROWS = len(KEEP_ROWS)  # 16
 B_TID = 15
 
+#: items (sources and slots) of the merge path that one block of F2 rows
+#: and one of F3 takes (csrc/frontend.cu ROWS_ITEMS, PAIRS_ITEMS): the
+#: card tests put live counts and truncations at and around their multiples
+EXPAND_ITEMS = {"F2 rows": 384, "F3 pairs": 512}
+
 _I32_MIN = -(2**31)
 _I32_MAX = 2**31 - 1
 
@@ -241,6 +246,12 @@ def binning_steps(
     if bad or p_total >= 2**31 or n_classes * n_tiles * zbuckets >= 2**31:
         raise ValueError(f"bin_triangle_classes: sizes {bad or sizes} out of the kernels' "
                          "range (1 .. 2^31 - 1, keys and binned columns below 2^31)")
+    if tc * local_tiles_y >= 2**31 or row_capacity * tiles_x >= 2**31:
+        raise ValueError(
+            f"bin_triangle_classes: the row demand (at most {tc} triangles × "
+            f"{local_tiles_y} tile rows) or the pair demand (at most {row_capacity} rows × "
+            f"{tiles_x} tile columns) could pass 2^31 - 1, where the int32 cumsums that "
+            "F2 rows and F3 expand would wrap")
     bound_args = [count_arg(b, dev, f"bounds[{c}]") for c, b in enumerate(bounds)]
     if dev.type != "cuda":
         raise ValueError(f"bin_triangle_classes: unsupported device {dev}")

@@ -13,18 +13,19 @@ use them.
 
 As a probe, on one NVIDIA GPU:
 
-    python3 -m renderer_tpu_torch.tools.frontend_probe [--against FILE]
+    python3 -m renderer_tpu_torch.tools.frontend_probe [--against FILE] [variant ...]
 
 records one 1920×1080 frame of chip_smoke.py's scenes A, B and C (C with
 its UI window, whose pass runs setup and binning once more), holds every
 call's kernels to the plain versions bit for bit, and prints each call's
 time as issued and queued behind a spin kernel, the plain version's, and
 each step's queued time beside its bound. With --against FILE (another
-version's frontend.cu, with the same entry points), it builds that file
-beside the library and times both on every call in turns (library,
-other, other, library). The parent commit's kernels against the library
-(build/ is git-ignored; the file goes with the repository to the card's
-machine):
+version's frontend.cu, with the same entry points) and with variants
+(the library's frontend.cu with constants edited, as named in VARIANTS),
+it builds each beside the library and times all on every call in turns
+(library, other, ..., other, library). The parent commit's kernels
+against the library (build/ is git-ignored; the file goes with the
+repository to the card's machine):
 
     git show HEAD~1:renderer_tpu_torch/csrc/frontend.cu > build/parent_frontend.cu
     python3 -m renderer_tpu_torch.tools.frontend_probe --against build/parent_frontend.cu
@@ -33,6 +34,7 @@ machine):
 from __future__ import annotations
 
 import contextlib
+import re
 import subprocess
 import sys
 import tempfile
@@ -54,6 +56,19 @@ LIBRARY_FUNCTIONS = ("rt_setup", "rt_bin_spans", "rt_bin_rows", "rt_bin_pairs",
 DEVICE_FUNCTIONS = {"F1 setup": "setup_kernel", "F2 spans": "spans_kernel",
                     "F2 rows": "rows_kernel", "F3 pairs": "pairs_kernel",
                     "F4 scan": "scan_kernel", "F4 scatter": "scatter_kernel"}
+#: name → the constants of csrc/frontend.cu it edits, with their values
+#: (F2 rows' and F3's items a tile, or where they stop)
+VARIANTS = {
+    "items256": (("ROWS_ITEMS", "256"), ("PAIRS_ITEMS", "256")),
+    "items512": (("ROWS_ITEMS", "512"), ("PAIRS_ITEMS", "512")),
+    "items768": (("ROWS_ITEMS", "768"), ("PAIRS_ITEMS", "768")),
+    # timings of F2 rows' and F3's phases alone (their outputs are not
+    # compared): up to the merge splits; F2 rows up to its staging
+    "stop-split": (("EXPAND_STOP", "1"),),
+    "stop-staged": (("EXPAND_STOP", "2"),),
+}
+#: the variants whose outputs are incomplete
+TIMING_ONLY = ("stop-split", "stop-staged")
 BYTES_PER_S = 3.35e12  # H100 SXM HBM3 data sheet
 REPS = 10  # calls a timing
 
@@ -190,14 +205,36 @@ def frame_calls(renderer, scene, ui=None) -> list:
     return calls
 
 
-def _build(tmp: Path, src: Path) -> tuple:
-    so, log = tmp / "against.so", tmp / "against.log"
-    cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o", str(so), str(src)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    log.write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed on {src}\n{log.read_text()[-4000:]}")
-    return so, log
+def _build(tmp: Path, name: str, src: Path, edits: tuple = ()) -> tuple:
+    """Library and ptxas log of `src` with some constants edited, built in
+    a directory of its own."""
+    d = tmp / name
+    d.mkdir()
+    text = src.read_text()
+    for const, value in edits:
+        text, n = re.subn(rf"(constexpr int {const} = )\d+;", rf"\g<1>{value};", text)
+        if n != 1:
+            raise RuntimeError(f"{src}: no constant {const}")
+    (d / "frontend.cu").write_text(text)
+    so, log = d / "frontend.so", d / "build.log"
+    cmd = [kernels._nvcc(), *kernels.NVCC_FLAGS, "-shared", "-o", str(so),
+           str(d / "frontend.cu")]
+    return cmd, so, log
+
+
+def _build_all(todo: list) -> dict:
+    """{name: (library, ptxas log)}: every (name, command, library, log)
+    of `todo` compiled at once."""
+    procs = [(name, cmd, so, log, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                   stderr=subprocess.STDOUT, text=True))
+             for name, cmd, so, log in todo]
+    out = {}
+    for name, cmd, so, log, proc in procs:
+        log.write_text(proc.communicate()[0])
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {name}\n{log.read_text()[-4000:]}")
+        out[name] = (so, log)
+    return out
 
 
 def main(argv: list[str]) -> int:
@@ -208,16 +245,23 @@ def main(argv: list[str]) -> int:
     from renderer_tpu_torch.tools.shade_probe import load, using
 
     against = Path(argv[1]) if argv[:1] == ["--against"] else None
+    variants = argv[2:] if against is not None else argv
+    unknown = [v for v in variants if v not in VARIANTS]
+    if unknown:
+        raise SystemExit(f"frontend_probe: unknown variants {unknown}; known: {list(VARIANTS)}")
     dev = torch.device("cuda")
     card = engine_stats.card_line()
     print(card, flush=True)
     libs = {"library": kernels.load()}
     reports = {"library": kernels.ptxas_report()}
     with tempfile.TemporaryDirectory() as tmp:
+        todo = [(n, *_build(Path(tmp), n, kernels.CSRC / "frontend.cu", VARIANTS[n]))
+                for n in variants]
         if against is not None:
-            so, log = _build(Path(tmp), against)
-            libs["against"] = load(so)
-            reports["against"] = kernels.ptxas_report(log)
+            todo.insert(0, ("against", *_build(Path(tmp), "against", against)))
+        for n, (so, log) in _build_all(todo).items():
+            libs[n] = load(so)
+            reports[n] = kernels.ptxas_report(log)
         reg_a, sc_a, cfg_a, pol_a = cs.scene_a()
         reg_b, sc_b, cfg_b, pol_b = cs.scene_b()
         frames_c, cfg_c, pol_c = cs.scene_c()
@@ -233,6 +277,8 @@ def main(argv: list[str]) -> int:
                 what = f"scene {scene} call {i} ({kind}{', the UI pass' if i >= 2 else ''})"
                 want = run_frontend(kind, args, kw, plain=True)
                 for n, lib in libs.items():
+                    if n in TIMING_ONLY:
+                        continue
                     with using(lib, LIBRARY_FUNCTIONS):
                         got = run_frontend(kind, args, kw, plain=False)
                     diff = compare(got, want)
@@ -253,8 +299,8 @@ def main(argv: list[str]) -> int:
                     print(f"probe:   {step}: "
                           + "; ".join(f"{n} " + " / ".join(f"{t[step]:.4f}" for t in ts)
                                       for n, ts in times.items())
-                          + f" ms queued | bound {bound:.4f} ms ({work.get(step, 0) / 1e6:.2f}"
-                          f" MB)", flush=True)
+                          + f" ms queued | bound {bound:.7f} ms ({work.get(step, 0)} B)",
+                          flush=True)
     for n, rep in reports.items():
         print(f"probe: ptxas {n}: " + ", ".join(
             f"{s} {resources(rep, s)}" for s in DEVICE_FUNCTIONS), flush=True)

@@ -13,8 +13,9 @@ bit-equality with one device rests on it). The candidate kernels C1-C3
 NaN, on crafted and 1080p inputs, on frames' calls and from a graph. The
 front end's F1-F4 (csrc/frontend.cu) equal triangle_setup_plain and
 bin_triangle_classes_plain bit for bit, NaN included, on the crafted cases
-of tests/torch_frontend_cases.py, on frames' calls and from a graph, and
-the plain binning on the card equals the CPU's.
+of tests/torch_frontend_cases.py (the "blocks" case's edges of F2 rows' and
+F3's blocks too), on frames' calls and from a graph, and the plain binning
+on the card equals the CPU's.
 
 These need an NVIDIA GPU with nvcc; without one every test skips. This file
 imports no jax, so it runs on a machine without it:
@@ -23,6 +24,7 @@ imports no jax, so it runs on a machine without it:
 """
 
 import contextlib
+import functools
 from pathlib import Path
 
 import numpy as np
@@ -1228,6 +1230,46 @@ def test_frontend_kernels_replay_from_a_graph(cuda):
     assert all(_bits_equal(a, b) for a, b in zip(eager, want, strict=True))
     assert all(_bits_equal(a, b) for a, b in zip(g.out, eager, strict=True))
     assert {k: g.launches[k] for k in FRONTEND_COUNTERS} == dict.fromkeys(FRONTEND_COUNTERS, 1)
+
+
+@functools.lru_cache(maxsize=None)
+def _block_variants() -> dict:
+    items = binning.EXPAND_ITEMS
+    return {v["name"]: v for v in fe_cases.block_variants(items["F2 rows"], items["F3 pairs"])}
+
+
+@pytest.mark.parametrize("variant", fe_cases.BLOCK_VARIANTS)
+def test_f2_f4_block_edges_bit_equal(cuda, variant):
+    """F2-F4 on the "blocks" case (tests/torch_frontend_cases.py: a run of
+    triangles without rows longer than a block, thousands of rows and
+    pairs, tall triangles' rows and wide rows' pairs across blocks' edges)
+    with the live counts, the starts of the dead slots and the truncations
+    of its variants placed at, before and after the edges of F2 rows' and
+    F3's blocks (binning.EXPAND_ITEMS) or inside a block: bit-equal to the
+    plain version, eager and replayed from a captured graph into outputs
+    overwritten first. The demands are those of the case's construction,
+    which placed the edges."""
+    from renderer_tpu_torch.raster.pipeline import CapturedGraph
+
+    v = _block_variants()[variant]
+    inp = fe_cases.block_inputs()
+    num = torch.tensor(inp["num_tris"], dtype=torch.int32, device=cuda)
+    td = setup.triangle_setup_plain(torch.from_numpy(inp["clip"]).to(cuda),
+                                    torch.from_numpy(inp["tri_v"]).to(cuda), num,
+                                    inp["width"], inp["height"], bbox_pad=0.5)
+    td = torch.cat([td.new_zeros((td.shape[0], v["front"])), td,
+                    td.new_zeros((td.shape[0], v["back"]))], 1).contiguous()
+    bounds = _front_bounds((v["bounds"][0], *(b + v["front"] for b in v["bounds"][1:])), cuda)
+    _assert_frontend_equal("BIN", (td, bounds), v["kw"], variant)
+    want = binning.bin_triangle_classes_plain(td, bounds, **v["kw"])
+    d = fe_cases.block_demands(fe_cases.block_layout(), v["bounds"], v["kw"], v["front"])
+    assert (int(want[6]), int(want[5])) == (d["row_demand"], d["pair_demand"])
+    g = CapturedGraph(lambda: binning.bin_triangle_classes(td, bounds, **v["kw"]), cuda)
+    for out in g.out:
+        out.fill_(-7)
+    g.replay()
+    torch.cuda.synchronize()
+    assert all(_bits_equal(a, b) for a, b in zip(g.out, want, strict=True))
 
 
 def test_frontend_wrappers_check_their_inputs(cuda):

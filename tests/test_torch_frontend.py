@@ -181,3 +181,132 @@ def test_tile_edges_case_meets_a_reciprocal_flip():
     x = ymax[hit] - np.float32(0.5)
     th = np.float32(tiles[1])
     assert (np.floor(x / th) != np.floor(x * (np.float32(1) / th))).all()
+
+
+# -- the block-boundary case ("blocks": tests/torch_frontend_cases.py) --------
+
+BLOCK_JAX_VARIANTS = ("base", "band", "rows-truncated", "pairs-truncated")
+
+
+@functools.lru_cache(maxsize=None)
+def _block_variants() -> dict:
+    items = binning.EXPAND_ITEMS
+    return {v["name"]: v for v in fc.block_variants(items["F2 rows"], items["F3 pairs"])}
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_block_setup() -> np.ndarray:
+    inp = fc.block_inputs()
+    args, kw = _setup_args(inp, False)
+    return np.asarray(jsetup.triangle_setup(jnp.asarray(inp["clip"]),
+                                            jnp.asarray(inp["tri_v"]), *args, **kw))
+
+
+@pytest.mark.parametrize("variant", BLOCK_JAX_VARIANTS)
+def test_binning_plain_matches_jax_on_block_edges(variant):
+    """The plain binning against the JAX package on the "blocks" case
+    (several thousand rows and pairs, a long run of triangles without
+    rows, rows and pairs cut by the capacities inside a tall triangle's
+    rows and a wide row's pairs): every output equal, and the row and pair
+    demands those of the case's construction (fc.block_demands), on which
+    the card tests' placement of block edges rests."""
+    v = _block_variants()[variant]
+    td = _jax_block_setup()
+    want = jbin.bin_triangle_classes(jnp.asarray(td), v["bounds"], **v["kw"])
+    got = binning.bin_triangle_classes_plain(torch.from_numpy(td.copy()), v["bounds"], **v["kw"])
+    for name, g, w in zip(OUTPUTS, got, want, strict=True):
+        w = np.asarray(w)
+        assert g.numpy().dtype == w.dtype and g.shape == w.shape, name
+        assert g.numpy().tobytes() == w.tobytes(), name
+    d = fc.block_demands(fc.block_layout(), v["bounds"], v["kw"])
+    assert (int(want[6]), int(want[5])) == (d["row_demand"], d["pair_demand"])
+    assert (int(want[4]) > 0) == (variant == "rows-truncated")
+    assert (int(np.asarray(want[3]).sum()) > 0) == (variant == "pairs-truncated")
+
+
+def test_block_case_meets_every_block_edge():
+    """What the "blocks" case and its variants put where, in the items of
+    F2 rows' and F3's blocks (binning.EXPAND_ITEMS): a run of triangles
+    without rows longer than a block; at least three blocks of live rows
+    and of live pairs; a tall triangle's rows and a wide row's pairs across
+    a block's edge; each variant's edge at its residue; the truncations in
+    the middle half of a block past three blocks."""
+    items_r, items_p = binning.EXPAND_ITEMS["F2 rows"], binning.EXPAND_ITEMS["F3 pairs"]
+    layout = fc.block_layout()
+    kinds = "".join(kind for kind, _x, _y in layout)
+    assert kinds.startswith("Z" * fc.BLOCK_PREFIX) and fc.BLOCK_PREFIX > items_r
+    v = _block_variants()
+    assert tuple(v) == fc.BLOCK_VARIANTS
+    d = fc.block_demands(layout, v["base"]["bounds"], v["base"]["kw"])
+    assert d["live_rows"] >= 3 * items_r and d["live_pairs"] >= 3 * items_p
+    assert d["live_rows"] < fc.BLOCK_CAPACITY and d["live_pairs"] < fc.BLOCK_CAPACITY
+    # a slot's block: its merge position // items; a source whose slots
+    # lie in two blocks straddles an edge
+    tall = np.array([layout[t][0] == "T" for t in d["row_tri"]])
+    row_block = d["row_pos"] // items_r
+    assert any(len(set(row_block[d["row_tri"] == t])) > 1
+               for t in np.unique(d["row_tri"][tall]))
+    wide = np.array([layout[d["row_tri"][r]][0] == "W" for r in d["pair_row"]])
+    pair_block = d["pair_pos"] // items_p
+    assert any(len(set(pair_block[d["pair_row"] == r])) > 1
+               for r in np.unique(d["pair_row"][wide]))
+    n = len(layout)
+    for name, var in v.items():
+        e = fc.block_demands(layout, var["bounds"], var["kw"], var["front"])
+        rc, pc = var["kw"]["row_capacity"], var["kw"]["pair_capacity"]
+        tc = n + var["front"] + var["back"]
+        where = {"rows-dead-start": (tc + e["live_rows"], items_r),
+                 "rows-live-end": (int(e["row_pos"][-1]) + 1, items_r),
+                 "pairs-live-end": (e["live_rows"] + e["live_pairs"], items_p),
+                 "pairs-dead-start": (rc + e["live_pairs"], items_p)}
+        what, _, delta = name.partition(" ")
+        if what in where:
+            pos, items = where[what]
+            assert (pos - int(delta)) % items == 0, name
+            assert pos > 3 * items and e["live_rows"] < rc and e["live_pairs"] < pc, name
+        if what == "pairs-dead-start":
+            assert rc - e["live_rows"] >= items_p, name
+        if what == "rows-truncated":
+            assert e["row_demand"] > rc == e["live_rows"] > 3 * items_r
+            t = int(e["row_tri"][-1])
+            assert layout[t][0] == "T" and 0 < e["row_demand"] - rc
+            assert (e["row_tri"] == t).sum() == 3
+            assert items_r // 4 <= int(e["row_pos"][-1]) % items_r < 3 * items_r // 4
+        if what == "pairs-truncated":
+            assert e["pair_demand"] > pc == e["live_pairs"] > 3 * items_p
+            r = int(e["pair_row"][-1])
+            assert layout[e["row_tri"][r]][0] == "W" and (e["pair_row"] == r).sum() == 2
+            assert items_p // 4 <= int(e["pair_pos"][-1]) % items_p < 3 * items_p // 4
+
+
+def test_expand_items_mirror_the_kernels():
+    """binning.EXPAND_ITEMS is csrc/frontend.cu's ROWS_ITEMS and
+    PAIRS_ITEMS, which the block-edge variants are placed by."""
+    import re
+    from pathlib import Path
+
+    src = (Path(binning.__file__).parents[1] / "csrc" / "frontend.cu").read_text()
+    got = {name: int(re.search(rf"constexpr int {const} = (\d+);", src).group(1))
+           for name, const in (("F2 rows", "ROWS_ITEMS"), ("F3 pairs", "PAIRS_ITEMS"))}
+    assert got == binning.EXPAND_ITEMS
+
+
+@pytest.mark.parametrize("tc,local_tiles_y,row_capacity,tiles_x", [
+    (2**27, 16, 64, 2),          # rows: 2^27 × 16 = 2^31
+    (8, 2, 2**28, 8),            # pairs: 2^28 × 8 = 2^31
+])
+def test_binning_wrapper_refuses_demands_that_could_wrap(tc, local_tiles_y, row_capacity,
+                                                        tiles_x):
+    """F2 rows and F3 merge int32 cumsums that must not wrap: the wrapper
+    refuses sizes whose row demand (triangles × tile rows) or pair demand
+    (row capacity × tile columns) could reach 2^31, and takes one less."""
+    kw = dict(tiles_x=tiles_x, tiles_y=local_tiles_y, tile_w=128, tile_h=32,
+              pair_capacity=64, row_capacity=row_capacity, local_tiles_y=local_tiles_y)
+    with pytest.raises(ValueError, match="could pass 2"):
+        binning.bin_triangle_classes(_meta((24, tc)), (0, 4), **kw)
+    if tc > 8:
+        tc -= 1
+    else:
+        kw["row_capacity"] -= 1
+    with pytest.raises(ValueError, match="unsupported device meta"):
+        binning.bin_triangle_classes(_meta((24, tc)), (0, 4), **kw)

@@ -160,3 +160,188 @@ def bin_config(name: str, tiles: tuple, n: int) -> tuple[tuple, dict]:
     elif name == "row-truncation":
         kw.update(row_capacity=48)
     return bounds, kw
+
+
+# -- the block-boundary case ------------------------------------------------
+#
+# F2 rows and F3 (csrc/frontend.cu) give a block of threads a fixed number
+# of items of the merge path of their sources (triangles; rows) with their
+# slots (rows; pairs): binning.EXPAND_ITEMS. "blocks" is a stream whose
+# counts follow from its construction (block_counts), so that block_variants
+# can put a live count, a dead-slot start or a truncation at or inside a
+# block's edge. At tiles of 128×32 on the 4×6 grid (512×192 pixels), with
+# w = 1, each triangle is one of
+# - "Z": off the screen, no rows;
+# - "S": small, inside one tile: 1 row of 1 pair;
+# - "T": tall, inside one tile column: every tile row, 1 pair each;
+# - "W": wide, inside one tile row: 1 row of 4 pairs.
+# The stream: a run of BLOCK_PREFIX Z (longer than a block), a body of
+# BLOCK_BODY random S, T, W and Z, BLOCK_TAIL S with one W in their middle
+# (trimming the last class bound by m triangles moves the live counts by
+# 2 or 5 a triangle, so some m meets every residue), and NUM_PADDING Z
+# past num_tris.
+
+BLOCK_PREFIX = 1500
+BLOCK_BODY = 2000
+BLOCK_TAIL = 1200
+BLOCK_TILES = TILES[0]
+#: the row and pair capacities of the block case's bin configurations
+BLOCK_CAPACITY = 1 << 13
+#: pixel vertices of each kind in tile (tx, ty), front-facing
+_SHAPES = {
+    "Z": lambda x0, y0: ((-300.5, 50.5), (-250.5, 80.5), (-200.5, 50.5)),
+    "S": lambda x0, y0: ((x0 + 20.5, y0 + 8.5), (x0 + 40.5, y0 + 24.5), (x0 + 60.5, y0 + 8.5)),
+    "T": lambda x0, y0: ((x0 + 20.5, 4.5), (x0 + 60.5, 187.5), (x0 + 100.5, 4.5)),
+    "W": lambda x0, y0: ((8.5, y0 + 4.5), (256.5, y0 + 28.5), (503.5, y0 + 4.5)),
+}
+
+
+def block_layout(seed: int = 0) -> list[tuple[str, int, int]]:
+    """(kind, tx, ty) of each triangle of the "blocks" case, in stream order."""
+    rng = np.random.default_rng(seed)
+    tiles_x, tiles_y = TILE_GRID
+    cell = lambda kind: (kind, int(rng.integers(tiles_x)), int(rng.integers(tiles_y)))  # noqa: E731
+    body = rng.choice(["S", "T", "W", "Z"], BLOCK_BODY, p=[0.4, 0.25, 0.25, 0.1])
+    tail = ["S"] * BLOCK_TAIL
+    tail[BLOCK_TAIL // 2] = "W"
+    kinds = ["Z"] * BLOCK_PREFIX + list(body) + tail + ["Z"] * NUM_PADDING
+    return [cell(k) for k in kinds]
+
+
+def block_inputs(seed: int = 0) -> dict:
+    """triangle_setup's inputs of the "blocks" case (as setup_inputs)."""
+    rng = np.random.default_rng(seed + 1)
+    layout = block_layout(seed)
+    width, height = screen(BLOCK_TILES)
+    tw, th = BLOCK_TILES
+    clip = []
+    for kind, tx, ty in layout:
+        for px, py in _SHAPES[kind](tx * tw, ty * th):
+            z = float(rng.uniform(0.2, 0.8))
+            clip.append([2.0 * px / width - 1.0, 2.0 * py / height - 1.0, z, 1.0])
+    n = len(layout)
+    return dict(clip=np.asarray(clip, np.float32),
+                tri_v=np.arange(3 * n, dtype=np.int32).reshape(n, 3),
+                num_tris=n - NUM_PADDING, width=width, height=height)
+
+
+def block_counts(layout: list, bounds: tuple, kw: dict) -> tuple[np.ndarray, list]:
+    """(each triangle's row count, each triangle's rows' pair counts) of the
+    "blocks" case binned with `bounds` and `kw`, before truncation: a
+    triangle outside [bounds[0], bounds[-1]) has none; rows are the band's
+    (tile_row_lo + k * row_stride, k < local_tiles_y)."""
+    tiles_y = TILE_GRID[1]
+    lo, stride = kw.get("tile_row_lo", 0), kw.get("row_stride", 1)
+    band = {lo + k * stride for k in range(kw.get("local_tiles_y") or tiles_y)}
+    rows, spans = [], []
+    for t, (kind, _tx, ty) in enumerate(layout):
+        tile_rows = {"Z": [], "S": [ty], "W": [ty], "T": list(range(tiles_y))}[kind]
+        if not bounds[0] <= t < bounds[-1]:
+            tile_rows = []
+        n = sum(r in band for r in tile_rows)
+        rows.append(n)
+        spans.append([4 if kind == "W" else 1] * n)
+    return np.asarray(rows, np.int64), spans
+
+
+def block_demands(layout: list, bounds: tuple, kw: dict, front: int = 0) -> dict:
+    """The merge paths of F2 rows and F3 on the "blocks" case (after
+    `front` zero-count triangles): the live rows and pairs, the row
+    demand, each live row's triangle and first pair, each live pair's row,
+    and the merge position of each live slot (its index plus the sources
+    before it)."""
+    rows, spans = block_counts(layout, bounds, kw)
+    rows = np.concatenate([np.zeros(front, np.int64), rows])
+    spans = [[]] * front + spans
+    rc, pc = kw["row_capacity"], kw["pair_capacity"]
+    row_tri = np.repeat(np.arange(rows.size), rows)
+    live_r = min(row_tri.size, rc)
+    row_span = np.asarray([s for per in spans for s in per], np.int64)[:live_r]
+    pair_row = np.repeat(np.arange(live_r), row_span)
+    live_p = min(pair_row.size, pc)
+    return dict(live_rows=live_r, live_pairs=live_p, row_demand=int(rows.sum()),
+                pair_demand=int(row_span.sum()), row_tri=row_tri[:live_r],
+                row_first_pair=np.cumsum(row_span) - row_span, pair_row=pair_row[:live_p],
+                row_pos=np.arange(live_r) + row_tri[:live_r],
+                pair_pos=np.arange(live_p) + pair_row[:live_p])
+
+
+def block_bins(n: int) -> tuple[tuple, dict]:
+    """The "blocks" case's base bounds and bin_triangle_classes arguments
+    (three classes, 16 z-buckets, every count below the capacities)."""
+    tw, th = BLOCK_TILES
+    return (0, n // 2, 3 * n // 4, n - NUM_PADDING), dict(
+        tiles_x=TILE_GRID[0], tiles_y=TILE_GRID[1], tile_w=tw, tile_h=th,
+        pair_capacity=BLOCK_CAPACITY, row_capacity=BLOCK_CAPACITY, zbuckets=16)
+
+
+#: the names of block_variants' configurations
+BLOCK_VARIANTS = ("base", "band", *(
+    f"{what} {delta:+d}" for delta in (-1, 0, 1)
+    for what in ("rows-dead-start", "rows-live-end", "pairs-live-end", "pairs-dead-start")),
+    "rows-truncated", "pairs-truncated")
+
+
+def block_variants(items_rows: int, items_pairs: int, seed: int = 0) -> list[dict]:
+    """Bin configurations of the "blocks" case that put F2 rows' and F3's
+    edges at and around multiples of their blocks' items (items_rows,
+    items_pairs): dicts of "name", "bounds", "kw", "front" and "back" (zero
+    columns to put before and after the triangle setup's output). Each
+    name says what it places where (δ in -1, 0, +1, modulo the items):
+    - "base", "band" (tile_row_lo 1, row_stride 2, 3 tile rows);
+    - "rows-dead-start δ": F2 rows' triangles and live rows together at δ
+      (past it a block writes dead rows only), by zero columns after;
+    - "rows-live-end δ": the merge position after the last live row at δ,
+      by zero columns before;
+    - "pairs-live-end δ": F3's live rows and live pairs together at δ
+      (past it come the rows without pairs), by trimming the last class;
+    - "pairs-dead-start δ": the row capacity and the live pairs together
+      at δ (past it a block writes dead pairs only), by the row capacity,
+      at least a block of dead rows above the demand;
+    - "rows-truncated", "pairs-truncated": the row capacity inside a tall
+      triangle's rows, the pair capacity inside a wide triangle's row's
+      pairs, both past three blocks and in the middle half of a block."""
+    layout = block_layout(seed)
+    n = len(layout)
+    bounds, kw = block_bins(n)
+    out = [dict(name="base", bounds=bounds, kw=kw, front=0, back=0),
+           dict(name="band", bounds=bounds, front=0, back=0,
+                kw={**kw, "tile_row_lo": 1, "row_stride": 2, "local_tiles_y": 3})]
+    base = block_demands(layout, bounds, kw)
+    live_r, live_p = base["live_rows"], base["live_pairs"]
+    rows, spans = block_counts(layout, bounds, kw)
+    # rows and pairs of the triangles before each index
+    cum_rows = np.concatenate([[0], np.cumsum(rows)])
+    cum_pairs = np.concatenate([[0], np.cumsum([sum(per) for per in spans])])
+    for delta in (-1, 0, 1):
+        out.append(dict(name=f"rows-dead-start {delta:+d}", bounds=bounds, kw=kw, front=0,
+                        back=(delta - n - live_r) % items_rows))
+        out.append(dict(name=f"rows-live-end {delta:+d}", bounds=bounds, kw=kw, back=0,
+                        front=(delta - int(base["row_pos"][-1]) - 1) % items_rows))
+        # trimming the last class by m drops the last m triangles' rows and pairs
+        ends = np.arange(bounds[-1] - BLOCK_TAIL, bounds[-1] + 1)[::-1]
+        together = live_r + live_p - (cum_rows[-1] - cum_rows[ends]) - (
+            cum_pairs[-1] - cum_pairs[ends])
+        m = int(np.flatnonzero((together - delta) % items_pairs == 0)[0])
+        out.append(dict(name=f"pairs-live-end {delta:+d}", front=0, back=0, kw=kw,
+                        bounds=bounds[:-1] + (bounds[-1] - m,)))
+        rc = live_r + items_pairs + (delta - live_r - items_pairs - live_p) % items_pairs
+        out.append(dict(name=f"pairs-dead-start {delta:+d}", bounds=bounds,
+                        kw={**kw, "row_capacity": rc}, front=0, back=0))
+    tall = [t for t, (kind, _x, _y) in enumerate(layout)
+            if kind == "T" and bounds[0] <= t < bounds[-1]]
+    middle = lambda pos, items: items // 4 <= pos % items < 3 * items // 4  # noqa: E731
+    for t in tall:
+        rc = int(np.searchsorted(base["row_tri"], t)) + 3
+        if rc > 3 * items_rows and middle(rc - 1 + t, items_rows):
+            out.append(dict(name="rows-truncated", bounds=bounds, front=0, back=0,
+                            kw={**kw, "row_capacity": rc}))
+            break
+    wide = [r for r in range(live_r) if layout[base["row_tri"][r]][0] == "W"]
+    for r in wide:
+        pc = int(base["row_first_pair"][r]) + 2
+        if pc > 3 * items_pairs and middle(pc - 1 + r, items_pairs):
+            out.append(dict(name="pairs-truncated", bounds=bounds, front=0, back=0,
+                            kw={**kw, "pair_capacity": pc}))
+            break
+    return out
