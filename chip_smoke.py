@@ -160,7 +160,10 @@ every setup and binning call of the frame (C's UI pass adds one of each)
 recorded (tools/frontend_probe), run again through the kernels and the
 plain versions (0 values may differ in bits, NaN included), each step
 timed queued behind a spin (frontend_probe.step_ms) beside its bound
-(frontend_probe.frontend_work), the whole call timed as issued; one row a
+(frontend_probe.frontend_work), the launch floor printed on a line of its
+own (frontend_probe.launch_floor_ms: an empty kernel timed as a step, with
+one block, F2 spans' grid and a thread a triangle), the whole call timed
+as issued; one row a
 kernel with the frame's calls summed, the plain version's ms that of the
 whole function. It times scene C's UI
 pass piece by piece (tools.frame_profile.ui_pass_ms: its raster and the
@@ -1989,10 +1992,11 @@ def candidate_rows(scene, renderer, sc, ui, main_launches, card) -> list:
     return rows
 
 
-def frontend_rows(scene, renderer, sc, ui, main_launches, card) -> list:
+def frontend_rows(scene, renderer, sc, ui, main_launches, card, floors: list) -> list:
     """Phase 12's front-end kernels on one scene: records one frame's
     setup and binning calls (tools/frontend_probe), holds F1-F4 to the
-    plain versions bit for bit on each, times each step queued and each
+    plain versions bit for bit on each, times each step queued, the launch
+    floor (frontend_probe.launch_floor_ms, appended to `floors`) and each
     call as issued, and returns one kernels-line row a kernel with the
     frame's calls summed."""
     calls = frontend_probe.frame_calls(renderer, sc, ui)
@@ -2015,6 +2019,10 @@ def frontend_rows(scene, renderer, sc, ui, main_launches, card) -> list:
                                "differ in bits from the plain version")
         work = frontend_probe.frontend_work(kind, args, kw, want)
         queued = frontend_probe.step_ms(kind, args, kw)
+        floor = frontend_probe.launch_floor_ms(kind, args, kw)
+        floors.append({"scene": scene, "call": what, **floor})
+        print(f"launch floor: {what}: an empty kernel queued as a step, " + ", ".join(
+            f"{k} {v:.4f} ms" for k, v in floor.items()) + f" | {card}", flush=True)
         issued = cuda_ms(lambda: frontend_probe.run_frontend(kind, args, kw, False), 10)
         print(f"frontend: {what}: {diff['values']} values bit-equal ({diff['nan']} NaN) | "
               f"issued {issued:.4f} ms, steps queued {sum(queued.values()):.4f} ms, plain "
@@ -2072,12 +2080,12 @@ def phase12(dev, card, main_launches, frame_ms) -> tuple[list, dict]:
     rc = trt.Renderer(frames_c.registry, cfg_c, profiler=frames_c.profiler,
                       overflow_policy=pol_c, device=dev)
     sc_c, ui_c = frames_c.next()
-    rows = []
+    rows, floors = [], []
     for name, r, sc, ui in (("A", ra, sc_a, None), ("B", rb, sc_b, None),
                             ("C", rc, sc_c, ui_c)):
         rows += shading_rows(name, r, sc, ui, main_launches, card)
         rows += candidate_rows(name, r, sc, ui, main_launches, card)
-        rows += frontend_rows(name, r, sc, ui, main_launches, card)
+        rows += frontend_rows(name, r, sc, ui, main_launches, card, floors)
     ui_msaa = ui_msaa_checks(frames_c, cfg_c, pol_c, dev, card)
     reset_counters()  # the tool's own launches (S3 among them)
     ui_pass = frame_profile.ui_pass_ms(rc, ui_c)
@@ -2089,6 +2097,7 @@ def phase12(dev, card, main_launches, frame_ms) -> tuple[list, dict]:
     profiles = {"B": frame_profile.profile_frame(rb, sc_b),
                 "C": frame_profile.profile_frame(rc, sc_c, ui_c)}
     out = {"replayed_frame_ms": replay, "eager_frame_ms": frame_ms,
+           "launch_floor_ms": floors,
            "profiles": profiles, "ui_msaa": ui_msaa, "ui_pass_ms": ui_pass,
            "ui_pass_launches": ui_pass_launches, "seconds": time.perf_counter() - t0}
     print(f"shading: frames replayed as CUDA graphs (median of {REPLAYS}, no UI pass) "

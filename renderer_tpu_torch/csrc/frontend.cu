@@ -23,12 +23,30 @@
 // the plain versions are ~550 PyTorch launches, each a pass over one
 // [Tc], [row_capacity] or [pair_capacity] vector; here one pass a stage.
 //
-// Design: F1, F2 spans and F4 run one thread an element (triangle, binned
+// Design: F1 and F4 scatter run one thread an element (triangle, binned
 // column), 256 a block, consecutive threads on consecutive elements so the
 // SoA rows are read and written coalesced. The scatter is a gather: one
 // thread a column of the binned buffer finds its (class, tile) group by a
 // binary search of the 128-aligned starts and copies its pair's 16 rows,
 // or zeros, so the buffer is written once and needs no memset.
+// F2 spans is bound by its bytes on large calls and by its launch on small
+// ones (frame A: 1M triangles; C: 3,072). It runs a triangle a thread.
+// Small calls take a narrow path, every td row a triangle reads loaded at
+// once. Large ones a wide path: persistent blocks, so that A's 4,096
+// blocks, whose launch alone took 2.2 us over one resident grid's, go; a
+// triangle reads its bbox and z rows only when it is valid (A's and B's
+// invalid triangles come in runs), and a thread's loads run a triangle
+// ahead of its arithmetic. What a triangle's work shared with the others
+// moved out of it: the tile reciprocals come from the host
+// (binning._reciprocal), the class bounds are read once a block, the
+// band's division by a stride of 1 is skipped; tri_info is written only
+// for the triangles with rows, the only ones F2 rows reads. Four triangles
+// a thread with 16-byte loads was slower on every call (PERF.md).
+// F4 scan is one block, and its launch is most of its time. The rest was
+// a chain of dependent round trips to L2 (a carry load, a loop of loads and
+// stores, then a thread's loads after stores they might alias): now every
+// load is issued at once (each thread's consecutive counts, the scalars by
+// the last warp), then one block scan and the stores.
 // The two ragged repeats, F2 rows (triangles to tile rows) and F3 (rows to
 // pairs), are load-balanced expansions a block. A block owns a tile of
 // consecutive items (384 in F2 rows, 512 in F3) of the merge path of the
@@ -76,6 +94,11 @@ namespace rf {
 
 constexpr int THREADS = 256;
 constexpr int SCAN_THREADS = 1024;
+// F4 scan: the keys a pass, SCAN_PER consecutive keys a thread at most
+constexpr int SCAN_KEYS = 4096;
+constexpr int SCAN_PER = SCAN_KEYS / SCAN_THREADS;
+static_assert(SCAN_KEYS % SCAN_THREADS == 0 && SCAN_THREADS >= 64 && SCAN_THREADS <= 1024,
+              "F4 scan's block");
 // F2 rows and F3: the items (sources and slots) of the merge a block takes
 // (binning.EXPAND_ITEMS mirrors them) and its threads
 constexpr int ROWS_ITEMS = 384;
@@ -87,6 +110,14 @@ constexpr int PAIRS_THREADS = 256;
 // F2 rows' staging (its rows get span 0: F3 then finds no pairs); the
 // outputs are then wrong.
 constexpr int EXPAND_STOP = 0;
+// F2 spans: its threads a block, and from how many triangles it takes its
+// wide path (a triangle reads its bbox and z rows only when it is valid)
+constexpr int SPANS_THREADS = 256;
+constexpr int SPANS_GATE_MIN = 32768;
+// What F2 spans does, for tools/frontend_probe's split of its time: 0 all
+// (the kernel), 1 its loads and stores with the arithmetic cut, 2 its
+// stores of n_rows alone; the outputs are then wrong.
+constexpr int SPANS_STOP = 0;
 constexpr int ROWS = 24;        // setup.py ROWS
 constexpr int B_ROWS = 16;      // binning.py B_ROWS: rows 0-14 and the id
 constexpr int B_TID = 15;
@@ -291,7 +322,7 @@ setup_kernel(const float* __restrict__ clip, const int* __restrict__ tri_v, Coun
 struct BinArgs {
   const float* td;       // [24, tc] triangle_setup's SoA
   int* n_rows;           // [tc] a triangle's tile rows in this call's row set
-  int4* tri_info;        // [tc] (tx0, span_w, k0, cls + 4 * z-bucket)
+  int4* tri_info;        // [tc] (tx0, span_w, k0, cls + 4 * z-bucket), where n_rows > 0
   const int* cum_r;      // [tc] inclusive cumsum of n_rows
   int* row_span;         // [rc] a row's tile columns
   int4* row_rec;         // [rc] (triangle, first column, local row k, cls + 4 * z-bucket)
@@ -309,6 +340,7 @@ struct BinArgs {
   int bound_is64[MAX_CLASSES + 1];
   int tc, rc, pc, n_classes, tiles_x, tiles_y, tile_w, tile_h;
   int tile_row_lo, local_tiles_y, row_stride, zbuckets;
+  float inv_tile_w, inv_tile_h;  // binning._reciprocal of tile_w, tile_h
 };
 
 __device__ __forceinline__ long long bound(const BinArgs& A, int c) {
@@ -320,48 +352,42 @@ __device__ __forceinline__ int n_keys(const BinArgs& A) {
 }
 
 // _tile_spans' span: the first tile and the tile count covering any pixel
-// centre of [lo, hi]
-__device__ __forceinline__ void tile_span(float lo, float hi, int size, int n, int* t0,
-                                          int* span) {
-  const float inv = __fdiv_rn(1.0f, static_cast<float>(size));
-  const float nm1 = static_cast<float>(n - 1);
-  *t0 = f32_to_i32(tclamp(ceilf(__fsub_rn(__fmul_rn(__fadd_rn(lo, 0.5f), inv), 1.0f)),
-                          0.0f, nm1));
+// centre of [lo, hi], with the tile size's f32 reciprocal `inv` (the host's
+// binning._reciprocal) and the last tile `nm1`
+__device__ __forceinline__ int2 tile_span(float lo, float hi, float inv, float nm1) {
+  const int t0 =
+      f32_to_i32(tclamp(ceilf(__fsub_rn(__fmul_rn(__fadd_rn(lo, 0.5f), inv), 1.0f)), 0.0f, nm1));
   const int t1 = f32_to_i32(tclamp(floorf(__fmul_rn(__fsub_rn(hi, 0.5f), inv)), 0.0f, nm1));
-  *span = max(wadd(wsub(t1, *t0), 1), 0);
+  return make_int2(t0, max(wadd(wsub(t1, t0), 1), 0));
 }
 
-// F2, its first pass: per triangle, the tile span, class, band clip and
-// z-bucket, and its row count for the cumsum. Zeroes the atomic counters.
-__global__ void __launch_bounds__(THREADS) spans_kernel(const BinArgs A) {
-  const long long i = thread_index();
-  const int n_acc = n_keys(A) + A.n_classes + 1;
-  if (i < n_acc) A.acc[i] = 0;
-  if (i >= A.tc) return;
-  const int t = static_cast<int>(i);
-  const long long tc = A.tc;
-  const float* td = A.td;
-  const float xmin = __ldg(td + 15 * tc + t), ymin = __ldg(td + 16 * tc + t);
-  const float xmax = __ldg(td + 17 * tc + t), ymax = __ldg(td + 18 * tc + t);
-  const bool valid = __ldg(td + 19 * tc + t) > 0.0f && t >= bound(A, 0) &&
-                     t < bound(A, A.n_classes);
-  int cls = 0;
-  for (int c = 1; c < A.n_classes; ++c) cls += t >= bound(A, c);
-  int tx0, span_w, ty0, span_h;
-  tile_span(xmin, xmax, A.tile_w, A.tiles_x, &tx0, &span_w);
-  tile_span(ymin, ymax, A.tile_h, A.tiles_y, &ty0, &span_h);
-  const int n_pairs = valid ? wmul(span_w, span_h) : 0;
-  // the band: rows {row_lo + k * stride}, k in [0, local_tiles_y)
-  const int ty1 = wsub(wadd(ty0, span_h), 1);
-  const int k0 = max(wsub(0, floor_div(wsub(A.tile_row_lo, ty0), A.row_stride)), 0);
-  const int k1 = min(floor_div(wsub(ty1, A.tile_row_lo), A.row_stride), A.local_tiles_y - 1);
+// One triangle of F2 spans: its row count in the band (0 without pairs)
+// and its tri_info (tx0, span_w, k0, cls + 4 * z-bucket), which F2 rows
+// reads only for triangles with rows. z: the z plane's rows 9-11, read
+// only with zbuckets > 1.
+__device__ __forceinline__ int span_rows(const BinArgs& A, bool valid, int cls, float xmin,
+                                         float ymin, float xmax, float ymax, float za,
+                                         float zbp, float zc, int4* info) {
+  const int2 sx = tile_span(xmin, xmax, A.inv_tile_w, static_cast<float>(A.tiles_x - 1));
+  const int2 sy = tile_span(ymin, ymax, A.inv_tile_h, static_cast<float>(A.tiles_y - 1));
+  const int n_pairs = valid ? wmul(sx.y, sy.y) : 0;
+  // the band: rows {row_lo + k * stride}, k in [0, local_tiles_y); a
+  // division by a stride of 1 (every call but the mesh's bands) is the
+  // identity, so it is skipped
+  const int ty1 = wsub(wadd(sy.x, sy.y), 1);
+  int k0, k1;
+  if (A.row_stride == 1) {
+    k0 = max(wsub(0, wsub(A.tile_row_lo, sy.x)), 0);
+    k1 = min(wsub(ty1, A.tile_row_lo), A.local_tiles_y - 1);
+  } else {
+    k0 = max(wsub(0, floor_div(wsub(A.tile_row_lo, sy.x), A.row_stride)), 0);
+    k1 = min(floor_div(wsub(ty1, A.tile_row_lo), A.row_stride), A.local_tiles_y - 1);
+  }
   const int band_h = max(wadd(wsub(k1, k0), 1), 0);
-  const bool has_pairs = n_pairs > 0 && wmul(span_w, band_h) > 0;
+  const bool has_pairs = n_pairs > 0 && wmul(sx.y, band_h) > 0;
   int zb = 0;
   if (A.zbuckets > 1) {
     // nearest-first sub-key: the z plane's corner max over the bbox
-    const float za = __ldg(td + 9 * tc + t), zbp = __ldg(td + 10 * tc + t);
-    const float zc = __ldg(td + 11 * tc + t);
     const float z_near = tclamp(
         __fadd_rn(__fadd_rn(__fmul_rn(za, za > 0.0f ? xmax : xmin),
                             __fmul_rn(zbp, zbp > 0.0f ? ymax : ymin)), zc), 0.0f, 1.0f);
@@ -369,8 +395,119 @@ __global__ void __launch_bounds__(THREADS) spans_kernel(const BinArgs A) {
                                        static_cast<float>(A.zbuckets)));
     zb = min(max(q, 0), A.zbuckets - 1);
   }
-  A.n_rows[t] = has_pairs ? band_h : 0;
-  A.tri_info[t] = make_int4(tx0, span_w, k0, cls + 4 * zb);
+  *info = make_int4(sx.x, sx.y, k0, cls + 4 * zb);
+  return has_pairs ? band_h : 0;
+}
+
+// A triangle's td rows in F2 spans: valid, xmin, ymin, xmax, ymax and the
+// z plane's a, b, c
+struct SpanRows {
+  float v, x0, y0, x1, y1, za, zb, zc;
+};
+
+__device__ __forceinline__ void span_bbox(SpanRows& s, const float* __restrict__ td,
+                                          long long tc, long long t, bool zrows) {
+  s.x0 = __ldg(td + 15 * tc + t);
+  s.y0 = __ldg(td + 16 * tc + t);
+  s.x1 = __ldg(td + 17 * tc + t);
+  s.y1 = __ldg(td + 18 * tc + t);
+  if (zrows) {
+    s.za = __ldg(td + 9 * tc + t);
+    s.zb = __ldg(td + 10 * tc + t);
+    s.zc = __ldg(td + 11 * tc + t);
+  }
+}
+
+// F2, its first pass: per triangle, the tile span, class, band clip and
+// z-bucket, and its row count for the cumsum; zeroes the atomic counters.
+// A triangle a thread, on one of two paths by the call's size. Narrow
+// (below SPANS_GATE_MIN triangles, frame C and the UI pass: one wave,
+// launch-bound): a triangle's td rows are all loaded at once, while the
+// class bounds are read. Wide (GATE, frames A and B): persistent blocks
+// (the grid from the occupancy query) walk the triangles, and a triangle
+// reads its bbox and z rows only when it is valid (invalid triangles come
+// in runs there), a round trip after its valid row; so that the trip
+// overlaps other work, a thread's loads run ahead of its arithmetic: while
+// it computes one triangle, the next one's bbox rows and the one after's
+// valid row are in flight. Both read the class bounds once a block,
+// clamped to [0, tc] (the same comparisons for t in [0, tc)), and write
+// tri_info only for the triangles with rows (the only ones F2 rows reads).
+template <bool GATE>
+__global__ void __launch_bounds__(SPANS_THREADS) spans_kernel(const BinArgs A) {
+  __shared__ int bnd[MAX_CLASSES + 1];
+  const int tc = A.tc;
+  const long long step = static_cast<long long>(gridDim.x) * SPANS_THREADS;
+  const long long first = static_cast<long long>(blockIdx.x) * SPANS_THREADS + threadIdx.x;
+  const bool zrows = A.zbuckets > 1;
+  const float* __restrict__ td = A.td;
+  const float* __restrict__ valid_row = td + 19LL * tc;
+  // the loads that need no bound go out before the barrier: the first
+  // triangle's rows (wide: its valid row, and the next triangle's)
+  SpanRows cur{};
+  float ahead = 0.0f;  // wide: the valid row of the triangle after the next
+  if (SPANS_STOP != 2 && first < tc) {
+    cur.v = __ldg(valid_row + first);
+    if (!GATE) span_bbox(cur, td, tc, first, zrows);
+    if (GATE && first + step < tc) ahead = __ldg(valid_row + first + step);
+  }
+  if (threadIdx.x <= A.n_classes) {
+    const long long b = bound(A, threadIdx.x);
+    bnd[threadIdx.x] = static_cast<int>(b < 0 ? 0 : (b > tc ? tc : b));
+  }
+  const int n_acc = n_keys(A) + A.n_classes + 1;
+  for (long long i = first; i < n_acc; i += step) A.acc[i] = 0;
+  __syncthreads();
+  const int lo = bnd[0], hi = bnd[A.n_classes];
+  // a class bound past every triangle where the class does not exist
+  const int b1 = A.n_classes > 1 ? bnd[1] : tc, b2 = A.n_classes > 2 ? bnd[2] : tc;
+  auto valid_of = [&](float v, long long t) { return v > 0.0f && t >= lo && t < hi; };
+  bool valid = false;
+  if (GATE && first < tc) {
+    valid = valid_of(cur.v, first);
+    if (valid) span_bbox(cur, td, tc, first, zrows);
+  }
+  for (long long i = first; i < tc; i += step) {
+    const int t = static_cast<int>(i);
+    if (SPANS_STOP == 2) {
+      A.n_rows[t] = 0;
+      continue;
+    }
+    if (!GATE) valid = valid_of(cur.v, i);
+    // the next triangle's loads, before this one's arithmetic
+    SpanRows next{};
+    bool next_valid = false;
+    const long long i1 = i + step;
+    if (GATE) {
+      next.v = ahead;
+      if (i1 < tc) {
+        next_valid = valid_of(next.v, i1);
+        if (next_valid) span_bbox(next, td, tc, i1, zrows);
+      }
+      ahead = i1 + step < tc ? __ldg(valid_row + i1 + step) : 0.0f;
+    } else if (i1 < tc) {
+      next.v = __ldg(valid_row + i1);
+      span_bbox(next, td, tc, i1, zrows);
+    }
+    int n = 0;
+    if (!GATE || valid) {
+      int4 info;
+      if (SPANS_STOP == 1) {
+        // one row of one column a valid triangle, so that the later steps
+        // stay sane
+        n = valid;
+        info = make_int4(0, 1, 0, __float_as_int(cur.x0) ^ __float_as_int(cur.y0) ^
+                                      __float_as_int(cur.x1) ^ __float_as_int(cur.y1) ^
+                                      __float_as_int(cur.za + cur.zb + cur.zc));
+      } else {
+        n = span_rows(A, valid, (t >= b1) + (t >= b2), cur.x0, cur.y0, cur.x1, cur.y1, cur.za,
+                      cur.zb, cur.zc, &info);
+      }
+      if (n > 0) A.tri_info[t] = info;
+    }
+    A.n_rows[t] = n;
+    cur = next;
+    valid = next_valid;
+  }
 }
 
 // F2 rows and F3 expand each source (a triangle; a row) into its slots (its
@@ -765,7 +902,7 @@ __device__ __forceinline__ void block_scan2(int& a, int& b, int2& total) {
         s.y = wadd(s.y, ub);
       }
     }
-    warp_sums[lane] = s;
+    if (lane < SCAN_THREADS / 32) warp_sums[lane] = s;
   }
   __syncthreads();
   if (warp > 0) {
@@ -776,40 +913,90 @@ __device__ __forceinline__ void block_scan2(int& a, int& b, int2& total) {
   __syncthreads();
 }
 
+// One pass of F4 scan over the keys [base, base + SCAN_THREADS * PER) (cut
+// at `keys`), ceil(its keys / SCAN_THREADS) <= PER consecutive keys a
+// thread; the first pass also has threads of the last warp load the
+// scalars into shared memory. Every load of a pass is issued before its
+// scan and its stores; its block scan's barriers publish the scalars.
+template <int PER>
+__device__ __forceinline__ void scan_pass(const BinArgs& A, int keys, int base, int* scalars,
+                                          int& carry_raw, int& carry_pad) {
+  constexpr int BELOW = MAX_CLASSES, ROW_DEMAND = MAX_CLASSES + 1, PAIR_DEMAND = MAX_CLASSES + 2;
+  const int* __restrict__ acc = A.acc;
+  int* __restrict__ out = A.scan;
+  const int tid = threadIdx.x, nc = A.n_classes;
+  const int end = min(keys - base, SCAN_THREADS * PER) + base;
+  const int per = PER == 1 ? 1 : (end - base + SCAN_THREADS - 1) / SCAN_THREADS;
+  const int k0 = base + tid * per;
+  int c[PER], padded[PER];
+#pragma unroll
+  for (int j = 0; j < PER; ++j) c[j] = j < per && k0 + j < end ? __ldg(acc + k0 + j) : 0;
+  if (base == 0) {
+    const int s = tid - (SCAN_THREADS - 32);
+    if (s >= 0 && s <= nc) scalars[s < nc ? s : BELOW] = __ldg(acc + keys + s);
+    else if (s == ROW_DEMAND) scalars[ROW_DEMAND] = __ldg(A.cum_r + A.tc - 1);
+    else if (s == PAIR_DEMAND) scalars[PAIR_DEMAND] = __ldg(A.cum_p + A.rc - 1);
+  }
+  int raw = 0, pad = 0;
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    padded[j] = (c[j] + ALIGN - 1) / ALIGN * ALIGN;
+    raw = wadd(raw, c[j]);
+    pad = wadd(pad, padded[j]);
+  }
+  const int own_raw = raw, own_pad = pad;
+  int2 total;
+  block_scan2(raw, pad, total);
+  if (base == 0) carry_raw = scalars[BELOW];
+  int r = wadd(carry_raw, wsub(raw, own_raw)), q = wadd(carry_pad, wsub(pad, own_pad));
+#pragma unroll
+  for (int j = 0; j < PER; ++j) {
+    if (j < per && k0 + j < end) {
+      out[k0 + j] = q;
+      out[keys + k0 + j] = r;
+    }
+    r = wadd(r, c[j]);
+    q = wadd(q, padded[j]);
+  }
+  carry_raw = wadd(carry_raw, total.x);
+  carry_pad = wadd(carry_pad, total.y);
+}
+
 // F4, its first pass (one block): each group's sorted start (keys below 0
 // first) and 128-aligned start, and the scalars: per-class overflow, row
-// overflow, the pair and row demands.
+// overflow, the pair and row demands. The launch is most of its time (the
+// floor, PERF.md); what is left was a chain of dependent round trips to
+// L2. Now one round of loads, then one scan: each thread loads its
+// consecutive counts (one where keys <= SCAN_THREADS, else up to SCAN_PER
+// a pass of SCAN_KEYS keys; more keys take more passes) while threads of
+// the last warp load the scalars into shared memory, every load read-only
+// and issued before any store; then one block scan of each thread's raw
+// and padded sums, the stores, and the class overflows n_classes threads
+// at once.
 __global__ void __launch_bounds__(SCAN_THREADS) scan_kernel(const BinArgs A) {
-  const int keys = n_keys(A);
-  const int* counts = A.acc;
-  int carry_raw = A.acc[keys + A.n_classes], carry_pad = 0;
-  for (int base = 0; base < keys; base += SCAN_THREADS) {
-    const int i = base + threadIdx.x;
-    const int c = i < keys ? counts[i] : 0;
-    const int padded = (c + ALIGN - 1) / ALIGN * ALIGN;
-    int raw = c, pad = padded;
-    int2 total;
-    block_scan2(raw, pad, total);
-    if (i < keys) {
-      A.scan[i] = wsub(wadd(carry_pad, pad), padded);
-      A.scan[keys + i] = wsub(wadd(carry_raw, raw), c);
-    }
-    carry_raw = wadd(carry_raw, total.x);
-    carry_pad = wadd(carry_pad, total.y);
-  }
-  if (threadIdx.x == 0) {
-    int* out = A.scan + 2 * keys;
-    const int* class_pairs = A.acc + keys;
+  // class_pairs [C] | keys below 0 | row demand | pair demand
+  __shared__ int scalars[MAX_CLASSES + 3];
+  constexpr int ROW_DEMAND = MAX_CLASSES + 1, PAIR_DEMAND = MAX_CLASSES + 2;
+  const int keys = n_keys(A), nc = A.n_classes;
+  const int tid = threadIdx.x;
+  int carry_raw = 0, carry_pad = 0;
+  if (keys <= SCAN_THREADS)
+    scan_pass<1>(A, keys, 0, scalars, carry_raw, carry_pad);
+  else
+    for (int base = 0; base < keys; base += SCAN_KEYS)
+      scan_pass<SCAN_PER>(A, keys, base, scalars, carry_raw, carry_pad);
+  int* const tail = A.scan + 2 * keys;
+  if (tid < nc) {
     int e_c = 0;
-    for (int c = 0; c < A.n_classes; ++c) {
-      e_c = wadd(e_c, class_pairs[c]);
-      const int s_c = wsub(e_c, class_pairs[c]);
-      out[c] = wsub(max(wsub(e_c, A.pc), 0), max(wsub(s_c, A.pc), 0));
-    }
-    const int row_demand = A.cum_r[A.tc - 1];
-    out[A.n_classes] = max(wsub(row_demand, A.rc), 0);
-    out[A.n_classes + 1] = A.cum_p[A.rc - 1];
-    out[A.n_classes + 2] = row_demand;
+    for (int c = 0; c <= tid; ++c) e_c = wadd(e_c, scalars[c]);
+    const int s_c = wsub(e_c, scalars[tid]);
+    tail[tid] = wsub(max(wsub(e_c, A.pc), 0), max(wsub(s_c, A.pc), 0));
+  } else if (tid == nc) {
+    tail[nc] = max(wsub(scalars[ROW_DEMAND], A.rc), 0);
+  } else if (tid == nc + 1) {
+    tail[nc + 1] = scalars[PAIR_DEMAND];
+  } else if (tid == nc + 2) {
+    tail[nc + 2] = scalars[ROW_DEMAND];
   }
 }
 
@@ -837,6 +1024,9 @@ __global__ void __launch_bounds__(THREADS) scatter_kernel(const BinArgs A) {
     for (int r = 0; r < B_ROWS; ++r) A.binned[r * pt + d] = 0.0f;
   }
 }
+
+// An empty kernel: the launch floor of tools/frontend_probe
+__global__ void empty_kernel() {}
 
 inline unsigned blocks_for(long long n) {
   return static_cast<unsigned>((n + THREADS - 1) / THREADS);
@@ -879,34 +1069,67 @@ bool bin_args_ok(const rf::BinArgs* a) {
          static_cast<long long>(a->rc) * a->tiles_x < (1LL << 31);
 }
 
-}  // namespace
-
-// F2 rows and F3: blocks over the tiles of `items` of the merge of n_src
-// sources and n_slots slots, one a tile or, `persistent`, as many as fit
-// the SMs at once (asked of the runtime once a device, with the dynamic
-// shared memory's limit raised)
+// The most blocks of `kernel` resident at once on the current device,
+// asked of the runtime once a device (into cache[device]) with the dynamic
+// shared memory's limit raised to `smem`
 template <typename Kernel>
-int expand_launch(Kernel kernel, const rf::BinArgs* args, long long n_src, long long n_slots,
-                  int items, int threads, int smem, bool persistent, int* grid_cap,
-                  void* stream) {
-  if (!bin_args_ok(args)) return static_cast<int>(cudaErrorInvalidValue);
+cudaError_t resident_blocks(Kernel kernel, int threads, int smem, int* cache, int* out) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  if (dev < 0 || dev >= 64) return static_cast<int>(cudaErrorInvalidDevice);
-  if (grid_cap[dev] == 0) {
+  if (err != cudaSuccess) return err;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (cache[dev] == 0) {
     int per_sm = 0, sms = 0;
     err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err == cudaSuccess)
       err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, threads, smem);
     if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (per_sm < 1) return static_cast<int>(cudaErrorInvalidConfiguration);
-    grid_cap[dev] = per_sm * sms;
+    if (err != cudaSuccess) return err;
+    if (per_sm < 1) return cudaErrorInvalidConfiguration;
+    cache[dev] = per_sm * sms;
   }
+  *out = cache[dev];
+  return cudaSuccess;
+}
+
+long long n_acc(const rf::BinArgs* a) {
+  return static_cast<long long>(a->n_classes) * a->tiles_x * a->local_tiles_y + a->n_classes + 1;
+}
+
+// F2 spans' launch for `args`: the narrow path (all of a triangle's rows
+// loaded at once) below SPANS_GATE_MIN triangles, the wide one (`gate`:
+// the bbox rows read after the valid row) from there; a thread a triangle
+// or a counter to zero, in at most the blocks resident at once (the rest
+// walked by a grid stride)
+cudaError_t spans_launch(const rf::BinArgs* a, bool* gate, unsigned* grid) {
+  static int cache[2][64];
+  *gate = a->tc >= rf::SPANS_GATE_MIN;
+  int most = 0;
+  const cudaError_t err =
+      *gate ? resident_blocks(rf::spans_kernel<true>, rf::SPANS_THREADS, 0, cache[1], &most)
+            : resident_blocks(rf::spans_kernel<false>, rf::SPANS_THREADS, 0, cache[0], &most);
+  if (err != cudaSuccess) return err;
+  const long long n = a->tc > n_acc(a) ? a->tc : n_acc(a);
+  const long long blocks = (n + rf::SPANS_THREADS - 1) / rf::SPANS_THREADS;
+  *grid = static_cast<unsigned>(blocks < most ? blocks : most);
+  return *grid > 0 ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+}  // namespace
+
+// F2 rows and F3: blocks over the tiles of `items` of the merge of n_src
+// sources and n_slots slots, one a tile or, `persistent`, as many as fit
+// the SMs at once
+template <typename Kernel>
+int expand_launch(Kernel kernel, const rf::BinArgs* args, long long n_src, long long n_slots,
+                  int items, int threads, int smem, bool persistent, int* grid_cap,
+                  void* stream) {
+  if (!bin_args_ok(args)) return static_cast<int>(cudaErrorInvalidValue);
+  int most = 0;
+  const cudaError_t err = resident_blocks(kernel, threads, smem, grid_cap, &most);
+  if (err != cudaSuccess) return static_cast<int>(err);
   const long long tiles = (n_src + n_slots + items - 1) / items;
-  const unsigned grid =
-      static_cast<unsigned>(!persistent || tiles < grid_cap[dev] ? tiles : grid_cap[dev]);
+  const unsigned grid = static_cast<unsigned>(!persistent || tiles < most ? tiles : most);
   kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(*args);
   return static_cast<int>(cudaGetLastError());
 }
@@ -922,10 +1145,17 @@ int expand_launch(Kernel kernel, const rf::BinArgs* args, long long n_src, long 
 
 // F2 (spans): n_rows, tri_info; zeroes acc.
 extern "C" int rt_bin_spans(const rf::BinArgs* args, void* stream) {
-  const long long n_acc =
-      static_cast<long long>(args->n_classes) * args->tiles_x * args->local_tiles_y +
-      args->n_classes + 1;
-  RF_LAUNCH(spans_kernel, (args->tc > n_acc ? args->tc : n_acc), rf::THREADS)
+  if (!bin_args_ok(args)) return static_cast<int>(cudaErrorInvalidValue);
+  bool gate = false;
+  unsigned grid = 0;
+  const cudaError_t err = spans_launch(args, &gate, &grid);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  auto st = static_cast<cudaStream_t>(stream);
+  if (gate)
+    rf::spans_kernel<true><<<grid, rf::SPANS_THREADS, 0, st>>>(*args);
+  else
+    rf::spans_kernel<false><<<grid, rf::SPANS_THREADS, 0, st>>>(*args);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // F2 (rows): row_span, row_rec and the class pair totals, after cum_r.
@@ -953,3 +1183,25 @@ extern "C" int rt_bin_scatter(const rf::BinArgs* args, void* stream) {
 }
 
 #undef RF_LAUNCH
+
+// The launch floor: an empty kernel with F4 scan's one block (what 0), F2
+// spans' grid and threads for `args` (what 1), or a thread a triangle or a
+// counter, 256 a block (what 2)
+extern "C" int rt_launch_floor(const rf::BinArgs* args, int what, void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  const long long n = args->tc > n_acc(args) ? args->tc : n_acc(args);
+  if (what == 0) {
+    rf::empty_kernel<<<1, rf::SCAN_THREADS, 0, st>>>();
+  } else if (what == 1) {
+    bool gate = false;
+    unsigned grid = 0;
+    const cudaError_t err = spans_launch(args, &gate, &grid);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    rf::empty_kernel<<<grid, rf::SPANS_THREADS, 0, st>>>();
+  } else if (what == 2 && rf::grid_fits(n)) {
+    rf::empty_kernel<<<rf::blocks_for(n), rf::THREADS, 0, st>>>();
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
+}

@@ -83,13 +83,18 @@ _SIGNATURES = {
     "rt_bin_pairs": (_P, _P),
     "rt_bin_scan": (_P, _P),
     "rt_bin_scatter": (_P, _P),
+    # BinArgs, what (0 F4 scan's one block, 1 F2 spans' grid, 2 a thread a
+    # triangle), stream: an empty kernel, the launch floor of
+    # tools/frontend_probe
+    "rt_launch_floor": (_P, _I, _P),
 }
 
 
-def _struct(name: str, pointers: tuple, longs: tuple, ints: tuple) -> type:
+def _struct(name: str, pointers: tuple, longs: tuple, ints: tuple,
+            floats: tuple = ()) -> type:
     return type(name, (ctypes.Structure,), {"_fields_": (
         [(f, _P) for f in pointers] + [(f, _L) for f in longs]
-        + [(f, _I) for f in ints])})
+        + [(f, _I) for f in ints] + [(f, _F) for f in floats])})
 
 
 #: csrc/shade_common.cuh `ShadeArgs`, field for field (S1 and S2)
@@ -131,7 +136,8 @@ BinArgs = _struct(
     (*(f"bound_value{i}" for i in range(MAX_BIN_CLASSES + 1)), "p_total"),
     (*(f"bound_is64{i}" for i in range(MAX_BIN_CLASSES + 1)), "tc", "rc", "pc",
      "n_classes", "tiles_x", "tiles_y", "tile_w", "tile_h", "tile_row_lo",
-     "local_tiles_y", "row_stride", "zbuckets"))
+     "local_tiles_y", "row_stride", "zbuckets"),
+    ("inv_tile_w", "inv_tile_h"))
 
 
 def _nvcc() -> str:

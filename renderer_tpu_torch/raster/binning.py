@@ -141,6 +141,31 @@ def _tile_spans(tri_data, bounds, n_classes, *, tiles_x, tiles_y,
     return tx0, ty0, span_w, span_h, n_pairs, cls
 
 
+def band_rows(tri_data, bounds, n_classes, *, tiles_x, tiles_y, tile_w, tile_h,
+              tile_row_lo=0, local_tiles_y=None, row_stride=1):
+    """What stage 1 expands (F2 spans on the card), per triangle: its first
+    tile column tx0, its span of columns, its first local tile row k0 in
+    this call's row set, its row count there (0 for a triangle without
+    pairs) and its class."""
+    local_tiles_y = tiles_y if local_tiles_y is None else local_tiles_y
+    tx0, ty0, span_w, span_h, n_pairs, cls = _tile_spans(
+        tri_data, bounds, n_classes,
+        tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w, tile_h=tile_h,
+    )
+    # clip each triangle's tile-row span to this call's row SET
+    # {row_lo + k·stride}, in local k units (floor division keeps the ceil
+    # identity for spans starting above row_lo)
+    row_lo = tile_row_lo
+    ty1 = ty0 + span_h - 1
+    k0 = torch.clamp(-torch.div(row_lo - ty0, row_stride, rounding_mode="floor"), min=0)
+    k1 = torch.clamp(torch.div(ty1 - row_lo, row_stride, rounding_mode="floor"),
+                     max=local_tiles_y - 1)
+    span_h = torch.clamp(k1 - k0 + 1, min=0)
+    n_pairs = torch.where(n_pairs > 0, span_w * span_h, torch.zeros_like(n_pairs))
+    n_rows = torch.where(n_pairs > 0, span_h, torch.zeros_like(span_h))
+    return tx0, span_w, k0, n_rows, cls
+
+
 def bin_triangles(
     tri_data: torch.Tensor,  # [ROWS, Tc] from triangle_setup
     lo=0,  # bin only triangles with lo <= index < hi
@@ -273,7 +298,7 @@ def binning_steps(
         p_total=p_total, tc=tc, rc=row_capacity, pc=pair_capacity, n_classes=n_classes,
         tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w, tile_h=tile_h,
         tile_row_lo=tile_row_lo, local_tiles_y=local_tiles_y, row_stride=row_stride,
-        zbuckets=zbuckets)
+        zbuckets=zbuckets, inv_tile_w=_reciprocal(tile_w), inv_tile_h=_reciprocal(tile_h))
     for c, (ptr, value, is64) in enumerate(bound_args):
         setattr(args, f"bound_ptr{c}", ptr)
         setattr(args, f"bound_value{c}", value)
@@ -353,24 +378,14 @@ def bin_triangle_classes_plain(
         local_tiles_y = tiles_y
     n_classes = len(bounds) - 1
     assert n_classes >= 1
-    tx0, ty0, span_w, span_h, n_pairs, cls = _tile_spans(
-        tri_data, bounds, n_classes,
-        tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w, tile_h=tile_h,
-    )
-    # clip each triangle's tile-row span to this call's row SET
-    # {row_lo + k·stride}, in local k units (floor division keeps the ceil
-    # identity for spans starting above row_lo)
+    tx0, span_w, k0, n_rows, cls = band_rows(
+        tri_data, bounds, n_classes, tiles_x=tiles_x, tiles_y=tiles_y, tile_w=tile_w,
+        tile_h=tile_h, tile_row_lo=tile_row_lo, local_tiles_y=local_tiles_y,
+        row_stride=row_stride)
     row_lo = tile_row_lo
-    ty1 = ty0 + span_h - 1
-    k0 = torch.clamp(-torch.div(row_lo - ty0, row_stride, rounding_mode="floor"), min=0)
-    k1 = torch.clamp(torch.div(ty1 - row_lo, row_stride, rounding_mode="floor"),
-                     max=local_tiles_y - 1)
-    span_h = torch.clamp(k1 - k0 + 1, min=0)
-    n_pairs = torch.where(n_pairs > 0, span_w * span_h, torch.zeros_like(n_pairs))
     xmin, _ymin, xmax, _ymax = (tri_data[k] for k in BBOX_ROWS)
 
     # -- stage 1: (triangle, tile-row) expansion ------------------------------
-    n_rows = torch.where(n_pairs > 0, span_h, torch.zeros_like(span_h))
     cum_end_r = torch.cumsum(n_rows, 0, dtype=torch.int32)
     row_demand = cum_end_r[-1]
     cum_start_r = cum_end_r - n_rows

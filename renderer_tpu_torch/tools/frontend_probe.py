@@ -13,19 +13,21 @@ use them.
 
 As a probe, on one NVIDIA GPU:
 
-    python3 -m renderer_tpu_torch.tools.frontend_probe [--against FILE] [variant ...]
+    python3 -m renderer_tpu_torch.tools.frontend_probe [--against FILE ...] [--timing FILE ...] [variant ...]
 
 records one 1920×1080 frame of chip_smoke.py's scenes A, B and C (C with
 its UI window, whose pass runs setup and binning once more), holds every
 call's kernels to the plain versions bit for bit, and prints each call's
-time as issued and queued behind a spin kernel, the plain version's, and
-each step's queued time beside its bound. With --against FILE (another
-version's frontend.cu, with the same entry points) and with variants
-(the library's frontend.cu with constants edited, as named in VARIANTS),
-it builds each beside the library and times all on every call in turns
-(library, other, ..., other, library). The parent commit's kernels
-against the library (build/ is git-ignored; the file goes with the
-repository to the card's machine):
+time as issued and queued behind a spin kernel, the plain version's, the
+launch floor (`launch_floor_ms`) and each step's queued time beside its
+bound. With --against FILE (another version's frontend.cu, with the same
+entry points; each option one file, named by its stem), --timing FILE (the
+same, timed without comparing its outputs: a version cut to time a part
+of a kernel) and with variants (the library's frontend.cu with constants
+edited, as named in VARIANTS), it builds each beside the library and
+times all on every call in turns (library, other, ..., other, library).
+The parent commit's kernels against the library (build/ is git-ignored;
+the file goes with the repository to the card's machine):
 
     git show HEAD~1:renderer_tpu_torch/csrc/frontend.cu > build/parent_frontend.cu
     python3 -m renderer_tpu_torch.tools.frontend_probe --against build/parent_frontend.cu
@@ -34,6 +36,7 @@ repository to the card's machine):
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import re
 import subprocess
 import sys
@@ -66,9 +69,19 @@ VARIANTS = {
     # compared): up to the merge splits; F2 rows up to its staging
     "stop-split": (("EXPAND_STOP", "1"),),
     "stop-staged": (("EXPAND_STOP", "2"),),
+    # F2 spans split: its loads and stores with the arithmetic cut; its
+    # stores alone
+    "spans-memory": (("SPANS_STOP", "1"),),
+    "spans-stores": (("SPANS_STOP", "2"),),
+    # F2 spans' narrow path (its rows loaded at once) or its wide path (the
+    # bbox rows read after the valid row) on every call
+    "spans-narrow": (("SPANS_GATE_MIN", "2147483647"),),
+    "spans-wide": (("SPANS_GATE_MIN", "0"),),
 }
 #: the variants whose outputs are incomplete
-TIMING_ONLY = ("stop-split", "stop-staged")
+TIMING_ONLY = ("stop-split", "stop-staged", "spans-memory", "spans-stores")
+#: rt_launch_floor's empty launches: name → its `what`
+FLOORS = {"one block": 0, "F2 spans' grid": 1, "a thread a triangle": 2}
 BYTES_PER_S = 3.35e12  # H100 SXM HBM3 data sheet
 REPS = 10  # calls a timing
 
@@ -129,7 +142,30 @@ def step_ms(kind: str, args: tuple, kw: dict, reps: int = REPS) -> dict:
     runs enqueued behind a spin kernel (engine.stats.held_stream), from
     CUDA events between the steps, so the times are the device's alone.
     The runs reuse one call's buffers (each step rewrites its outputs)."""
-    steps = _steps(kind, args, kw)
+    return _timed(_steps(kind, args, kw), reps)
+
+
+def launch_floor_ms(kind: str, args: tuple, kw: dict, reps: int = REPS) -> dict:
+    """{FLOORS name: mean device ms} of an empty kernel timed as step_ms
+    times a step: F4 scan's one block of threads and, for a binning call,
+    F2 spans' grid and threads for its sizes and a grid of a thread a
+    triangle (F2 spans' before its redesign). The least a step of the call
+    can take."""
+    lib = kernels.load()
+    a = kernels.BinArgs()
+    floors = {"one block": FLOORS["one block"]}
+    if kind == "BIN":
+        a.tc, a.n_classes, a.tiles_x = args[0].shape[1], len(args[1]) - 1, kw["tiles_x"]
+        a.local_tiles_y = kw.get("local_tiles_y") or kw["tiles_y"]
+        floors = FLOORS
+
+    def empty(what):
+        return lambda: kernels.check_launch(
+            "launch floor", lib.rt_launch_floor(ctypes.byref(a), what, kernels.current_stream()))
+    return _timed([(name, empty(what)) for name, what in floors.items()], reps)
+
+
+def _timed(steps: list, reps: int) -> dict:
     for _name, run in steps:
         run()
     torch.cuda.synchronize()
@@ -149,11 +185,12 @@ def step_ms(kind: str, args: tuple, kw: dict, reps: int = REPS) -> dict:
 def frontend_work(kind: str, args: tuple, kw: dict, outs: tuple) -> dict:
     """{step: bytes} that one call's data needs in each step: each input
     read once and each output written once, counting per triangle only
-    the valid triangles of the call's bounds, per row the live rows and
-    per pair the live (demanded) and kept (binned) pairs; the vectors a
-    library call reads or writes in full (the cumsums' and the sort's)
-    count in full. The operations, a few tens a row or pair, are far below
-    the bytes' time on this card."""
+    the valid triangles of the call's bounds (and F2 spans' tri_info only
+    for the triangles with rows, the only ones F2 rows reads), per row the
+    live rows and per pair the live (demanded) and kept (binned) pairs; the
+    vectors a library call reads or writes in full (the cumsums' and the
+    sort's) count in full. The operations, a few tens a row or pair, are
+    far below the bytes' time on this card."""
     if kind == "F1":
         tri_v = args[1]
         t = tri_v.shape[0]
@@ -170,8 +207,12 @@ def frontend_work(kind: str, args: tuple, kw: dict, outs: tuple) -> dict:
     rows, pairs = min(int(row_demand), rc), min(int(total), pc)
     kept = int(counts.sum())
     z_rows = 12 if kw.get("zbuckets", 1) > 1 else 0
+    grid = {k: kw[k] for k in ("tiles_x", "tiles_y", "tile_w", "tile_h", "tile_row_lo",
+                               "local_tiles_y", "row_stride") if k in kw}
+    with_rows = int((binning.band_rows(td, bounds, n_classes, **grid)[3] > 0).sum())
     return {
-        "F2 spans": 4 * tc + valid * (16 + z_rows) + 20 * tc + 4 * (n_keys + n_classes + 1),
+        "F2 spans": (4 * tc + valid * (16 + z_rows) + 4 * tc + 16 * with_rows
+                     + 4 * (n_keys + n_classes + 1)),
         "cumsum of the row counts": 8 * tc,
         "F2 rows": 4 * tc + valid * 64 + 4 * rc + 16 * rows,
         "cumsum of the row spans": 8 * rc,
@@ -244,8 +285,14 @@ def main(argv: list[str]) -> int:
     import renderer_tpu_torch as trt
     from renderer_tpu_torch.tools.shade_probe import load, using
 
-    against = Path(argv[1]) if argv[:1] == ["--against"] else None
-    variants = argv[2:] if against is not None else argv
+    others, timing_only = {}, set(TIMING_ONLY)
+    while argv[:1] in (["--against"], ["--timing"]):
+        path = Path(argv[1])
+        others[path.stem] = path
+        if argv[0] == "--timing":
+            timing_only.add(path.stem)
+        argv = argv[2:]
+    variants = argv
     unknown = [v for v in variants if v not in VARIANTS]
     if unknown:
         raise SystemExit(f"frontend_probe: unknown variants {unknown}; known: {list(VARIANTS)}")
@@ -257,8 +304,7 @@ def main(argv: list[str]) -> int:
     with tempfile.TemporaryDirectory() as tmp:
         todo = [(n, *_build(Path(tmp), n, kernels.CSRC / "frontend.cu", VARIANTS[n]))
                 for n in variants]
-        if against is not None:
-            todo.insert(0, ("against", *_build(Path(tmp), "against", against)))
+        todo[:0] = [(n, *_build(Path(tmp), n, path)) for n, path in others.items()]
         for n, (so, log) in _build_all(todo).items():
             libs[n] = load(so)
             reports[n] = kernels.ptxas_report(log)
@@ -277,7 +323,7 @@ def main(argv: list[str]) -> int:
                 what = f"scene {scene} call {i} ({kind}{', the UI pass' if i >= 2 else ''})"
                 want = run_frontend(kind, args, kw, plain=True)
                 for n, lib in libs.items():
-                    if n in TIMING_ONLY:
+                    if n in timing_only:
                         continue
                     with using(lib, LIBRARY_FUNCTIONS):
                         got = run_frontend(kind, args, kw, plain=False)
@@ -292,8 +338,11 @@ def main(argv: list[str]) -> int:
                         times[n].append(step_ms(kind, args, kw))
                 issued = cs.cuda_ms(lambda: run_frontend(kind, args, kw, False), REPS)
                 plain = cs.cuda_ms(lambda: run_frontend(kind, args, kw, True), 2)
+                floor = launch_floor_ms(kind, args, kw)
                 print(f"probe: {what}: {diff['values']} values bit-equal ({diff['nan']} NaN) "
-                      f"| issued {issued:.4f} ms, plain {plain:.3f} ms | {card}", flush=True)
+                      f"| issued {issued:.4f} ms, plain {plain:.3f} ms | launch floor "
+                      + ", ".join(f"{k} {v:.4f}" for k, v in floor.items())
+                      + f" ms queued | {card}", flush=True)
                 for step in times["library"][0]:
                     bound = work.get(step, 0) / BYTES_PER_S * 1e3
                     print(f"probe:   {step}: "

@@ -1232,6 +1232,32 @@ def test_frontend_kernels_replay_from_a_graph(cuda):
     assert {k: g.launches[k] for k in FRONTEND_COUNTERS} == dict.fromkeys(FRONTEND_COUNTERS, 1)
 
 
+def _edge_setup(dev, name: str) -> torch.Tensor:
+    inp = fe_cases.edge_inputs(name)
+    num = torch.tensor(inp["num_tris"], dtype=torch.int32, device=dev)
+    return setup.triangle_setup_plain(torch.from_numpy(inp["clip"]).to(dev),
+                                      torch.from_numpy(inp["tri_v"]).to(dev), num,
+                                      inp["width"], inp["height"], bbox_pad=0.5)
+
+
+@pytest.mark.parametrize("bound_kind", ["numbers", "int32", "int64"])
+@pytest.mark.parametrize("name", fe_cases.EDGE_CASES)
+def test_f2_spans_f4_scan_edges_bit_equal(cuda, name, bound_kind):
+    """F2-F4 on the cases at F2 spans' and F4 scan's edges
+    (tests/torch_frontend_cases.EDGE_CASES: triangle counts off a multiple
+    of 4 and of 4 × 256, key counts 1023-1025, 2048, 2049 and 4097, a band
+    of every third tile row, z-buckets 1 and 16, a run of invalid
+    triangles over whole groups and a block), with the class bounds as
+    numbers, as int32 and as int64 tensors on the card: bit-equal to the
+    plain version."""
+    td = _edge_setup(cuda, name)
+    bounds, kw = fe_cases.edge_bins(name)
+    if bound_kind != "numbers":
+        dtype = torch.int32 if bound_kind == "int32" else torch.int64
+        bounds = tuple(torch.tensor(b, dtype=dtype, device=cuda) for b in bounds)
+    _assert_frontend_equal("BIN", (td, bounds), kw, f"{name} {bound_kind}")
+
+
 @functools.lru_cache(maxsize=None)
 def _block_variants() -> dict:
     items = binning.EXPAND_ITEMS

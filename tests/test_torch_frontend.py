@@ -183,6 +183,63 @@ def test_tile_edges_case_meets_a_reciprocal_flip():
     assert (np.floor(x / th) != np.floor(x * (np.float32(1) / th))).all()
 
 
+# -- F2 spans' and F4 scan's edges (fc.EDGE_CASES) ------------------------------
+
+def test_edge_cases_straddle_the_kernels_paths():
+    """fc.SPANS_GATE_MIN is csrc/frontend.cu's, and the edge cases take
+    both of F2 spans' paths (narrow, wide) and F4 scan's key counts below,
+    at and past its threads (SCAN_THREADS) and past its keys a pass
+    (SCAN_KEYS)."""
+    import re
+    from pathlib import Path
+
+    src = (Path(binning.__file__).parents[1] / "csrc" / "frontend.cu").read_text()
+    const = {k: int(re.search(rf"constexpr int {k} = (\d+);", src).group(1))
+             for k in ("SPANS_GATE_MIN", "SCAN_THREADS", "SCAN_KEYS")}
+    assert const["SPANS_GATE_MIN"] == fc.SPANS_GATE_MIN
+    assert {n >= fc.SPANS_GATE_MIN for n, *_ in fc.EDGE_CASES.values()} == {True, False}
+    keys = {int(name.split("-")[1]) for name in fc.EDGE_CASES if name.startswith("keys-")}
+    threads = const["SCAN_THREADS"]
+    assert {threads - 1, threads, threads + 1, const["SCAN_KEYS"] + 1} <= keys
+
+
+@functools.lru_cache(maxsize=None)
+def _jax_edge_setup(name: str) -> np.ndarray:
+    inp = fc.edge_inputs(name)
+    args, kw = _setup_args(inp, False)
+    return np.asarray(jsetup.triangle_setup(jnp.asarray(inp["clip"]),
+                                            jnp.asarray(inp["tri_v"]), *args, **kw))
+
+
+@pytest.mark.parametrize("name", fc.EDGE_CASES)
+def test_binning_plain_matches_jax_on_kernel_edges(name):
+    """The plain binning against the JAX package on the cases that put F2
+    spans' and F4 scan's edges where the kernels change path: triangle
+    counts that are not multiples of 4, one short of and one past 4 × 256;
+    key counts 1023-1025, 2048, 2049 and 4097 (F4 scan's 1024 threads and
+    4096 keys a pass); a band of every third tile row; z-buckets 1 and 16;
+    a run of invalid triangles over whole groups of 4 and a whole block.
+    Every output equal; the run is invalid and the soup has valid
+    triangles and binned pairs."""
+    td = _jax_edge_setup(name)
+    bounds, kw = fc.edge_bins(name)
+    want = jbin.bin_triangle_classes(jnp.asarray(td), bounds, **kw)
+    got = binning.bin_triangle_classes_plain(torch.from_numpy(td.copy()), bounds, **kw)
+    for out, g, w in zip(OUTPUTS, got, want, strict=True):
+        w = np.asarray(w)
+        assert g.numpy().dtype == w.dtype and g.shape == w.shape, out
+        assert g.numpy().tobytes() == w.tobytes(), out
+    n_keys = len(bounds) - 1
+    n_keys *= kw["tiles_x"] * (kw.get("local_tiles_y") or kw["tiles_y"])
+    assert np.asarray(want[1]).size == n_keys
+    if name.startswith("keys-"):
+        assert n_keys == int(name.split("-")[1])
+    lo, hi = fc.EDGE_RUN[td.shape[1]]
+    valid = td[setup.VALID_ROW] > 0
+    assert not valid[lo:hi].any() and valid[:lo].any() and valid[hi:].any()
+    assert int(np.asarray(want[2]).sum()) > 0
+
+
 # -- the block-boundary case ("blocks": tests/torch_frontend_cases.py) --------
 
 BLOCK_JAX_VARIANTS = ("base", "band", "rows-truncated", "pairs-truncated")

@@ -55,13 +55,14 @@ def screen(tiles: tuple) -> tuple[int, int]:
     return tiles[0] * TILE_GRID[0], tiles[1] * TILE_GRID[1]
 
 
-def _soup(rng, n: int) -> np.ndarray:
-    """n random triangles as [3n, 4] clip vertices."""
+def _soup(rng, n: int, largest: float = 0.5) -> np.ndarray:
+    """n random triangles as [3n, 4] clip vertices, of spreads up to
+    `largest` in NDC."""
     clip = np.empty((3 * n, 4), np.float32)
     clip[:, 3] = rng.uniform(0.3, 2.0, 3 * n)
     clip[rng.uniform(size=3 * n) < 0.05, 3] *= -0.5
     centers = np.repeat(rng.uniform(-1.1, 1.1, (n, 2)), 3, axis=0)
-    spread = np.repeat(rng.uniform(0.002, 0.5, (n, 1)), 3, axis=0)
+    spread = np.repeat(rng.uniform(0.002, largest, (n, 1)), 3, axis=0)
     clip[:, :2] = (centers + spread * rng.normal(size=(3 * n, 2))) * clip[:, 3:4]
     clip[:, 2] = rng.uniform(-0.1, 1.1, 3 * n) * clip[:, 3]
     return clip
@@ -159,6 +160,72 @@ def bin_config(name: str, tiles: tuple, n: int) -> tuple[tuple, dict]:
         kw.update(pair_capacity=96)
     elif name == "row-truncation":
         kw.update(row_capacity=48)
+    return bounds, kw
+
+
+# -- F2 spans' and F4 scan's edges --------------------------------------------
+#
+# F2 spans (csrc/frontend.cu) takes a triangle a thread, 256 threads a
+# block, on its narrow path below SPANS_GATE_MIN triangles and from there
+# on its wide path, persistent blocks where a triangle reads its bbox and
+# z rows only when it is valid; F4 scan takes one key a thread up to 1024
+# keys, else up to 4096 keys a pass, ceil(keys / 1024) consecutive keys a
+# thread. EDGE_CASES: name → (triangles, tile
+# (w, h), tile grid (across, down), classes, other keyword arguments of
+# bin_triangle_classes). The key count n_classes × tiles across × tile rows
+# is in the "keys-" names; the "tc-" triangle counts are 190, 1023 and 1025
+# (one short of and one past 4 × 256, neither a multiple of 4), 40000 and
+# 40001 (past SPANS_GATE_MIN); "stride-3" bins a band of every third tile
+# row. Each soup has a run of invalid (off-screen) triangles, EDGE_RUN,
+# across whole groups of 4 and at least one whole block of 256 (of 1024 in
+# the longer soups).
+
+EDGE_CASES = {
+    "tc-190": (190, (32, 16), (6, 8), 3, {}),
+    "tc-1023": (1023, (32, 16), (6, 8), 3, {"zbuckets": 1}),
+    "tc-1025": (1025, (32, 16), (6, 8), 2, {}),
+    "tc-40000": (40000, (32, 16), (6, 8), 3, {}),
+    "tc-40001": (40001, (32, 16), (6, 8), 3, {"zbuckets": 1}),
+    "keys-1023": (2400, (16, 8), (11, 31), 3, {}),
+    "keys-1024": (2400, (8, 8), (32, 32), 1, {"zbuckets": 1}),
+    "keys-1025": (2400, (8, 8), (25, 41), 1, {}),
+    "keys-2048": (2400, (8, 8), (32, 32), 2, {"zbuckets": 1}),
+    "keys-2049": (2400, (8, 32), (683, 1), 3, {}),
+    "keys-4097": (2400, (8, 4), (17, 241), 1, {}),
+    "stride-3": (2400, (32, 16), (6, 9), 3, {"tile_row_lo": 2, "row_stride": 3,
+                                              "local_tiles_y": 3}),
+}
+#: the run of invalid triangles [lo, hi) in a soup of n: across a whole
+#: span of 1024 triangles (2400, 40000 and 40001 triangles) or of 256
+EDGE_RUN = {2400: (1000, 2100), 40000: (1000, 2100), 40001: (1000, 2100), 1023: (250, 530),
+            1025: (250, 530), 190: (13, 38)}
+#: F2 spans takes its wide path from this many triangles (csrc/frontend.cu
+#: SPANS_GATE_MIN): "tc-40000" and "tc-40001" take it, the others the
+#: narrow path
+SPANS_GATE_MIN = 32768
+
+
+def edge_inputs(name: str, seed: int = 0) -> dict:
+    """triangle_setup's inputs of an EDGE_CASES case (as setup_inputs):
+    a soup of small triangles with the run EDGE_RUN moved off the screen."""
+    n, tile, grid = EDGE_CASES[name][:3]
+    rng = np.random.default_rng(seed)
+    clip = _soup(rng, n, largest=0.08)
+    run = slice(3 * EDGE_RUN[n][0], 3 * EDGE_RUN[n][1])
+    clip[run, 3] = np.abs(clip[run, 3])  # in front of the eye, left of the screen
+    clip[run, 0] = -3.0 * clip[run, 3] - 1.0
+    return dict(clip=clip, tri_v=np.arange(3 * n, dtype=np.int32).reshape(n, 3),
+                num_tris=n - NUM_PADDING, width=tile[0] * grid[0], height=tile[1] * grid[1])
+
+
+def edge_bins(name: str) -> tuple[tuple, dict]:
+    """(bounds, keyword arguments) of bin_triangle_classes for a case."""
+    n, tile, grid, classes, extra = EDGE_CASES[name]
+    live = n - NUM_PADDING
+    bounds = {1: (0, live), 2: (0, n // 2, live), 3: (0, n // 2, 3 * n // 4, live)}[classes]
+    kw = dict(tiles_x=grid[0], tiles_y=grid[1], tile_w=tile[0], tile_h=tile[1],
+              pair_capacity=1 << 14, row_capacity=1 << 14, zbuckets=16)
+    kw.update(extra)
     return bounds, kw
 
 
