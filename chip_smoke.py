@@ -162,8 +162,10 @@ plain versions (0 values may differ in bits, NaN included), each step
 timed queued behind a spin (frontend_probe.step_ms) beside its bound
 (frontend_probe.frontend_work), the launch floor printed on a line of its
 own (frontend_probe.launch_floor_ms: an empty kernel timed as a step, with
-one block, F2 spans' grid and a thread a triangle), the whole call timed
-as issued; one row a
+one block, F2 spans' grid, a thread a triangle, a thread a binned column,
+F1's grid and F4 scatter's grid), each kernel's time over its floor
+(frontend_probe.OVER_FLOOR), the whole call timed as issued;
+one row a
 kernel with the frame's calls summed, the plain version's ms that of the
 whole function. It times scene C's UI
 pass piece by piece (tools.frame_profile.ui_pass_ms: its raster and the
@@ -2024,11 +2026,16 @@ def frontend_rows(scene, renderer, sc, ui, main_launches, card, floors: list) ->
         print(f"launch floor: {what}: an empty kernel queued as a step, " + ", ".join(
             f"{k} {v:.4f} ms" for k, v in floor.items()) + f" | {card}", flush=True)
         issued = cuda_ms(lambda: frontend_probe.run_frontend(kind, args, kw, False), 10)
+        over = {k: queued[k] - floor[f] for k, f in frontend_probe.OVER_FLOOR.items()
+                if k in queued}
+        floors[-1]["over_floor_ms"] = over
         print(f"frontend: {what}: {diff['values']} values bit-equal ({diff['nan']} NaN) | "
               f"issued {issued:.4f} ms, steps queued {sum(queued.values()):.4f} ms, plain "
               f"{plain:.3f} ms | " + ", ".join(
                   f"{k} {v:.4f} ms (bound {work[k] / BYTES_PER_S * 1e3:.4f})"
-                  for k, v in queued.items()) + f" | {card}", flush=True)
+                  for k, v in queued.items()) + " | " + ", ".join(
+                  f"{k} {v:.4f} ms over {frontend_probe.OVER_FLOOR[k]} floor"
+                  for k, v in over.items()) + f" | {card}", flush=True)
         for k, v in queued.items():
             acc = steps.setdefault(k, {"ms": 0.0, "bytes": 0, "kind": kind, "calls": 0})
             acc["ms"] += v

@@ -4,7 +4,7 @@
 // frame: no Pallas kernel of its own. Plain versions: raster/setup.py
 // `triangle_setup_plain` and raster/binning.py `bin_triangle_classes_plain`.
 // - F1 rt_setup (setup_kernel): renderer_tpu/raster/setup.py:57
-//   `triangle_setup`, one thread a triangle.
+//   `triangle_setup`, a triangle a thread.
 // - F2 rt_bin_spans + rt_bin_rows (spans_kernel, rows_kernel):
 //   renderer_tpu/raster/binning.py:66 `_tile_spans` and stage 1 of
 //   `bin_triangle_classes` (:234-278, the repeat at :239): a triangle's
@@ -23,12 +23,24 @@
 // the plain versions are ~550 PyTorch launches, each a pass over one
 // [Tc], [row_capacity] or [pair_capacity] vector; here one pass a stage.
 //
-// Design: F1 and F4 scatter run one thread an element (triangle, binned
-// column), 256 a block, consecutive threads on consecutive elements so the
-// SoA rows are read and written coalesced. The scatter is a gather: one
-// thread a column of the binned buffer finds its (class, tile) group by a
-// binary search of the 128-aligned starts and copies its pair's 16 rows,
-// or zeros, so the buffer is written once and needs no memset.
+// Design: F1 runs a triangle a thread, 128 a block, and reads a vertex's
+// clip row in one 16-byte load. On frames A and B its stores alone run at
+// the bytes' rate and are 70% of its time, its loads the rest; persistent
+// blocks with the loads a tile ahead, tri_v staged in 16-byte loads,
+// stores through shared memory and a split of setup's arithmetic over two
+// warps were each no faster than this on any frame (PERF.md). Blocks of
+// 128 (256 before) spread the small calls (C and the UI pass, one wave)
+// over more SMs, which shortens them. F4 scatter is a gather: a block takes a tile of 256
+// binned columns (512, two a thread, from 2^19 columns), finds the (class,
+// tile) groups they fall in with one search a block (a group that owns
+// columns is at least 128 wide, so the groups at the ends of the tile's
+// 128-column segments are all it meets: two rounds of loads, where a
+// search a column took up to 11), and copies each live column's pair's 16
+// rows, or zeros, so the buffer is written once and needs no memset; a
+// tile past the live columns loads nothing. Four columns a thread with
+// 16-byte stores was slower: with every block of A in flight at once, 16
+// rows of 4 KB a block wrote at half the card's rate; persistent blocks
+// (the probes loaded once a block) were slower on A and B (PERF.md).
 // F2 spans is bound by its bytes on large calls and by its launch on small
 // ones (frame A: 1M triangles; C: 3,072). It runs a triangle a thread.
 // Small calls take a narrow path, every td row a triangle reads loaded at
@@ -118,6 +130,22 @@ constexpr int SPANS_GATE_MIN = 32768;
 // (the kernel), 1 its loads and stores with the arithmetic cut, 2 its
 // stores of n_rows alone; the outputs are then wrong.
 constexpr int SPANS_STOP = 0;
+// What F1 and F4 scatter do, for tools/frontend_probe's split of their time:
+// 0 all (the kernels); F1: 1 its loads and stores with the arithmetic cut,
+// 2 its stores alone; F4 scatter: 1 its group search, then zeros stored, 2
+// its stores of zeros alone, 3 all but the td loads; the outputs are then
+// wrong.
+constexpr int SETUP_STOP = 0;
+constexpr int SCATTER_STOP = 0;
+// F1: its threads a block (setup.TILE mirrors it)
+constexpr int SETUP_THREADS = 128;
+// F4 scatter: its threads a block, and the consecutive columns a thread
+// stores below SCATTER_WIDE_MIN binned columns (narrow) and from there
+// (wide); binning.SCATTER_COLS and SCATTER_WIDE_MIN mirror them
+constexpr int SCATTER_THREADS = 256;
+constexpr int SCATTER_PER_NARROW = 1;
+constexpr int SCATTER_PER_WIDE = 2;
+constexpr int SCATTER_WIDE_MIN = 524288;  // 2^19
 constexpr int ROWS = 24;        // setup.py ROWS
 constexpr int B_ROWS = 16;      // binning.py B_ROWS: rows 0-14 and the id
 constexpr int B_TID = 15;
@@ -136,10 +164,6 @@ struct Count {
 __device__ __forceinline__ long long read_count(const void* ptr, long long value, int is64) {
   if (ptr == nullptr) return value;
   return is64 ? *static_cast<const long long*>(ptr) : *static_cast<const int*>(ptr);
-}
-
-__device__ __forceinline__ long long thread_index() {
-  return static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
 }
 
 // int32 arithmetic that wraps, as torch's int32 tensors do
@@ -185,18 +209,6 @@ __device__ __forceinline__ int floor_div(int a, int b) {
   return (a % b != 0 && a < 0) ? q - 1 : q;
 }
 
-// First index in [0, n) whose value exceeds x (n if none): the slot's
-// element in an inclusive cumsum, as the ragged repeat assigns it.
-__device__ __forceinline__ int upper_bound(const int* __restrict__ a, int n, long long x) {
-  int lo = 0, hi = n;
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (static_cast<long long>(__ldg(a + mid)) > x) hi = mid;
-    else lo = mid + 1;
-  }
-  return lo;
-}
-
 // The edge plane (a, b, c) = u_a x u_b of setup.cross
 struct Plane {
   float a, b, c;
@@ -210,27 +222,50 @@ __device__ __forceinline__ Plane cross(float xa, float ya, float wa, float xb, f
 
 // ---------------------------------------------------------------------------
 // F1. triangle_setup: gathers a triangle's three clip vertices and writes
-// its column of the [24, tc] SoA, zero where it is invalid.
+// its column of the [24, tc] SoA, zero where it is invalid. A triangle a
+// thread, SETUP_THREADS a block, consecutive threads on consecutive
+// triangles, so the rows are written coalesced; a vertex's clip row is one
+// 16-byte load (the wrapper refuses a clip that is not 16-byte aligned).
 template <bool DOUBLE_SIDED>
-__global__ void __launch_bounds__(THREADS)
-setup_kernel(const float* __restrict__ clip, const int* __restrict__ tri_v, Count num_tris,
+__global__ void __launch_bounds__(SETUP_THREADS)
+setup_kernel(const float4* __restrict__ clip, const int* __restrict__ tri_v, Count num_tris,
              float* __restrict__ out, int tc, long long n_verts, float width, float height,
              float bbox_pad, float maxdim) {
-  const long long t = thread_index();
+  const long long t = static_cast<long long>(blockIdx.x) * SETUP_THREADS + threadIdx.x;
   if (t >= tc) return;
+  if (SETUP_STOP == 2) {
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) out[r * static_cast<long long>(tc) + t] = 0.0f;
+    return;
+  }
   float xs[3], ys[3], ws[3], zs[3];
 #pragma unroll
   for (int v = 0; v < 3; ++v) {
     long long vi = __ldg(tri_v + 3 * t + v);
     if (vi < 0) vi += n_verts;  // torch's negative index
     if (vi < 0 || vi >= n_verts) vi = 0;  // out of range: the plain version's assert
-    const float* c = clip + 4 * vi;
-    const float cx = __ldg(c), cy = __ldg(c + 1), cz = __ldg(c + 2), cw = __ldg(c + 3);
-    const float hw = __fmul_rn(cw, 0.5f);
-    xs[v] = __fmul_rn(__fadd_rn(__fmul_rn(cx, 0.5f), hw), width);
-    ys[v] = __fmul_rn(__fadd_rn(__fmul_rn(cy, 0.5f), hw), height);
-    ws[v] = cw;
-    zs[v] = cz;
+    const float4 c = __ldg(clip + vi);
+    if (SETUP_STOP == 1) {
+      xs[v] = c.x;
+      ys[v] = c.y;
+      zs[v] = c.z;
+      ws[v] = c.w;
+      continue;
+    }
+    const float hw = __fmul_rn(c.w, 0.5f);
+    xs[v] = __fmul_rn(__fadd_rn(__fmul_rn(c.x, 0.5f), hw), width);
+    ys[v] = __fmul_rn(__fadd_rn(__fmul_rn(c.y, 0.5f), hw), height);
+    ws[v] = c.w;
+    zs[v] = c.z;
+  }
+  if (SETUP_STOP == 1) {
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      const int v = (r / 4) % 3, k = r % 4;
+      out[r * static_cast<long long>(tc) + t] = k == 0 ? xs[v] : k == 1 ? ys[v] : k == 2 ? zs[v]
+                                                                                       : ws[v];
+    }
+    return;
   }
   // v1 <-> v2 (setup.py `order`)
   const float x0 = xs[0], x1 = xs[2], x2 = xs[1];
@@ -1000,29 +1035,179 @@ __global__ void __launch_bounds__(SCAN_THREADS) scan_kernel(const BinArgs A) {
   }
 }
 
-// F4, its second pass: one thread a column d of the binned buffer. Its
-// group is the last whose 128-aligned start is <= d; a column within the
-// group's count takes the sorted pair at the group's sorted start + rank:
-// the triangle's 15 plane rows and its id; every other column is zero.
-__global__ void __launch_bounds__(THREADS) scatter_kernel(const BinArgs A) {
-  const long long d = thread_index();
-  if (d >= A.p_total) return;
-  const int keys = n_keys(A);
-  const int* padded_starts = A.scan;
-  const int g = upper_bound(padded_starts, keys, d) - 1;
-  const long long rank = d - __ldg(padded_starts + g);
-  const long long pt = A.p_total;
-  if (rank < __ldg(A.acc + g)) {
-    const long long i = __ldg(A.scan + keys + g) + rank;
-    const int tri = __ldg(A.tri_pair + __ldg(A.order + i));
-    const long long tc = A.tc;
-#pragma unroll
-    for (int r = 0; r < B_TID; ++r) A.binned[r * pt + d] = __ldg(A.td + r * tc + tri);
-    A.binned[B_TID * pt + d] = __int2float_rn(tri);
-  } else {
-#pragma unroll
-    for (int r = 0; r < B_ROWS; ++r) A.binned[r * pt + d] = 0.0f;
+// F4, its second pass: the binned buffer, a block a tile of
+// SCATTER_THREADS × PER consecutive columns, PER consecutive columns a
+// thread (scatter_grid picks PER by the call's size). A column d's group
+// is the last whose 128-aligned start is <= d; a column within the group's
+// count takes the sorted pair at the group's sorted start + rank: the
+// triangle's 15 plane rows and its id; every other column is zero. A group
+// that owns columns is at least ALIGN wide, so the tile's segments of ALIGN
+// columns meet at most one group boundary each: the groups of the
+// segments' ends (the points d0 + ALIGN k and the tile's last column) are
+// the only groups the tile's columns take, and a column takes the one of
+// its segment's two ends whose start it has reached. A block finds them at
+// once: every thread loads one of SCATTER_PROBES evenly spaced starts (with
+// the live columns' end: a tile past it stores zeros and loads nothing
+// more), then a half-warp a point narrows its range in shared memory and
+// probes the last (at most 16) starts, with their counts and sorted starts,
+// in one round. A thread then loads its live columns' sorted pairs, their
+// triangles, and then their td rows, each round issued at once, and
+// stores its columns, PER × 4 bytes a row where the row's columns are
+// aligned.
+constexpr int SCATTER_PROBES = 256;
+static_assert(SCATTER_PROBES == 16 * 16, "F4 scatter's probes: 16 a half-warp, twice");
+
+// A group's padded start, count and sorted start (the scan's raw start)
+struct Group {
+  int start, count, raw;
+};
+
+// The last group whose padded start is <= x, among [lo, hi] (starts[lo] <=
+// x), with its count and sorted start: found by the 16 lanes of a
+// half-warp (each half of the warp its own x; `active` false: none), 16
+// probes a step while more than 16 groups remain, then the last 16 at once.
+__device__ Group find_group(const BinArgs& A, int keys, long long x, int lo, int hi,
+                            bool active) {
+  const int* __restrict__ starts = A.scan;
+  const int lane = static_cast<int>(threadIdx.x & 31), sub = lane & 15, shift = lane & 16;
+  auto half_ballot = [&](bool p) { return (__ballot_sync(0xffffffffu, p) >> shift) & 0xffffu; };
+  while (__any_sync(0xffffffffu, active && hi - lo >= 16)) {
+    const bool wide = active && hi - lo >= 16;
+    const long long span = hi - lo;
+    // probes at lo + 1 + span j / 16, j < 16, all in (lo, hi]
+    const unsigned m = half_ballot(
+        wide && __ldg(starts + lo + 1 + static_cast<int>(span * sub / 16)) <= x);
+    if (wide) {
+      if (m == 0) {
+        hi = lo;
+      } else {
+        const int j = 31 - __clz(m);
+        if (j < 15) hi = lo + static_cast<int>(span * (j + 1) / 16);
+        lo += 1 + static_cast<int>(span * j / 16);
+      }
+    }
   }
+  const int q = lo + sub;
+  const bool in = active && q <= hi;
+  int s = 0, c = 0, r = 0;
+  if (in) {
+    s = __ldg(starts + q);
+    c = __ldg(A.acc + q);
+    r = __ldg(A.scan + keys + q);
+  }
+  const unsigned m = half_ballot(in && s <= x);
+  const int src = shift + (m ? 31 - __clz(m) : 0);
+  return {__shfl_sync(0xffffffffu, s, src), __shfl_sync(0xffffffffu, c, src),
+          __shfl_sync(0xffffffffu, r, src)};
+}
+
+// A thread's PER columns from c0 (< p_total) of the 16 rows: one PER × 4
+// byte store a row where the columns are in the row and aligned, else one
+// a column
+template <int PER>
+__device__ __forceinline__ void store_rows(const BinArgs& A, long long c0,
+                                           const float (*v)[PER]) {
+  const long long pt = A.p_total;
+#pragma unroll
+  for (int r = 0; r < B_ROWS; ++r) {
+    float* p = A.binned + r * pt + c0;
+    const bool wide = c0 + PER <= pt && (reinterpret_cast<uintptr_t>(p) & (4 * PER - 1)) == 0;
+    if constexpr (PER == 2) {
+      if (wide) *reinterpret_cast<float2*>(p) = make_float2(v[r][0], v[r][1]);
+    }
+    if (PER == 1 || !wide) {
+#pragma unroll
+      for (int k = 0; k < PER; ++k)
+        if (c0 + k < pt) p[k] = v[r][k];
+    }
+  }
+}
+
+template <int PER>
+__global__ void __launch_bounds__(SCATTER_THREADS) scatter_kernel(const BinArgs A) {
+  constexpr int COLS = SCATTER_THREADS * PER;
+  constexpr int POINTS = COLS / ALIGN + 1;
+  static_assert(POINTS <= SCATTER_THREADS / 16 && COLS % ALIGN == 0 && (PER == 1 || PER == 2),
+                "F4 scatter's tile");
+  __shared__ int probe[SCATTER_PROBES];
+  __shared__ Group ends[POINTS];
+  const long long pt = A.p_total, tc = A.tc;
+  const long long d0 = static_cast<long long>(blockIdx.x) * COLS;
+  const long long c0 = d0 + PER * threadIdx.x;  // the thread's first column
+  float v[B_ROWS][PER] = {};
+  if (SCATTER_STOP == 2) {
+    if (c0 < pt) store_rows<PER>(A, c0, v);
+    return;
+  }
+  const int keys = n_keys(A);
+  const int* __restrict__ starts = A.scan;
+  auto probe_at = [&](int j) {
+    return static_cast<int>(static_cast<long long>(j) * keys / SCATTER_PROBES);
+  };
+  for (int j = threadIdx.x; j < SCATTER_PROBES; j += SCATTER_THREADS)
+    probe[j] = __ldg(starts + probe_at(j));
+  // every live column lies before the last group's start + count
+  const long long live_end =
+      static_cast<long long>(__ldg(starts + keys - 1)) + __ldg(A.acc + keys - 1);
+  __syncthreads();
+  if (d0 >= live_end) {
+    if (c0 < pt) store_rows<PER>(A, c0, v);
+    return;
+  }
+  const int half = static_cast<int>(threadIdx.x >> 4), sub = static_cast<int>(threadIdx.x & 15);
+  if (static_cast<int>(threadIdx.x >> 5) <= (POINTS - 1) / 2) {
+    const bool active = half < POINTS;
+    // the point: a segment's first column, or the tile's last column
+    const long long x = min(d0 + (half + 1 < POINTS ? ALIGN * half : COLS - 1), pt - 1);
+    // the last probe whose start is <= x: its index and the next probe's
+    // bound the point's group
+    const int shift = static_cast<int>(threadIdx.x & 16);
+    auto half_ballot = [&](bool p) { return (__ballot_sync(0xffffffffu, p) >> shift) & 0xffffu; };
+    const unsigned m1 = half_ballot(active && probe[16 * sub] <= x);
+    const int j1 = m1 ? 31 - __clz(m1) : 0;
+    const unsigned m2 = half_ballot(active && probe[16 * j1 + sub] <= x);
+    const int j = 16 * j1 + (m2 ? 31 - __clz(m2) : 0);
+    const int lo = probe_at(j), hi = j + 1 < SCATTER_PROBES ? probe_at(j + 1) - 1 : keys - 1;
+    const Group g = find_group(A, keys, x, lo, max(lo, hi), active);
+    if (active && sub == 0) ends[half] = g;
+  }
+  __syncthreads();
+  if (c0 >= pt) return;
+  const int seg = static_cast<int>(PER * threadIdx.x / ALIGN);
+  const Group ga = ends[seg], gb = ends[seg + 1];
+  bool live[PER];
+  long long at[PER];
+#pragma unroll
+  for (int k = 0; k < PER; ++k) {
+    const long long d = c0 + k;
+    const Group& g = d >= gb.start ? gb : ga;
+    const long long rank = d - g.start;
+    live[k] = d < pt && rank < g.count;
+    at[k] = g.raw + rank;
+  }
+  if (SCATTER_STOP == 1) {
+#pragma unroll
+    for (int k = 0; k < PER; ++k)
+#pragma unroll
+      for (int r = 0; r < B_ROWS; ++r) v[r][k] = live[k] && at[k] == -7 ? 1.0f : 0.0f;
+  } else {
+    long long o[PER];
+    int tri[PER];
+#pragma unroll
+    for (int k = 0; k < PER; ++k) o[k] = live[k] ? __ldg(A.order + at[k]) : 0;
+#pragma unroll
+    for (int k = 0; k < PER; ++k) tri[k] = live[k] ? __ldg(A.tri_pair + o[k]) : 0;
+#pragma unroll
+    for (int r = 0; r < B_TID; ++r)
+#pragma unroll
+      for (int k = 0; k < PER; ++k)
+        if (live[k])
+          v[r][k] = SCATTER_STOP == 3 ? __int_as_float(tri[k]) : __ldg(A.td + r * tc + tri[k]);
+#pragma unroll
+    for (int k = 0; k < PER; ++k)
+      if (live[k]) v[B_TID][k] = __int2float_rn(tri[k]);
+  }
+  store_rows<PER>(A, c0, v);
 }
 
 // An empty kernel: the launch floor of tools/frontend_probe
@@ -1035,25 +1220,6 @@ inline unsigned blocks_for(long long n) {
 inline bool grid_fits(long long n) { return n > 0 && (n + THREADS - 1) / THREADS < (1LL << 31); }
 
 }  // namespace rf
-
-// F1: clip [n_verts, 4] f32, tri_v [tc, 3] i32 -> out [24, tc] f32.
-// num_tris: the pointer (int32, or int64 when num_is64) or, when null, num_value.
-extern "C" int rt_setup(const float* clip, const int* tri_v, const void* num_ptr,
-                        long long num_value, int num_is64, float* out, int tc,
-                        long long n_verts, float width, float height, float bbox_pad,
-                        float maxdim, int double_sided, void* stream) {
-  if (tc <= 0) return 0;
-  if (n_verts <= 0 || !rf::grid_fits(tc)) return static_cast<int>(cudaErrorInvalidValue);
-  auto st = static_cast<cudaStream_t>(stream);
-  const rf::Count num{num_ptr, num_value, num_is64};
-  if (double_sided)
-    rf::setup_kernel<true><<<rf::blocks_for(tc), rf::THREADS, 0, st>>>(
-        clip, tri_v, num, out, tc, n_verts, width, height, bbox_pad, maxdim);
-  else
-    rf::setup_kernel<false><<<rf::blocks_for(tc), rf::THREADS, 0, st>>>(
-        clip, tri_v, num, out, tc, n_verts, width, height, bbox_pad, maxdim);
-  return static_cast<int>(cudaGetLastError());
-}
 
 namespace {
 
@@ -1115,7 +1281,59 @@ cudaError_t spans_launch(const rf::BinArgs* a, bool* gate, unsigned* grid) {
   return *grid > 0 ? cudaSuccess : cudaErrorInvalidValue;
 }
 
+// F1's grid for tc triangles: a block a tile of SETUP_THREADS
+unsigned setup_grid(long long tc) {
+  return static_cast<unsigned>((tc + rf::SETUP_THREADS - 1) / rf::SETUP_THREADS);
+}
+
+// F4 scatter's launch for p_total columns: its columns a thread (wide:
+// SCATTER_PER_WIDE from SCATTER_WIDE_MIN columns, else SCATTER_PER_NARROW)
+// and its grid, a block a tile of SCATTER_THREADS × that many
+long long scatter_grid(long long p_total, bool* wide) {
+  *wide = p_total >= rf::SCATTER_WIDE_MIN;
+  const long long cols =
+      rf::SCATTER_THREADS * (*wide ? rf::SCATTER_PER_WIDE : rf::SCATTER_PER_NARROW);
+  return (p_total + cols - 1) / cols;
+}
+
 }  // namespace
+
+// F1: clip [n_verts, 4] f32 (16-byte aligned), tri_v [tc, 3] i32 -> out [24, tc] f32.
+// num_tris: the pointer (int32, or int64 when num_is64) or, when null, num_value.
+extern "C" int rt_setup(const float* clip, const int* tri_v, const void* num_ptr,
+                        long long num_value, int num_is64, float* out, int tc,
+                        long long n_verts, float width, float height, float bbox_pad,
+                        float maxdim, int double_sided, void* stream) {
+  if (tc <= 0) return 0;
+  if (n_verts <= 0 || (reinterpret_cast<uintptr_t>(clip) & 15) != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const unsigned grid = setup_grid(tc);
+  auto st = static_cast<cudaStream_t>(stream);
+  const rf::Count num{num_ptr, num_value, num_is64};
+  const auto* clip4 = reinterpret_cast<const float4*>(clip);
+  if (double_sided)
+    rf::setup_kernel<true><<<grid, rf::SETUP_THREADS, 0, st>>>(
+        clip4, tri_v, num, out, tc, n_verts, width, height, bbox_pad, maxdim);
+  else
+    rf::setup_kernel<false><<<grid, rf::SETUP_THREADS, 0, st>>>(
+        clip4, tri_v, num, out, tc, n_verts, width, height, bbox_pad, maxdim);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// F1's launch for tc triangles: out[0] its grid, out[1] the blocks of F1
+// resident at once (asked of the runtime once a device), for
+// tests/test_torch_cuda_kernels.py's triangle counts at their edges
+extern "C" int rt_setup_launch(long long tc, int double_sided, long long* out) {
+  static int cache[2][64];
+  int resident = 0;
+  const cudaError_t err =
+      double_sided
+          ? resident_blocks(rf::setup_kernel<true>, rf::SETUP_THREADS, 0, cache[1], &resident)
+          : resident_blocks(rf::setup_kernel<false>, rf::SETUP_THREADS, 0, cache[0], &resident);
+  out[0] = setup_grid(tc);
+  out[1] = resident;
+  return static_cast<int>(err);
+}
 
 // F2 rows and F3: blocks over the tiles of `items` of the merge of n_src
 // sources and n_slots slots, one a tile or, `persistent`, as many as fit
@@ -1133,15 +1351,6 @@ int expand_launch(Kernel kernel, const rf::BinArgs* args, long long n_src, long 
   kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(*args);
   return static_cast<int>(cudaGetLastError());
 }
-
-#define RF_LAUNCH(kernel, n, threads)                                               \
-  {                                                                                 \
-    if (!bin_args_ok(args) || !rf::grid_fits(n))                                    \
-      return static_cast<int>(cudaErrorInvalidValue);                               \
-    rf::kernel<<<(threads) == rf::THREADS ? rf::blocks_for(n) : 1, threads, 0,      \
-                 static_cast<cudaStream_t>(stream)>>>(*args);                       \
-    return static_cast<int>(cudaGetLastError());                                    \
-  }
 
 // F2 (spans): n_rows, tri_info; zeroes acc.
 extern "C" int rt_bin_spans(const rf::BinArgs* args, void* stream) {
@@ -1174,19 +1383,29 @@ extern "C" int rt_bin_pairs(const rf::BinArgs* args, void* stream) {
 
 // F4 (scan): padded and sorted starts, the overflow and demand scalars.
 extern "C" int rt_bin_scan(const rf::BinArgs* args, void* stream) {
-  RF_LAUNCH(scan_kernel, 1, rf::SCAN_THREADS)
+  if (!bin_args_ok(args)) return static_cast<int>(cudaErrorInvalidValue);
+  rf::scan_kernel<<<1, rf::SCAN_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(*args);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // F4 (scatter): the binned buffer, after the sort's permutation.
 extern "C" int rt_bin_scatter(const rf::BinArgs* args, void* stream) {
-  RF_LAUNCH(scatter_kernel, args->p_total, rf::THREADS)
+  if (!bin_args_ok(args)) return static_cast<int>(cudaErrorInvalidValue);
+  bool wide = false;
+  const auto grid = static_cast<unsigned>(scatter_grid(args->p_total, &wide));
+  auto st = static_cast<cudaStream_t>(stream);
+  if (wide)
+    rf::scatter_kernel<rf::SCATTER_PER_WIDE><<<grid, rf::SCATTER_THREADS, 0, st>>>(*args);
+  else
+    rf::scatter_kernel<rf::SCATTER_PER_NARROW><<<grid, rf::SCATTER_THREADS, 0, st>>>(*args);
+  return static_cast<int>(cudaGetLastError());
 }
 
-#undef RF_LAUNCH
-
 // The launch floor: an empty kernel with F4 scan's one block (what 0), F2
-// spans' grid and threads for `args` (what 1), or a thread a triangle or a
-// counter, 256 a block (what 2)
+// spans' grid and threads for `args` (what 1), a thread a triangle or a
+// counter, 256 a block (what 2), a thread a binned column, 256 a block (F4
+// scatter's grid before its redesign: what 3), F1's grid for args->tc
+// triangles (what 4) or F4 scatter's for args->p_total columns (what 5)
 extern "C" int rt_launch_floor(const rf::BinArgs* args, int what, void* stream) {
   auto st = static_cast<cudaStream_t>(stream);
   const long long n = args->tc > n_acc(args) ? args->tc : n_acc(args);
@@ -1200,6 +1419,14 @@ extern "C" int rt_launch_floor(const rf::BinArgs* args, int what, void* stream) 
     rf::empty_kernel<<<grid, rf::SPANS_THREADS, 0, st>>>();
   } else if (what == 2 && rf::grid_fits(n)) {
     rf::empty_kernel<<<rf::blocks_for(n), rf::THREADS, 0, st>>>();
+  } else if (what == 3 && rf::grid_fits(args->p_total)) {
+    rf::empty_kernel<<<rf::blocks_for(args->p_total), rf::THREADS, 0, st>>>();
+  } else if (what == 4 && args->tc > 0) {
+    rf::empty_kernel<<<setup_grid(args->tc), rf::SETUP_THREADS, 0, st>>>();
+  } else if (what == 5 && args->p_total > 0) {
+    bool wide = false;
+    rf::empty_kernel<<<static_cast<unsigned>(scatter_grid(args->p_total, &wide)),
+                       rf::SCATTER_THREADS, 0, st>>>();
   } else {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -77,6 +77,9 @@ _SIGNATURES = {
     # clip, tri_v, num_ptr, num_value, num_is64, out, tc, n_verts, width,
     # height, bbox_pad, maxdim, double_sided, stream
     "rt_setup": (_P, _P, _P, _L, _I, _P, _I, _L, _F, _F, _F, _F, _I, _P),
+    # tc, double_sided, long long out[2]: F1's grid for tc triangles and the
+    # blocks resident at once
+    "rt_setup_launch": (_L, _I, _P),
     # the binning kernels take a pointer to BinArgs and the stream
     "rt_bin_spans": (_P, _P),
     "rt_bin_rows": (_P, _P),
@@ -84,7 +87,8 @@ _SIGNATURES = {
     "rt_bin_scan": (_P, _P),
     "rt_bin_scatter": (_P, _P),
     # BinArgs, what (0 F4 scan's one block, 1 F2 spans' grid, 2 a thread a
-    # triangle), stream: an empty kernel, the launch floor of
+    # triangle, 3 a thread a binned column, 4 F1's grid, 5 F4 scatter's
+    # grid), stream: an empty kernel, the launch floor of
     # tools/frontend_probe
     "rt_launch_floor": (_P, _I, _P),
 }

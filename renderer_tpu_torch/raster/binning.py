@@ -62,6 +62,17 @@ B_TID = 15
 #: card tests put live counts and truncations at and around their multiples
 EXPAND_ITEMS = {"F2 rows": 384, "F3 pairs": 512}
 
+#: binned columns a block of F4 scatter takes on its narrow and its wide
+#: path (csrc/frontend.cu SCATTER_THREADS × SCATTER_PER_NARROW, ×
+#: SCATTER_PER_WIDE), the binned columns from which it takes the wide one
+#: (SCATTER_WIDE_MIN), and the evenly spaced group starts it probes at once
+#: (SCATTER_PROBES; past 16 groups between two probes, more than 4096
+#: groups, its search narrows 16-fold a round): the card tests put group
+#: boundaries, column and key counts at and around them
+SCATTER_COLS = {"narrow": 256, "wide": 512}
+SCATTER_WIDE_MIN = 524288
+SCATTER_PROBES = 256
+
 _I32_MIN = -(2**31)
 _I32_MAX = 2**31 - 1
 

@@ -43,6 +43,8 @@ the plain version on the card, or raise.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
 from renderer_tpu_torch import kernels
@@ -54,6 +56,11 @@ VALID_ROW = 19
 TID_ROW = 20
 EPS_ROW = 21
 BBOX_ROWS = (15, 16, 17, 18)
+
+#: triangles a block of F1 takes, a triangle a thread (csrc/frontend.cu
+#: SETUP_THREADS): the card tests put triangle counts and num_tris at and
+#: around its multiples
+TILE = 128
 
 #: launches of F1 in this process; the plain version does not count
 launches = {"setup": 0}
@@ -89,7 +96,9 @@ def triangle_setup(
     vertices clip (triangle_setup_plain). CPU tensors run the plain version;
     CUDA tensors launch F1 (clip f32 [VE, 4], tri_v i32 [Tc, 3]; num_tris
     a number or an int32 / int64 value, on the device or the CPU) and raise
-    ValueError on other inputs."""
+    ValueError on other inputs, a clip whose data is not 16-byte aligned
+    among them (F1 reads a vertex's row in one 16-byte load; a contiguous
+    [VE, 4] tensor of its own is aligned, a view may not be)."""
     if clip.device.type == "cpu":
         return triangle_setup_plain(clip, tri_v, num_tris, width, height,
                                     bbox_pad=bbox_pad, double_sided=double_sided)
@@ -103,6 +112,9 @@ def triangle_setup(
     num_ptr, num_value, num_is64 = count_arg(num_tris, dev, "num_tris")
     if dev.type != "cuda":
         raise ValueError(f"triangle_setup: unsupported device {dev}")
+    if clip.data_ptr() % 16:
+        raise ValueError(f"triangle_setup: clip's data at {clip.data_ptr():#x} is not "
+                         "16-byte aligned (F1 loads a vertex's row in 16 bytes)")
     out = torch.empty((ROWS, tc), dtype=torch.float32, device=dev)
     lib = kernels.load()
     with torch.cuda.device(dev):
@@ -113,6 +125,16 @@ def triangle_setup(
     kernels.check_launch("triangle_setup", err)
     launches["setup"] += 1
     return out
+
+
+def setup_launch(tc: int, double_sided: bool = False) -> dict:
+    """F1's launch for tc triangles on the current CUDA device: "grid", its
+    blocks (TILE triangles a block), and "resident", the blocks of F1 the
+    device holds at once (asked of the runtime)."""
+    out = (ctypes.c_longlong * 2)()
+    kernels.check_launch("setup_launch", kernels.load().rt_setup_launch(
+        tc, int(double_sided), out))
+    return {"grid": int(out[0]), "resident": int(out[1])}
 
 
 def triangle_setup_plain(

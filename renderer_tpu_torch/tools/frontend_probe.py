@@ -77,11 +77,34 @@ VARIANTS = {
     # bbox rows read after the valid row) on every call
     "spans-narrow": (("SPANS_GATE_MIN", "2147483647"),),
     "spans-wide": (("SPANS_GATE_MIN", "0"),),
+    # F1 split: its loads and stores with the arithmetic cut; its stores
+    # alone. F4 scatter split: its group search, then zeros; its stores alone
+    "setup-memory": (("SETUP_STOP", "1"),),
+    "setup-stores": (("SETUP_STOP", "2"),),
+    "scatter-search": (("SCATTER_STOP", "1"),),
+    "scatter-stores": (("SCATTER_STOP", "2"),),
+    "scatter-gathers": (("SCATTER_STOP", "3"),),
+    # F1 at 256 threads a block (the parent's); F4 scatter on one path on
+    # every call
+    "setup-threads256": (("SETUP_THREADS", "256"),),
+    "scatter-narrow": (("SCATTER_WIDE_MIN", "2147483647"),),
+    "scatter-wide": (("SCATTER_WIDE_MIN", "0"),),
 }
 #: the variants whose outputs are incomplete
-TIMING_ONLY = ("stop-split", "stop-staged", "spans-memory", "spans-stores")
+TIMING_ONLY = ("stop-split", "stop-staged", "spans-memory", "spans-stores", "setup-memory",
+               "setup-stores", "scatter-search", "scatter-stores", "scatter-gathers")
 #: rt_launch_floor's empty launches: name → its `what`
-FLOORS = {"one block": 0, "F2 spans' grid": 1, "a thread a triangle": 2}
+FLOORS = {"one block": 0, "F2 spans' grid": 1, "a thread a triangle": 2,
+          "a thread a binned column": 3, "F1's grid": 4, "F4 scatter's grid": 5}
+#: the floors timed for a call, by kind
+CALL_FLOORS = {"F1": ("one block", "a thread a triangle", "F1's grid"),
+               "BIN": ("one block", "F2 spans' grid", "a thread a triangle",
+                       "a thread a binned column", "F4 scatter's grid")}
+#: each kernel's floor, whose time over it is printed: its own grid's
+#: where one is timed (F1, F2 spans, F4 scatter), else one block's
+OVER_FLOOR = {"F1 setup": "F1's grid", "F2 spans": "F2 spans' grid", "F2 rows": "one block",
+              "F3 pairs": "one block", "F4 scan": "one block",
+              "F4 scatter": "F4 scatter's grid"}
 BYTES_PER_S = 3.35e12  # H100 SXM HBM3 data sheet
 REPS = 10  # calls a timing
 
@@ -147,17 +170,22 @@ def step_ms(kind: str, args: tuple, kw: dict, reps: int = REPS) -> dict:
 
 def launch_floor_ms(kind: str, args: tuple, kw: dict, reps: int = REPS) -> dict:
     """{FLOORS name: mean device ms} of an empty kernel timed as step_ms
-    times a step: F4 scan's one block of threads and, for a binning call,
-    F2 spans' grid and threads for its sizes and a grid of a thread a
-    triangle (F2 spans' before its redesign). The least a step of the call
-    can take."""
+    times a step, with the grids of CALL_FLOORS[kind] for the call's sizes:
+    F4 scan's one block of threads, a grid of a thread a triangle (F1's and
+    F2 spans' before their redesigns), F1's grid; for a binning call also
+    F2 spans' grid, a grid of a thread a binned column (F4 scatter's before
+    its redesign) and F4 scatter's grid. The least a step of the call can
+    take."""
     lib = kernels.load()
     a = kernels.BinArgs()
-    floors = {"one block": FLOORS["one block"]}
-    if kind == "BIN":
+    if kind == "F1":
+        a.tc = args[1].shape[0]
+    else:
         a.tc, a.n_classes, a.tiles_x = args[0].shape[1], len(args[1]) - 1, kw["tiles_x"]
         a.local_tiles_y = kw.get("local_tiles_y") or kw["tiles_y"]
-        floors = FLOORS
+        a.p_total = binning.padded_capacity_classes(
+            kw["pair_capacity"], a.tiles_x * a.local_tiles_y, a.n_classes)
+    floors = {k: FLOORS[k] for k in CALL_FLOORS[kind]}
 
     def empty(what):
         return lambda: kernels.check_launch(
@@ -345,11 +373,17 @@ def main(argv: list[str]) -> int:
                       + f" ms queued | {card}", flush=True)
                 for step in times["library"][0]:
                     bound = work.get(step, 0) / BYTES_PER_S * 1e3
+                    over = ""
+                    if step in OVER_FLOOR:
+                        f = floor[OVER_FLOOR[step]]
+                        over = f" | over {OVER_FLOOR[step]} floor " + "; ".join(
+                            f"{n} " + " / ".join(f"{t[step] - f:.4f}" for t in ts)
+                            for n, ts in times.items())
                     print(f"probe:   {step}: "
                           + "; ".join(f"{n} " + " / ".join(f"{t[step]:.4f}" for t in ts)
                                       for n, ts in times.items())
-                          + f" ms queued | bound {bound:.7f} ms ({work.get(step, 0)} B)",
-                          flush=True)
+                          + f" ms queued | bound {bound:.7f} ms ({work.get(step, 0)} B)"
+                          + over, flush=True)
     for n, rep in reports.items():
         print(f"probe: ptxas {n}: " + ", ".join(
             f"{s} {resources(rep, s)}" for s in DEVICE_FUNCTIONS), flush=True)

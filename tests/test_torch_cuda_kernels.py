@@ -1319,3 +1319,91 @@ def test_frontend_wrappers_check_their_inputs(cuda):
     got = binning.bin_triangle_classes(td, cpu_bounds, **bkw)
     want = binning.bin_triangle_classes_plain(td, bounds, **bkw)
     assert all(_bits_equal(a, b) for a, b in zip(got, want, strict=True))
+
+
+# -- F1's and F4 scatter's edges (tests/torch_frontend_cases.py) --------------
+
+@pytest.mark.parametrize("double_sided", [False, True])
+@pytest.mark.parametrize("name", fe_cases.setup_edges(fe_cases.NOMINAL_RESIDENT))
+def test_f1_setup_edges_bit_equal(cuda, name, double_sided):
+    """F1 on triangle counts at and around a warp, a block (setup.TILE) and
+    R blocks, where R is the blocks of F1 this card holds at once
+    (setup.setup_launch: past R blocks the grid takes a second wave), and
+    past two rounds of R blocks, with num_tris a device value cutting
+    inside a block: bit-equal to the plain version,
+    launched once, eager and replayed from a captured graph into an output
+    overwritten first."""
+    from renderer_tpu_torch.raster.pipeline import CapturedGraph
+
+    resident = setup.setup_launch(1, double_sided)["resident"]
+    n, num = fe_cases.setup_edges(resident)[name]
+    assert setup.setup_launch(n, double_sided)["grid"] == -(-n // setup.TILE)
+    inp = fe_cases.setup_edge_inputs(n, num)
+    args = (torch.from_numpy(inp["clip"]).to(cuda), torch.from_numpy(inp["tri_v"]).to(cuda),
+            torch.tensor(num, dtype=torch.int32, device=cuda), inp["width"], inp["height"])
+    kw = dict(bbox_pad=0.5, double_sided=double_sided)
+    _assert_frontend_equal("F1", args, kw, name)
+    want = setup.triangle_setup_plain(*args, **kw)
+    assert not want[:, num:].any()
+    g = CapturedGraph(lambda: (setup.triangle_setup(*args, **kw),), cuda)
+    for out in g.out:
+        out.fill_(-7)
+    g.replay()
+    torch.cuda.synchronize()
+    assert _bits_equal(g.out[0], want)
+
+
+def test_f1_takes_tri_v_views_and_refuses_a_misaligned_clip(cuda):
+    """F1 on a tri_v view (its rows from the second on) and on an int64
+    num_tris: bit-equal to the plain version. A clip view whose data is not 16-byte aligned (F1 reads
+    a vertex's row in one 16-byte load) raises ValueError and launches
+    nothing; its aligned copy runs."""
+    n, num = 3 * setup.TILE + 7, 2 * setup.TILE + 3
+    inp = fe_cases.setup_edge_inputs(n + 1, num)
+    clip = torch.from_numpy(inp["clip"]).to(cuda)
+    tri_v = torch.from_numpy(inp["tri_v"]).to(cuda)[1:]
+    assert tri_v.is_contiguous()
+    num64 = torch.tensor(num, dtype=torch.int64, device=cuda)
+    args = (clip, tri_v, num64, inp["width"], inp["height"])
+    _assert_frontend_equal("F1", args, dict(bbox_pad=0.5), "tri_v view")
+    buf = torch.empty(clip.numel() + 1, dtype=torch.float32, device=cuda)
+    buf[1:] = clip.reshape(-1)
+    shifted = buf[1:].view(-1, 4)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16
+    before = setup.launches["setup"]
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        setup.triangle_setup(shifted, tri_v, num64, inp["width"], inp["height"])
+    assert setup.launches["setup"] == before
+    got = setup.triangle_setup(shifted.clone(), tri_v, num64, inp["width"], inp["height"])
+    want = setup.triangle_setup_plain(clip, tri_v, num64, inp["width"], inp["height"])
+    assert _bits_equal(got, want)
+
+
+@pytest.mark.parametrize("bound_kind", ["numbers", "int32"])
+@pytest.mark.parametrize("name", fe_cases.SCATTER_CASES)
+def test_f4_scatter_edges_bit_equal(cuda, name, bound_kind):
+    """F2-F4 on the "scatter" cases (tests/torch_frontend_cases.py: a
+    group longer than F4 scatter's tile of columns, one ending at a tile's
+    edge, 476 empty groups starting inside a tile with live columns on
+    both sides, binned rows not a multiple of 4 long, the pairs cut inside
+    a group, no live pair at all), the bounds as numbers and as int32
+    tensors on the card: bit-equal to the plain version, eager and
+    replayed from a captured graph into outputs overwritten first."""
+    from renderer_tpu_torch.raster.pipeline import CapturedGraph
+
+    inp = fe_cases.scatter_inputs()
+    num = torch.tensor(inp["num_tris"], dtype=torch.int32, device=cuda)
+    td = setup.triangle_setup_plain(torch.from_numpy(inp["clip"]).to(cuda),
+                                    torch.from_numpy(inp["tri_v"]).to(cuda), num,
+                                    inp["width"], inp["height"], bbox_pad=0.5)
+    bounds, kw = fe_cases.scatter_bins(name)
+    if bound_kind == "int32":
+        bounds = tuple(torch.tensor(b, dtype=torch.int32, device=cuda) for b in bounds)
+    _assert_frontend_equal("BIN", (td, bounds), kw, f"{name} {bound_kind}")
+    want = binning.bin_triangle_classes_plain(td, bounds, **kw)
+    g = CapturedGraph(lambda: binning.bin_triangle_classes(td, bounds, **kw), cuda)
+    for out in g.out:
+        out.fill_(-7)
+    g.replay()
+    torch.cuda.synchronize()
+    assert all(_bits_equal(a, b) for a, b in zip(g.out, want, strict=True))

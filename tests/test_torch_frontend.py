@@ -367,3 +367,130 @@ def test_binning_wrapper_refuses_demands_that_could_wrap(tc, local_tiles_y, row_
         kw["row_capacity"] -= 1
     with pytest.raises(ValueError, match="unsupported device meta"):
         binning.bin_triangle_classes(_meta((24, tc)), (0, 4), **kw)
+
+
+# -- F1's and F4 scatter's edges (fc.setup_edges, fc.SCATTER_CASES) ----------
+
+def _kernel_constants(*names: str) -> dict:
+    import re
+    from pathlib import Path
+
+    src = (Path(binning.__file__).parents[1] / "csrc" / "frontend.cu").read_text()
+    return {k: int(re.search(rf"constexpr int {k} = (\d+);", src).group(1)) for k in names}
+
+
+def test_setup_and_scatter_tiles_mirror_the_kernels():
+    """setup.TILE and fc.SETUP_TILE are csrc/frontend.cu's SETUP_THREADS
+    (F1's triangles a block); binning.SCATTER_COLS its SCATTER_THREADS ×
+    SCATTER_PER_NARROW and × SCATTER_PER_WIDE (F4 scatter's columns a
+    block on its two paths), binning.SCATTER_WIDE_MIN its SCATTER_WIDE_MIN
+    (where the wide path starts) and binning.SCATTER_PROBES its
+    SCATTER_PROBES, which the edge cases are placed by."""
+    const = _kernel_constants("SETUP_THREADS", "SCATTER_THREADS", "SCATTER_PER_NARROW",
+                              "SCATTER_PER_WIDE", "SCATTER_WIDE_MIN", "SCATTER_PROBES", "ALIGN")
+    assert const["SETUP_THREADS"] == setup.TILE == fc.SETUP_TILE
+    assert binning.SCATTER_COLS == {
+        path: const["SCATTER_THREADS"] * const[f"SCATTER_PER_{path.upper()}"]
+        for path in ("narrow", "wide")}
+    assert const["SCATTER_WIDE_MIN"] == binning.SCATTER_WIDE_MIN
+    assert const["SCATTER_PROBES"] == binning.SCATTER_PROBES
+    assert const["ALIGN"] == binning.ALIGN
+
+
+@functools.lru_cache(maxsize=None)
+def _scatter_outputs(name: str) -> tuple:
+    inp = fc.scatter_inputs()
+    args, kw = _setup_args(inp, False)
+    td = np.asarray(jsetup.triangle_setup(jnp.asarray(inp["clip"]),
+                                          jnp.asarray(inp["tri_v"]), *args, **kw))
+    bounds, bkw = fc.scatter_bins(name)
+    want = [np.asarray(w) for w in jbin.bin_triangle_classes(jnp.asarray(td), bounds, **bkw)]
+    got = binning.bin_triangle_classes_plain(torch.from_numpy(td.copy()), bounds, **bkw)
+    return want, got
+
+
+def test_edge_cases_straddle_f1_and_f4_scatter():
+    """F1's cases put triangle counts one short of, at and one past a block
+    (setup.TILE) and R blocks (R: the blocks resident at once; the CPU's
+    stand-in fc.NOMINAL_RESIDENT), past a warp and past two rounds of R
+    blocks, and cut num_tris inside a block. The "scatter" cases (the plain binning's
+    starts and counts) have, for F4 scatter's tiles of columns on either
+    path (binning.SCATTER_COLS), a group longer than a tile, a group whose
+    live columns end at a tile's edge, and more than 256 empty groups
+    starting inside a tile that has live columns on both sides of them;
+    binned rows of a length that is not a multiple of 4, the pairs cut
+    inside a group, no live pair at all, and binned columns one short of
+    and at the wide path's binning.SCATTER_WIDE_MIN; and the key counts of fc.EDGE_CASES lie on both sides of F4
+    scatter's 16 × SCATTER_PROBES, past which its search narrows in
+    rounds."""
+    tile = setup.TILE
+    for resident in (fc.NOMINAL_RESIDENT, 300, 1000):
+        edges = fc.setup_edges(resident)
+        counts = {n for n, _num in edges.values()}
+        r = resident * tile
+        assert {1, 33, tile - 1, tile, tile + 1, r - 1, r, r + 1} <= counts
+        assert max(counts) > 2 * r
+        assert any(num < n and num // tile == (n - 1) // tile for n, num in edges.values())
+    live = {}
+    for name in fc.SCATTER_CASES:
+        want, got = _scatter_outputs(name)
+        starts, counts = want[1].ravel(), want[2].ravel()
+        live[name] = (starts, counts, want[0].shape[1], int(want[5]))
+    starts, counts, p_total, _ = live["scatter"]
+    assert p_total % 4 == 0
+    nonempty = np.flatnonzero(counts)
+    gaps = [(a, b) for a, b in zip(nonempty, nonempty[1:]) if b - a > 256]
+    for cols in binning.SCATTER_COLS.values():
+        assert (counts > cols).any()
+        assert ((starts + counts) % cols == 0)[counts > 0].any()
+        assert any(starts[a + 1] % cols and starts[a] // cols == starts[b] // cols
+                   == starts[a + 1] // cols for a, b in gaps), gaps
+    assert live["scatter-odd"][2] % 4 and live["scatter-cut"][2] % 4
+    assert fc.SCATTER_WIDE_MIN == binning.SCATTER_WIDE_MIN
+    assert live["scatter-narrow-edge"][2] == binning.SCATTER_WIDE_MIN - 1
+    assert live["scatter-wide-edge"][2] == binning.SCATTER_WIDE_MIN
+    starts, counts, _, demand = live["scatter-cut"]
+    cap = fc.SCATTER_CASES["scatter-cut"][0]
+    assert demand > cap == counts.sum() and counts[1] < 1500
+    assert live["scatter-none"][1].sum() == 0 and live["scatter-none"][3] == 0
+    keys = {int(name.split("-")[1]) for name in fc.EDGE_CASES if name.startswith("keys-")}
+    assert min(keys) <= 16 * binning.SCATTER_PROBES < max(keys)
+
+
+@pytest.mark.parametrize("name", fc.SCATTER_CASES)
+def test_binning_plain_matches_jax_on_scatter_edges(name):
+    """The plain binning against the JAX package on the "scatter" cases
+    (tests/torch_frontend_cases.py): every output equal."""
+    want, got = _scatter_outputs(name)
+    for out, g, w in zip(OUTPUTS, got, want, strict=True):
+        assert g.numpy().dtype == w.dtype and g.shape == w.shape, out
+        assert g.numpy().tobytes() == w.tobytes(), out
+
+
+@functools.lru_cache(maxsize=None)
+def _longest_setup_edge() -> dict:
+    return fc.setup_edge_inputs(max(n for n, _ in fc.setup_edges(fc.NOMINAL_RESIDENT).values()), 0)
+
+
+@pytest.mark.parametrize("name", fc.setup_edges(fc.NOMINAL_RESIDENT))
+def test_setup_plain_matches_jax_on_f1_edges(name):
+    """The plain setup against the JAX package on F1's cases (triangle
+    counts at its blocks' and R blocks' edges, R the CPU's stand-in
+    fc.NOMINAL_RESIDENT, num_tris cutting inside a block): ≤ 4 ULP, as the
+    setup parity test above; the triangles from num_tris on are zero. A
+    case's triangles are the first n of the longest case's
+    (fc.setup_edge_inputs), and setup works a triangle at a time, so the
+    JAX package's setup of the longest case's triangles, with the case's
+    num_tris, is its reference for the first n (one shape to compile)."""
+    n, num = fc.setup_edges(fc.NOMINAL_RESIDENT)[name]
+    inp = fc.setup_edge_inputs(n, num)
+    longest = _longest_setup_edge()
+    assert np.array_equal(inp["clip"], longest["clip"][:3 * n])
+    args, kw = _setup_args(inp, False)
+    got = setup.triangle_setup_plain(torch.from_numpy(inp["clip"]),
+                                     torch.from_numpy(inp["tri_v"]), *args, **kw).numpy()
+    want = np.asarray(jsetup.triangle_setup(jnp.asarray(longest["clip"]),
+                                            jnp.asarray(longest["tri_v"]), *args, **kw))[:, :n]
+    _assert_setup_close(got, want, 4)
+    valid = want[setup.VALID_ROW] > 0
+    assert not want[:, num:].any() and (valid.any() or n == 1)

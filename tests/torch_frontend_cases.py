@@ -412,3 +412,104 @@ def block_variants(items_rows: int, items_pairs: int, seed: int = 0) -> list[dic
                             kw={**kw, "pair_capacity": pc}))
             break
     return out
+
+
+# -- F1's edges ---------------------------------------------------------------
+#
+# F1 (csrc/frontend.cu setup_kernel) takes a triangle a thread, SETUP_TILE
+# triangles a block (setup.TILE); the card holds R blocks at once
+# (setup.setup_launch), so past R blocks its grid takes a second wave.
+# setup_edges(R): name → (triangles, num_tris): counts at and around a
+# warp, a block, R blocks and past two rounds of them, with num_tris
+# cutting inside a block in some.
+
+SETUP_TILE = 128
+#: R for the CPU tests, where no card says it: 132 SMs × 9 blocks
+NOMINAL_RESIDENT = 1188
+
+
+def setup_edges(resident: int) -> dict:
+    t, r = SETUP_TILE, resident * SETUP_TILE
+    return {"tc-1": (1, 1), "tc-33": (33, 20), "tile-1": (t - 1, t - 1), "tile": (t, t - 25),
+            "tile+1": (t + 1, t + 1), "two-tiles+1": (2 * t + 1, t + 44),
+            "grid-1": (r - 1, r - 1), "grid": (r, r - 77), "grid+1": (r + 1, r + 1),
+            "two-waves+129": (2 * r + 129, 2 * r + 100)}
+
+
+def setup_edge_inputs(n: int, num: int, seed: int = 0) -> dict:
+    """triangle_setup's inputs (as setup_inputs) of the first n triangles of
+    a soup of small ones, num_tris = num, on TILES[0]'s screen. The soup
+    comes in chunks of 4096 triangles, each from a seed of its own, so a
+    case's inputs are the first n triangles of any longer case's."""
+    chunks = -(-n // 4096)
+    clip = np.concatenate([_soup(np.random.default_rng([seed, k]), 4096, largest=0.08)
+                           for k in range(chunks)])[:3 * n]
+    width, height = screen(TILES[0])
+    return dict(clip=clip, tri_v=np.arange(3 * n, dtype=np.int32).reshape(n, 3),
+                num_tris=num, width=width, height=height)
+
+
+# -- F4 scatter's edges ---------------------------------------------------------
+#
+# F4 scatter (csrc/frontend.cu scatter_kernel) gives a block a tile of
+# binning.SCATTER_COLS binned columns and finds the (class, tile) groups its
+# columns fall in from the groups at its segments' ends (a group that owns
+# columns is at least 128 wide). The "scatter" case puts a chosen count of
+# small triangles (1 pair each) into chosen (class, tile) groups of a 16×12
+# grid of 128×32 tiles (576 groups): a group of exactly one tile's columns
+# (its live columns end at the tile's edge), a group longer than a tile, a
+# group's count one short of and one past 128, and one of one pair; 476
+# empty groups (the rest of class 0, class 1, class 2 up to tile 100) all
+# start inside the tile whose columns the groups on either side also take.
+# SCATTER_CASES: name → (pair capacity, whether the classes are empty):
+# "scatter" at a capacity of 4096, "scatter-odd" at 4099 (the binned rows
+# are then not 8-byte aligned), "scatter-cut" at 2001 (the pairs cut inside
+# the long group), "scatter-none" with every class empty (no live pair), and
+# the binned columns one short of ("scatter-narrow-edge") and at
+# ("scatter-wide-edge") SCATTER_WIDE_MIN, where F4 scatter takes its wide
+# path (binning.SCATTER_WIDE_MIN).
+
+SCATTER_GRID = (16, 12)
+#: (class, tile index, triangles) of the "scatter" case, in stream order
+SCATTER_GROUPS = ((0, 0, 1024), (0, 1, 1500), (0, 2, 1), (0, 5, 127), (0, 7, 129),
+                  (0, 9, 10), (2, 100, 5), (2, 191, 300))
+SCATTER_WIDE_MIN = 524288
+_SCATTER_PADDING = 128 * 3 * 16 * 12 + 256  # binning.padded_capacity_classes past the pairs
+SCATTER_CASES = {"scatter": (4096, False), "scatter-odd": (4099, False),
+                 "scatter-cut": (2001, False), "scatter-none": (4096, True),
+                 "scatter-narrow-edge": (SCATTER_WIDE_MIN - _SCATTER_PADDING - 1, False),
+                 "scatter-wide-edge": (SCATTER_WIDE_MIN - _SCATTER_PADDING, False)}
+
+
+def scatter_inputs(seed: int = 0) -> dict:
+    """triangle_setup's inputs (as setup_inputs) of the "scatter" case: the
+    triangles of SCATTER_GROUPS, each inside its tile, then NUM_PADDING off
+    the screen."""
+    rng = np.random.default_rng(seed)
+    tw, th = TILES[0]
+    width, height = SCATTER_GRID[0] * tw, SCATTER_GRID[1] * th
+    verts = []
+    for _cls, tile, count in SCATTER_GROUPS:
+        x0, y0 = (tile % SCATTER_GRID[0]) * tw, (tile // SCATTER_GRID[0]) * th
+        verts += list(_SHAPES["S"](x0, y0)) * count
+    verts += list(_SHAPES["Z"](0, 0)) * NUM_PADDING
+    px = np.asarray(verts, np.float64)
+    n = len(verts) // 3
+    clip = np.empty((3 * n, 4), np.float32)
+    clip[:, 0] = 2.0 * px[:, 0] / width - 1.0
+    clip[:, 1] = 2.0 * px[:, 1] / height - 1.0
+    clip[:, 2] = rng.uniform(0.2, 0.8, 3 * n)
+    clip[:, 3] = 1.0
+    return dict(clip=clip, tri_v=np.arange(3 * n, dtype=np.int32).reshape(n, 3),
+                num_tris=n - NUM_PADDING, width=width, height=height)
+
+
+def scatter_bins(name: str) -> tuple[tuple, dict]:
+    """(bounds, keyword arguments) of bin_triangle_classes for a case."""
+    capacity, empty = SCATTER_CASES[name]
+    per_class = [sum(c for cls, _t, c in SCATTER_GROUPS if cls == k) for k in range(3)]
+    ends = tuple(int(e) for e in np.cumsum(per_class))
+    bounds = (0, 0, 0, 0) if empty else (0, *ends)
+    tw, th = TILES[0]
+    return bounds, dict(tiles_x=SCATTER_GRID[0], tiles_y=SCATTER_GRID[1], tile_w=tw,
+                        tile_h=th, pair_capacity=capacity, row_capacity=4096, zbuckets=16)
