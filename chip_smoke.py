@@ -22,7 +22,7 @@ Scenes:
   "Performance stats" window as its UI overlay. Every frame advances game
   time (the animation is evaluated and the character skinned anew) and
   rebuilds the window through UiContext from the renderer's own profiler
-  spans, so K2 also runs its UI launch (layers.launches["ui"]).
+  spans, so K2 also runs its UI launch (launch counter "ui").
 
 Phase 4 holds each kernel against its plain version on the scenes' own
 bins (bit-equal): K1 on scene B (S=4) and scene A (S=1), K2 in both modes
@@ -174,8 +174,9 @@ as CUDA graphs (engine.stats.fused_frame_ms; the multi-frame path has no UI
 pass) beside phase 6's eager frames, and profiles one eager frame of B and
 C with torch.profiler (tools.frame_profile.profile_frame): kernel count
 and device-busy ms beside those of the candidate loops as torch ops
-(TORCH_LOOPS_PROFILE), top ops, and the device
-share of S1-S3, the fused S3, K1/K2 and C1-C3.
+(TORCH_LOOPS_PROFILE), top ops, the device
+share of S1-S3, the fused S3, K1/K2 and C1-C3, and the frame's traffic
+(uploads, reads, capacity changes).
 
 Phase 13 ("bench") runs the port's bench (tools/bench.run, in this
 process) at 1920×1080: the default scene (here the triangle: the Sponza
@@ -228,6 +229,7 @@ from renderer_tpu_torch.apps.sandbox import flythrough, run_loop
 from renderer_tpu_torch.assets import demo_scenes, jpeg, ntex, png, proxy
 from renderer_tpu_torch.assets.gltf_loader import load_gltf, ntex_texture
 from renderer_tpu_torch.core import math3d
+from renderer_tpu_torch.engine import profiling
 from renderer_tpu_torch.engine import stats as engine_stats
 from renderer_tpu_torch.engine.profiling import Profiler
 from renderer_tpu_torch.engine.stats import card_line
@@ -273,7 +275,7 @@ RUN_LOOP_FRAMES = 4
 FLY_FRAMES = 4  # phase 8's batch
 STAGE_ITERS = 3  # phase 8's runs a stage (and replays of the fused frame)
 # Renderer._dispatch's spans before the frame is queued: the host prologue
-HOST_PROLOGUE = ("sort draws + pack", "geometry arrays", "frame arrays", "materials")
+HOST_PROLOGUE = ("prologue.draws", "prologue.geometry", "prologue.blob", "prologue.materials")
 TIMED_TEXTURES, TIMED_SIDE = 24, 1024  # the registry that times the decode
 BYTES_PER_S = 3.35e12  # H100 SXM HBM3 data sheet
 SPIN_CYCLES = 40_000_000  # ~20 ms at the H100's 1.98 GHz boost clock
@@ -817,7 +819,14 @@ def frames_checks(dev, rb, sc_b, card) -> dict:
     r, scenes, imgs = fly["renderer"], fly["scenes"], fly["images"]
     stats = fly["stats"].cpu().numpy()
     graph = r.frame_graphs.graph
-    replay_ms, cap = graph.replay_ms(), graph.captured
+    cap = graph.captured
+    capture_s, instantiate_s = (next(x.seconds for x in reversed(profiling.setup_spans())
+                                     if x.name == name)
+                                for name in ("setup.capture", "setup.instantiate"))
+    # the replays are timed while the tracer is on: a profiler attached
+    r.profiler = Profiler(enabled=True)
+    r.render_frames_device(scenes)
+    replay_ms = graph.replay_ms()
     if len(written) != FLY_FRAMES or imgs.shape != (FLY_FRAMES, H, W, 3):
         raise RuntimeError(f"frames: flythrough wrote {written}, images {imgs.shape}")
     missing = {k: launches[k] for k in ("k1", "k2_masked", "k2_blended", "s1", "s2")
@@ -846,7 +855,7 @@ def frames_checks(dev, rb, sc_b, card) -> dict:
         eager_ms.append(e0.elapsed_time(e1))
         spans = {s.name: s.total_s * 1e3 for s in r.profiler.report()}
         prologue_ms.append(sum(spans[n] for n in HOST_PROLOGUE))
-        queue_ms.append(spans["queue frame"])
+        queue_ms.append(spans["pipeline"])
         row = r._last_stats.cpu().numpy()
         if not (np.array_equal(img.cpu().numpy(), imgs[k]) and np.array_equal(row, stats[k])):
             mismatched.append(k)
@@ -867,7 +876,7 @@ def frames_checks(dev, rb, sc_b, card) -> dict:
                          r.render_frame(scenes[k]))
     out = {
         "frames": FLY_FRAMES, "flythrough_s": fly_s,
-        "capture_s": cap.capture_s, "instantiate_s": cap.instantiate_s,
+        "capture_s": capture_s, "instantiate_s": instantiate_s,
         "replay_ms": replay_ms, "replay_median_ms": statistics.median(replay_ms),
         "eager_ms": eager_ms, "eager_median_ms": statistics.median(eager_ms),
         "host_prologue_ms": prologue_ms, "host_queue_frame_ms": queue_ms,
@@ -878,8 +887,8 @@ def frames_checks(dev, rb, sc_b, card) -> dict:
         "msaa_shade_candidates": config.msaa_shade_candidates,
     }
     print(f"frames: flythrough {FLY_FRAMES} frames 1920x1080 msaa4 'sync' in "
-          f"{fly_s:.1f} s | graph capture {cap.capture_s:.2f} s, instantiate "
-          f"{cap.instantiate_s:.2f} s | replayed frame median "
+          f"{fly_s:.1f} s | graph capture {capture_s:.2f} s, instantiate "
+          f"{instantiate_s:.2f} s | replayed frame median "
           f"{out['replay_median_ms']:.2f} ms {[round(t, 2) for t in replay_ms]} vs "
           f"eager render_frame_device median {out['eager_median_ms']:.2f} ms "
           f"{[round(t, 2) for t in eager_ms]} (CUDA events; host prologue median "
@@ -2120,7 +2129,7 @@ def phase12(dev, card, main_launches, frame_ms) -> tuple[list, dict]:
               f"{p['device_busy_ms']:.2f} ms (loops as torch ops: {was_ms:.2f}) of "
               f"{p['profiled_frame_ms']:.2f} ms | {own} | top ops "
               f"{[(k, round(ms, 3), n) for k, ms, n in p['top_ops_device_ms'][:6]]} "
-              f"| {card}", flush=True)
+              f"| traffic {p['traffic']} | {card}", flush=True)
     print(f"phase 12 took {out['seconds']:.1f} s", flush=True)
     del ra, rb, rc
     torch.cuda.empty_cache()
@@ -2236,9 +2245,9 @@ def main() -> int:
     # -- 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
     kernels.load()
+    nvcc_s = profiling.setup_seconds("setup.nvcc")
     print(f"build: {time.perf_counter() - t0:.1f} s "
-          f"(nvcc {kernels.build_seconds:.1f} s) -> {kernels.library_path().name}",
-          flush=True)
+          f"(nvcc {nvcc_s:.1f} s) -> {kernels.library_path().name}", flush=True)
     host = native.status()  # builds the host library (g++)
     if host["path"] != "native":
         raise RuntimeError(f"build: the host library took the numpy path: {host}")

@@ -24,7 +24,8 @@ import numpy as np
 import torch
 
 from renderer_tpu_torch.core.config import RenderConfig
-from renderer_tpu_torch.engine.profiling import Profiler
+from renderer_tpu_torch.engine import profiling
+from renderer_tpu_torch.engine.profiling import Profiler, span
 from renderer_tpu_torch.interop import resolve_device
 from renderer_tpu_torch.materials.atlas import build_atlas
 from renderer_tpu_torch.materials.atlas_device import (
@@ -136,7 +137,7 @@ class Renderer:
         pipeline.STAT_NAMES."""
         if self._last_stats is None:
             return None
-        vals = self._last_stats.cpu().numpy()
+        vals = self._read(self._last_stats)
         return dict(zip(pipeline.STAT_NAMES, (int(v) for v in vals)))
 
     def _total_overflow(self, stats_host) -> int:
@@ -179,6 +180,7 @@ class Renderer:
                         MAX_PAIR_CAPACITY)
             if new is not None:
                 self.config = replace(self.config, pair_capacity=new).validate()
+                profiling.count("capacity_grows")
                 changed = True
         ui = int(stats_host[3])
         if ui > 0:
@@ -188,6 +190,7 @@ class Renderer:
                 self.config = replace(
                     self.config, ui_pair_capacity=new
                 ).validate()
+                profiling.count("capacity_grows")
                 changed = True
         ridx = pipeline.STAT_NAMES.index("row_overflow")
         rows = int(stats_host[ridx]) if len(stats_host) > ridx else 0
@@ -196,6 +199,7 @@ class Renderer:
                         MAX_PAIR_CAPACITY, unit="(triangle, tile-row) rows")
             if new is not None:
                 self.config = replace(self.config, row_capacity=new).validate()
+                profiling.count("capacity_grows")
                 changed = True
         if changed:
             self._streaks["pair_capacity"] = (0, 0)
@@ -229,6 +233,7 @@ class Renderer:
                 f"shrinking to {desired}",
             )
             self.config = replace(self.config, **{field: desired}).validate()
+            profiling.count("capacity_shrinks")
         self._streaks[field] = (0, 0)
 
     def _grow_layer_capacity(self, stats_host) -> bool:
@@ -261,6 +266,7 @@ class Renderer:
                 f"fragments/pixel; regrowing {field} {cur} -> {new}",
             )
             self.config = replace(self.config, **{field: new}).validate()
+            profiling.count("capacity_grows")
             self._streaks[field] = (0, 0)
             changed = True
         return changed
@@ -295,6 +301,7 @@ class Renderer:
             f"{cur} -> {new}",
         )
         self.config = replace(self.config, msaa_shade_candidates=new).validate()
+        profiling.count("capacity_grows")
         self._streaks["msaa_shade_candidates"] = (0, 0)
         return True
 
@@ -360,8 +367,7 @@ class Renderer:
         if cached is None:
             draws = scene.materialize(order)
             gs = draw_stream.build_geometry(draws, self.config.max_triangles)
-            dev = {k: torch.from_numpy(np.ascontiguousarray(getattr(gs, k)))
-                   .to(self.device) for k in _GEOM_KEYS}
+            dev = {k: self._to_device(getattr(gs, k)) for k in _GEOM_KEYS}
             cached = (gs, dev)
         self._geom_cache[geom_key] = cached
         while len(self._geom_cache) > self.GEOM_CACHE_MAX:
@@ -379,18 +385,11 @@ class Renderer:
             return mode == "device"
         return self.device.type == "cuda"
 
-    def _materials(self):
+    def _atlas(self):
+        """(atlas on the device, table, srgb, wrap) of the registry's
+        textures: BC7 blocks decoded on the device where that uploads
+        less, else the host-decoded atlas."""
         reg = self.registry
-        if self._mat_cache is not None and self._mat_cache[0] == reg.version:
-            return self._mat_cache[1]
-
-        def up(a):
-            a = np.ascontiguousarray(a)
-            if not a.flags.writeable:  # a memory-mapped cache entry
-                a = a.copy()
-            return torch.from_numpy(a).to(self.device)
-
-        atlas = None
         if self._use_device_atlas():
             plan = build_atlas_plan_cached(reg)
             decoded_bytes = 0 if plan is None else plan.shape[0] * plan.shape[1] * 4
@@ -400,8 +399,9 @@ class Renderer:
                 print("[renderer] reserved BC7 block in a texture; using "
                       "the host atlas path")
             elif plan.upload_bytes < decoded_bytes:
-                atlas = realize_atlas(plan, self.device)
-                table, srgb, wrap = plan.table, plan.srgb, plan.wrap
+                profiling.count("uploads")
+                profiling.count("upload_bytes", plan.upload_bytes)
+                return realize_atlas(plan, self.device), plan.table, plan.srgb, plan.wrap
             else:
                 # mostly non-BC7 textures: the compressed plan would ship
                 # more bytes than the decoded atlas, so the host path is
@@ -409,11 +409,18 @@ class Renderer:
                 print(f"[renderer] device atlas plan ({plan.upload_bytes} B) "
                       f"not smaller than the decoded atlas ({decoded_bytes} "
                       "B); using the host path")
-        if atlas is None:
-            at = build_atlas(reg)
-            # RGBA8 packed in u32; torch keeps the bits as i32
-            atlas = up(at.data.view(np.int32))
-            table, srgb, wrap = at.table, at.srgb, at.wrap
+        at = build_atlas(reg)
+        # RGBA8 packed in u32; torch keeps the bits as i32
+        return self._to_device(at.data.view(np.int32)), at.table, at.srgb, at.wrap
+
+    def _materials(self):
+        reg = self.registry
+        if self._mat_cache is not None and self._mat_cache[0] == reg.version:
+            return self._mat_cache[1]
+
+        up = self._to_device
+        with profiling.setup_span("setup.atlas"):
+            atlas, table, srgb, wrap = self._atlas()
         dev = {
             "base_color_factor": up(reg.base_color_factor),
             "emissive_occlusion": up(reg.emissive_occlusion),
@@ -449,33 +456,48 @@ class Renderer:
         pinned host memory on the card (the copy does not wait for the
         device)."""
         host = torch.from_numpy(np.ascontiguousarray(a))
+        profiling.count("uploads")
+        profiling.count("upload_bytes", host.nbytes)
         if self.device.type == "cuda":
             host = host.pin_memory()
         return host.to(self.device, non_blocking=True)
 
+    def _to_device(self, a: np.ndarray) -> torch.Tensor:
+        """A host array of set-up (geometry, materials) on the device."""
+        a = np.ascontiguousarray(a)
+        if not a.flags.writeable:  # a memory-mapped cache entry
+            a = a.copy()
+        profiling.count("uploads")
+        profiling.count("upload_bytes", a.nbytes)
+        return torch.from_numpy(a).to(self.device)
+
+    def _read(self, t: torch.Tensor) -> np.ndarray:
+        """A device tensor read back to the host (waits for it)."""
+        profiling.count("reads")
+        profiling.count("read_bytes", t.nbytes)
+        return t.cpu().numpy()
+
     # -- frame loop ----------------------------------------------------------
 
     def _dispatch(self, scene: Scene, debug_mode: int, ui=None):
-        p = self.profiler
-        with p.span("sort draws + pack"):
+        with span("prologue.draws"):
             fv = draw_stream.frame_view(scene)
-        with p.span("geometry arrays"):
+        with span("prologue.geometry"):
             gs, geom_dev = self._geometry(scene, fv.order, fv.geom_key)
-        with p.span("frame arrays"):
+        with span("prologue.blob"):
             frame = self._frame_arrays(scene, fv, gs, debug_mode)
             if ui is not None:
                 packed_ui = ui.pack() if hasattr(ui, "pack") else ui
                 frame["ui"] = {k: self._upload(v) for k, v in packed_ui.items()}
-        with p.span("materials"):
+        with span("prologue.materials"):
             mats = self._materials()
-        with p.span("queue frame"):
-            img, stats = pipeline.render_frame(
-                geom_dev, frame, mats,
-                config=self.config, skin_start=gs.skin_start,
-                has_masked=gs.num_masked_tris > 0,
-                has_blended=gs.num_tris > gs.num_opaque_tris + gs.num_masked_tris,
-                morph_k=gs.morph_k, joint_cap=self._joint_cap(scene),
-            )
+        img, stats = pipeline.render_frame(
+            geom_dev, frame, mats,
+            config=self.config, skin_start=gs.skin_start,
+            has_masked=gs.num_masked_tris > 0,
+            has_blended=gs.num_tris > gs.num_opaque_tris + gs.num_masked_tris,
+            morph_k=gs.morph_k, joint_cap=self._joint_cap(scene),
+        )
         return img, stats
 
     def render_frame_device(self, scene: Scene, debug_mode: int = 0,
@@ -483,21 +505,21 @@ class Renderer:
         """One frame, returned as a device u8 [H,W,3] tensor (no host copy).
         `ui` — optional renderer_tpu_torch.ui.DrawList (or its packed dict):
         the overlay rendered through the raster pipeline's UI pass."""
-        p = self.profiler
-        with p.span("render_frame"):
+        with self.profiler.span("frame", frame=True):
             prev_stats = self._last_stats
             img, stats = self._dispatch(scene, debug_mode, ui)
             self._last_stats = stats
             if self.overflow_policy == "sync":
                 # loop: regrow until the frame reports no dropped/truncated
                 # work (or every growable capacity is at its max)
-                for _ in range(8):
-                    host = stats.cpu().numpy()
-                    if not self._grow_capacities(host):
-                        self._maybe_shrink_capacities(host)
-                        break
-                    img, stats = self._dispatch(scene, debug_mode, ui)
-                    self._last_stats = stats
+                with span("overflow"):
+                    for _ in range(8):
+                        host = self._read(stats)
+                        if not self._grow_capacities(host):
+                            self._maybe_shrink_capacities(host)
+                            break
+                        img, stats = self._dispatch(scene, debug_mode, ui)
+                        self._last_stats = stats
             elif self.overflow_policy == "auto" and prev_stats is not None:
                 # one-frame-delayed check: the previous frame is queued ahead
                 # of this one, so reading its stats waits only for it. A
@@ -506,11 +528,12 @@ class Renderer:
                 if self._skip_stat_checks > 0:
                     self._skip_stat_checks -= 1
                 else:
-                    host = prev_stats.cpu().numpy()
-                    if self._grow_capacities(host):
-                        self._skip_stat_checks = 1
-                    else:
-                        self._maybe_shrink_capacities(host)
+                    with span("overflow"):
+                        host = self._read(prev_stats)
+                        if self._grow_capacities(host):
+                            self._skip_stat_checks = 1
+                        else:
+                            self._maybe_shrink_capacities(host)
         return img
 
     def render_frames_device(self, scenes, debug_mode: int = 0):
@@ -528,50 +551,61 @@ class Renderer:
         stats."""
         if not scenes:
             raise ValueError("render_frames_device: need at least one scene")
-        fvs = [draw_stream.frame_view(s) for s in scenes]
+        with self.profiler.span("batch", frame=True):
+            return self._batch(scenes, debug_mode)
+
+    def _batch(self, scenes, debug_mode: int):
+        with span("prologue.draws"):
+            fvs = [draw_stream.frame_view(s) for s in scenes]
         if any(fv.geom_key != fvs[0].geom_key for fv in fvs[1:]):
             raise ValueError(
                 "render_frames_device: all scenes must queue the same draw "
                 "list (geometry stream is shared across the batch)")
-        gs, geom_dev = self._geometry(scenes[0], fvs[0].order, fvs[0].geom_key)
-        # one blob layout for the whole batch: the widest scene's bucket
-        joint_cap = max(self._joint_cap(s) for s in scenes)
-        blobs = self._upload(np.stack([
-            draw_stream.pack_frame_blob(
-                fv, scene.joint_palette, self._proj_view(scene),
-                (gs.num_tris, gs.num_opaque_tris, gs.num_masked_tris,
-                 debug_mode),
-                morph_k=gs.morph_k, joint_cap=joint_cap,
-            )
-            for fv, scene in zip(fvs, scenes)
-        ]))
-        mats = self._materials()
+        with span("prologue.geometry"):
+            gs, geom_dev = self._geometry(scenes[0], fvs[0].order, fvs[0].geom_key)
+        with span("prologue.blobs"):
+            # one blob layout for the whole batch: the widest scene's bucket
+            joint_cap = max(self._joint_cap(s) for s in scenes)
+            blobs = self._upload(np.stack([
+                draw_stream.pack_frame_blob(
+                    fv, scene.joint_palette, self._proj_view(scene),
+                    (gs.num_tris, gs.num_opaque_tris, gs.num_masked_tris,
+                     debug_mode),
+                    morph_k=gs.morph_k, joint_cap=joint_cap,
+                )
+                for fv, scene in zip(fvs, scenes)
+            ]))
+        with span("prologue.materials"):
+            mats = self._materials()
 
         def dispatch():
-            return pipeline.render_frames_scan(
-                geom_dev, blobs, mats,
-                config=self.config, skin_start=gs.skin_start,
-                has_masked=gs.num_masked_tris > 0,
-                has_blended=gs.num_tris > gs.num_opaque_tris + gs.num_masked_tris,
-                morph_k=gs.morph_k, joint_cap=joint_cap,
-                graphs=self.frame_graphs,
-            )
+            with span("replay"):
+                return pipeline.render_frames_scan(
+                    geom_dev, blobs, mats,
+                    config=self.config, skin_start=gs.skin_start,
+                    has_masked=gs.num_masked_tris > 0,
+                    has_blended=gs.num_tris > gs.num_opaque_tris + gs.num_masked_tris,
+                    morph_k=gs.morph_k, joint_cap=joint_cap,
+                    graphs=self.frame_graphs,
+                )
 
         imgs, stats = dispatch()
         if self.overflow_policy != "off":
-            for _ in range(8):
-                host = torch.amax(stats, dim=0).cpu().numpy()
-                if not self._grow_capacities(host):
-                    self._maybe_shrink_capacities(host)
-                    break
-                if self.overflow_policy != "sync":
-                    # grown for the next call; this batch stays as it is,
-                    # and its stats rows still report the OLD capacity's
-                    # overflow, so the next render_frame_device's delayed
-                    # check must not grow AGAIN from the same event
-                    self._skip_stat_checks = 1
-                    break
-                imgs, stats = dispatch()
+            with span("overflow"):
+                for _ in range(8):
+                    host = self._read(torch.amax(stats, dim=0))
+                    if not self._grow_capacities(host):
+                        self._maybe_shrink_capacities(host)
+                        break
+                    if self.overflow_policy != "sync":
+                        # grown for the next call; this batch stays as it
+                        # is, and its stats rows still report the OLD
+                        # capacity's overflow, so the next
+                        # render_frame_device's delayed check must not grow
+                        # AGAIN from the same event
+                        self._skip_stat_checks = 1
+                        break
+                    imgs, stats = dispatch()
         self._last_stats = stats[-1]
         return imgs, stats
 
@@ -586,5 +620,5 @@ class Renderer:
                      ui=None) -> np.ndarray:
         """One frame, copied back to the host (the 'present' boundary)."""
         img = self.render_frame_device(scene, debug_mode, ui)
-        with self.profiler.span("present (device→host)"):
-            return img.cpu().numpy()
+        with self.profiler.span("present"):
+            return self._read(img)

@@ -26,6 +26,8 @@ from contextlib import contextmanager
 
 import torch
 
+from renderer_tpu_torch.engine.profiling import Profiler
+
 
 def format_bytes(n: int) -> str:
     """Bytes pretty-printer (lib.rs:103-128 prints the largest binary unit)."""
@@ -134,13 +136,15 @@ def _time_call(fn, *args, iters: int, device, paced: str) -> float:
 def fused_frame_ms(renderer, scene, iters: int = 16) -> float:
     """Per-frame ms of the production frame as the flythrough mode runs it:
     `iters` copies of `scene` through renderer.render_frames_device, and
-    the median CUDA-event time of one replay of its graph. On the CPU, the
-    batch's perf_counter time over `iters`."""
+    the median CUDA-event time of one replay of its graph (a Profiler is
+    attached around the batch, so FrameGraph.run times each replay). On
+    the CPU, the batch's perf_counter time over `iters`."""
     if renderer.device.type == "cpu":
         t0 = time.perf_counter()
         renderer.render_frames_device([scene] * iters)
         return (time.perf_counter() - t0) * 1e3 / iters
-    renderer.render_frames_device([scene] * iters)
+    with Profiler().span("timed batch"):
+        renderer.render_frames_device([scene] * iters)
     return statistics.median(renderer.frame_graphs.graph.replay_ms())
 
 

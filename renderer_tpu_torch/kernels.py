@@ -24,8 +24,9 @@ import re
 import shutil
 import subprocess
 import threading
-import time
 from pathlib import Path
+
+from renderer_tpu_torch.engine import profiling
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[1] / "build" / "kernels"
@@ -37,8 +38,6 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
-#: seconds the last build took (0.0 when the library was already built)
-build_seconds = 0.0
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -195,22 +194,24 @@ def _build(so: Path) -> None:
 
 
 def load() -> ctypes.CDLL:
-    """The kernel library, built on first use. Raises if it cannot be built."""
-    global _lib, build_seconds
+    """The kernel library, built on first use (set-up spans setup.kernels
+    around the build or load, setup.nvcc around a build). Raises if it
+    cannot be built."""
+    global _lib
     with _lock:
         if _lib is not None:
             return _lib
-        so = library_path()
-        if not so.exists():
-            t0 = time.perf_counter()
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            _build(so)
-            build_seconds = time.perf_counter() - t0
-        lib = ctypes.CDLL(str(so))
-        for name, args in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(args)
-            fn.restype = ctypes.c_int
+        with profiling.setup_span("setup.kernels"):
+            so = library_path()
+            if not so.exists():
+                with profiling.setup_span("setup.nvcc"):
+                    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                    _build(so)
+            lib = ctypes.CDLL(str(so))
+            for name, args in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(args)
+                fn.restype = ctypes.c_int
         _lib = lib
         return lib
 

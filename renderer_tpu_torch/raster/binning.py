@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from renderer_tpu_torch import kernels
+from renderer_tpu_torch.engine import profiling
 from renderer_tpu_torch.raster.setup import BBOX_ROWS, ROWS, TID_ROW, VALID_ROW, count_arg
 from renderer_tpu_torch.raster.shade import check_tensor
 
@@ -76,12 +77,12 @@ SCATTER_PROBES = 256
 _I32_MIN = -(2**31)
 _I32_MAX = 2**31 - 1
 
-#: launches of the binning kernels in this process: F2 (its per-triangle
-#: pass "bin_spans" and its row pass "bin_rows"), F3 ("bin_pairs") and F4
-#: (its scan "bin_scan" and its scatter "bin_scatter"); the plain version
-#: does not count
-launches = {"bin_spans": 0, "bin_rows": 0, "bin_pairs": 0, "bin_scan": 0,
-            "bin_scatter": 0}
+#: the binning kernels' launch counters in profiling.COUNTERS: F2 (its
+#: per-triangle pass "bin_spans" and its row pass "bin_rows"), F3
+#: ("bin_pairs") and F4 (its scan "bin_scan" and its scatter
+#: "bin_scatter"); the plain version does not count
+LAUNCHES = ("bin_spans", "bin_rows", "bin_pairs", "bin_scan", "bin_scatter")
+profiling.register_launches(LAUNCHES)
 
 #: the CUDA path's steps in order (binning_steps): (name, the launch
 #: counter of its kernel, or None for a library call)
@@ -321,7 +322,7 @@ def binning_steps(
             with torch.cuda.device(dev):
                 err = fn(ctypes.byref(args), kernels.current_stream())
             kernels.check_launch(f"bin_triangle_classes ({counter})", err)
-            launches[counter] += 1
+            profiling.count(counter)
         return run
 
     library = {

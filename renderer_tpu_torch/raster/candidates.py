@@ -29,11 +29,13 @@ from __future__ import annotations
 import torch
 
 from renderer_tpu_torch import kernels
+from renderer_tpu_torch.engine import profiling
 from renderer_tpu_torch.raster.shade import check_tensor
 
-#: launches of the CUDA kernels in this process, C1 ("cand_extract"), C2
+#: the launch counters in profiling.COUNTERS of C1 ("cand_extract"), C2
 #: ("cand_merge") and C3 ("cand_resolve"); the plain versions do not count
-launches = {"cand_extract": 0, "cand_merge": 0, "cand_resolve": 0}
+LAUNCHES = ("cand_extract", "cand_merge", "cand_resolve")
+profiling.register_launches(LAUNCHES)
 
 #: the kernels' limits (csrc/candidates.cu): slots in C1 and C2 (8 samples ×
 #: 16 layers, layers.MAX_KERNEL_LAYERS), candidates (16 layers + 7 extra
@@ -177,7 +179,7 @@ def extract_candidates(slots: torch.Tensor, n: int, count: bool = False):
                                         _ptr(distinct), n_slots, n, h * w,
                                         kernels.current_stream())
     kernels.check_launch("extract_candidates", err)
-    launches["cand_extract"] += 1
+    profiling.count("cand_extract")
     return (cands, distinct) if count else cands
 
 
@@ -221,7 +223,7 @@ def masked_merge(lt: torch.Tensor, lz: torch.Tensor, cands: torch.Tensor,
             cutoff.data_ptr(), solid_tid.data_ptr(), solid_z.data_ptr(),
             clamp.data_ptr(), n_s, k, n, h * w, kernels.current_stream())
     kernels.check_launch("masked_merge", err)
-    launches["cand_merge"] += 1
+    profiling.count("cand_merge")
 
 
 def resolve(solid_tid: torch.Tensor, cands_s: torch.Tensor, shaded_s: torch.Tensor,
@@ -273,5 +275,5 @@ def resolve(solid_tid: torch.Tensor, cands_s: torch.Tensor, shaded_s: torch.Tens
             _ptr(cands_b), _ptr(shaded_b), hdr.data_ptr(), clamp.data_ptr(), n_s,
             n_cs, k, n_cb, h * w, kernels.current_stream())
     kernels.check_launch("resolve", err)
-    launches["cand_resolve"] += 1
+    profiling.count("cand_resolve")
     return hdr

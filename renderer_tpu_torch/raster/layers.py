@@ -30,6 +30,7 @@ from __future__ import annotations
 import torch
 
 from renderer_tpu_torch import kernels
+from renderer_tpu_torch.engine import profiling
 from renderer_tpu_torch.raster.raster_kernel import (
     check_bins,
     check_tiling,
@@ -40,11 +41,11 @@ from renderer_tpu_torch.raster.raster_kernel import (
     to_tiles,
 )
 
-#: CUDA kernel launches in this process, per mode, with the UI pass's
+#: K2's launch counters in profiling.COUNTERS, per mode, with the UI pass's
 #: blended launches (raster/ui_stage.py) counted apart under "ui" (the plain
-#: version does not count); callers reset the entries to 0 to see which
-#: kernels ran
-launches = {"masked": 0, "blended": 0, "ui": 0}
+#: version does not count)
+LAUNCHES = ("masked", "blended", "ui")
+profiling.register_launches(LAUNCHES)
 
 #: largest layer count the kernel is instantiated for (the Renderer's
 #: growth ceiling, engine/renderer.py MAX_LAYERS)
@@ -130,7 +131,7 @@ def rasterize_layers(
     tile_w: int = 128,
     sample_positions: tuple = ((0.5, 0.5),),  # in-pixel positions (MSAA)
     row_stride: int = 1,
-    launch_key: str | None = None,  # entry of `launches` (default: mode)
+    launch_key: str | None = None,  # launch counter (default: mode)
 ):
     """Returns (layer_z [S,K,Hp,Wp] f32, layer_tid [S,K,Hp,Wp] i32,
     aux [S,Hp,Wp] i32 — per-(sample, pixel) candidate/accept count;
@@ -178,5 +179,5 @@ def rasterize_layers(
             padded_width, int(tile_row_offset), row_stride, n_s, spos,
             kernels.current_stream())
     kernels.check_launch(f"rasterize_layers[{mode}]", err)
-    launches[launch_key or mode] += 1
+    profiling.count(launch_key or mode)
     return lz, lt, aux

@@ -32,12 +32,12 @@ per-sample coverage thresholds a·S > s+0.5.
 
 from __future__ import annotations
 
-import time
-
 import torch
 
 from renderer_tpu_torch.core import constants
 from renderer_tpu_torch.core.config import RenderConfig
+from renderer_tpu_torch.engine import profiling
+from renderer_tpu_torch.engine.profiling import span
 from renderer_tpu_torch.raster import (
     binning,
     candidates,
@@ -157,10 +157,11 @@ def render_shard(
     msaa = cfg.msaa_samples
     zero = torch.zeros((), dtype=torch.int32, device=dev)
 
-    tri_data = setup.triangle_setup(
-        vs["clip"], geom["tri_v"], frame["num_tris"], cfg.width, cfg.height,
-        bbox_pad=(0.5 if msaa > 1 else 0.0),
-    )
+    with span("setup"):
+        tri_data = setup.triangle_setup(
+            vs["clip"], geom["tri_v"], frame["num_tris"], cfg.width, cfg.height,
+            bbox_pad=(0.5 if msaa > 1 else 0.0),
+        )
 
     # One stable sort bins every alpha class at once: pairs are keyed by
     # class × tile, each class reads the shared binned buffer through its own
@@ -170,15 +171,16 @@ def render_shard(
         bounds.append(n_opaque + n_masked)
     if has_blended:
         bounds.append(frame["num_tris"])
-    (b_all, s_all, c_all, ov_all, row_overflow, pair_demand,
-     row_demand) = binning.bin_triangle_classes(
-        tri_data, tuple(bounds),
-        tiles_x=cfg.tiles_x, tiles_y=cfg.tiles_y,
-        tile_w=cfg.tile_w, tile_h=cfg.tile_h,
-        pair_capacity=cfg.pair_capacity, row_capacity=cfg.row_capacity,
-        tile_row_lo=tile_row_offset, local_tiles_y=local_tiles_y,
-        zbuckets=cfg.opaque_z_buckets, row_stride=row_stride,
-    )
+    with span("binning"):
+        (b_all, s_all, c_all, ov_all, row_overflow, pair_demand,
+         row_demand) = binning.bin_triangle_classes(
+            tri_data, tuple(bounds),
+            tiles_x=cfg.tiles_x, tiles_y=cfg.tiles_y,
+            tile_w=cfg.tile_w, tile_h=cfg.tile_h,
+            pair_capacity=cfg.pair_capacity, row_capacity=cfg.row_capacity,
+            tile_row_lo=tile_row_offset, local_tiles_y=local_tiles_y,
+            zbuckets=cfg.opaque_z_buckets, row_stride=row_stride,
+        )
     bins_opaque = (b_all, s_all[0], c_all[0])
     ov_opaque = ov_all[0]
     cls_i = 1
@@ -239,54 +241,65 @@ def render_shard(
 
     # -- phase 1: opaque + masked visibility (all samples per kernel pass) ---
     mask_sat = blend_sat = mask_demand = blend_demand = zero
-    zs, ts = raster_kernel.rasterize_binned(*bins_opaque, **raster_kw)
-    # per-sample solid depth and id [S, H, W], merged into in place (phase 2)
-    solid_z, solid_tid = zs.contiguous(), ts.contiguous()
+    with span("raster.opaque"):
+        zs, ts = raster_kernel.rasterize_binned(*bins_opaque, **raster_kw)
+        # per-sample solid depth and id [S, H, W], merged into in place (phase 2)
+        solid_z, solid_tid = zs.contiguous(), ts.contiguous()
     if has_masked:
-        lz_m, lt_m, aux_m = layers.rasterize_layers(
-            *bins_masked, zs, mode="masked", n_layers=cfg.mask_layers, **raster_kw)
-        mask_sat = saturated_px(aux_m, cfg.mask_layers)
-        mask_demand = demand_max(aux_m)
+        with span("raster.masked"):
+            lz_m, lt_m, aux_m = layers.rasterize_layers(
+                *bins_masked, zs, mode="masked", n_layers=cfg.mask_layers, **raster_kw)
+            mask_sat = saturated_px(aux_m, cfg.mask_layers)
+            mask_demand = demand_max(aux_m)
 
     # -- phase 2: masked alpha test (alpha deduped per distinct tid) + merge --
     if has_masked:
-        slots = slot_stack(lt_m)
-        cands = candidates.extract_candidates(
-            slots, min(slots.shape[0], cfg.mask_layers + extra))
-        alpha, cutoff = striped(cands, lambda tid, r0: shade.alpha_stack(
-            tid.contiguous(), r0, geom, vs, frame, materials, **shade_kw))
-        candidates.masked_merge(lt_m, lz_m, cands, alpha, cutoff, solid_tid,
-                                solid_z, clamp_mask)
+        with span("candidates.masked"):
+            slots = slot_stack(lt_m)
+            cands = candidates.extract_candidates(
+                slots, min(slots.shape[0], cfg.mask_layers + extra))
+        with span("shade.alpha"):
+            alpha, cutoff = striped(cands, lambda tid, r0: shade.alpha_stack(
+                tid.contiguous(), r0, geom, vs, frame, materials, **shade_kw))
+        with span("merge"):
+            candidates.masked_merge(lt_m, lz_m, cands, alpha, cutoff, solid_tid,
+                                    solid_z, clamp_mask)
 
     # -- phase 3: blended visibility (floor = merged per-sample solid depth) --
     lt_b = cands_b = shaded_b = None
     if has_blended:
-        _, lt_b, aux_b = layers.rasterize_layers(
-            *bins_blended, solid_z, mode="blended", n_layers=cfg.blend_layers,
-            **raster_kw)
-        blend_sat = saturated_px(aux_b, cfg.blend_layers)
-        blend_demand = demand_max(aux_b)
+        with span("raster.blended"):
+            _, lt_b, aux_b = layers.rasterize_layers(
+                *bins_blended, solid_z, mode="blended", n_layers=cfg.blend_layers,
+                **raster_kw)
+            blend_sat = saturated_px(aux_b, cfg.blend_layers)
+            blend_demand = demand_max(aux_b)
 
     # -- phase 4: solid shading, once per distinct candidate -----------------
     # demand signal: distinct REAL solid tids per pixel across samples
     n_c = min(msaa, max(cfg.msaa_shade_candidates, 1))
-    if msaa > 1:
-        cands_s, distinct = candidates.extract_candidates(solid_tid, n_c, count=True)
-        shade_demand = torch.amax(distinct[:out_rows, : cfg.width])
-    else:
-        cands_s = candidates.extract_candidates(solid_tid, n_c)
-        shade_demand = zero
-    shaded_s = shade_candidates(cands_s)
+    with span("candidates.solid"):
+        if msaa > 1:
+            cands_s, distinct = candidates.extract_candidates(solid_tid, n_c, count=True)
+            shade_demand = torch.amax(distinct[:out_rows, : cfg.width])
+        else:
+            cands_s = candidates.extract_candidates(solid_tid, n_c)
+            shade_demand = zero
+    with span("shade.solid"):
+        shaded_s = shade_candidates(cands_s)
 
     # -- phase 5: blended shading (deduped); then each sample's solid select
     # and its blended layers' ordered composite, into the HDR samples -------
     if has_blended:
-        slots = slot_stack(lt_b)
-        cands_b = candidates.extract_candidates(
-            slots, min(slots.shape[0], cfg.blend_layers + extra))
-        shaded_b = shade_candidates(cands_b)
-    hdr = candidates.resolve(solid_tid, cands_s, shaded_s, clamp_mask, lt_b,
-                             cands_b, shaded_b)  # [S, H, W, 3]
+        with span("candidates.blended"):
+            slots = slot_stack(lt_b)
+            cands_b = candidates.extract_candidates(
+                slots, min(slots.shape[0], cfg.blend_layers + extra))
+        with span("shade.blended"):
+            shaded_b = shade_candidates(cands_b)
+    with span("resolve"):
+        hdr = candidates.resolve(solid_tid, cands_s, shaded_s, clamp_mask, lt_b,
+                                 cands_b, shaded_b)  # [S, H, W, 3]
 
     # -- phase 6: UI overlay into the HDR buffer of every sample (the
     # reference's ImGui pipeline position: blended, no depth, last in the
@@ -294,28 +307,33 @@ def render_shard(
     ov_ui = ui_sat = ui_demand = zero
     ui = frame.get("ui")
     if ui is not None:
-        # coverage at pixel centers by default; at the MSAA sample positions
-        # under cfg.ui_msaa — shading stays at pixel centers either way
-        ui_spos = spos if (cfg.ui_msaa and msaa > 1) else ((0.5, 0.5),)
-        lt_ui, ov_ui, aux_ui = ui_stage.rasterize_ui(
-            ui, config=cfg, local_tiles_y=local_tiles_y,
-            tile_row_offset=tile_row_offset, sample_positions=ui_spos,
-            row_stride=row_stride,
-        )
-        ui_sat = saturated_px(aux_ui, cfg.ui_layers)
-        ui_demand = demand_max(aux_ui)
-        # ALL layers (and sample sets under ui_msaa) shaded and composited
-        # into the samples' HDR buffers in layer order, in one call
-        ui_stage.shade_composite_ui(list(hdr), lt_ui[0] if len(ui_spos) == 1 else lt_ui,
-                                    ui, materials, config=cfg, row0=row0)
+        with span("ui"):
+            # coverage at pixel centers by default; at the MSAA sample
+            # positions under cfg.ui_msaa — shading stays at pixel centers
+            # either way
+            ui_spos = spos if (cfg.ui_msaa and msaa > 1) else ((0.5, 0.5),)
+            lt_ui, ov_ui, aux_ui = ui_stage.rasterize_ui(
+                ui, config=cfg, local_tiles_y=local_tiles_y,
+                tile_row_offset=tile_row_offset, sample_positions=ui_spos,
+                row_stride=row_stride,
+            )
+            ui_sat = saturated_px(aux_ui, cfg.ui_layers)
+            ui_demand = demand_max(aux_ui)
+            # ALL layers (and sample sets under ui_msaa) shaded and
+            # composited into the samples' HDR buffers in layer order, in
+            # one call
+            ui_stage.shade_composite_ui(list(hdr), lt_ui[0] if len(ui_spos) == 1 else lt_ui,
+                                        ui, materials, config=cfg, row0=row0)
 
-    img = post.tonemap(hdr if msaa > 1 else hdr[0])
-    clamped = torch.sum(clamp_mask[:out_rows, : cfg.width].to(torch.int32))
-    stats = torch.stack(
-        [ov_opaque, ov_masked, ov_blended, ov_ui, mask_sat, blend_sat, ui_sat,
-         clamped, pair_demand, mask_demand, blend_demand, ui_demand,
-         shade_demand, row_demand, row_overflow]
-    ).to(torch.int32)
+    with span("tonemap"):
+        img = post.tonemap(hdr if msaa > 1 else hdr[0])
+    with span("stats"):
+        clamped = torch.sum(clamp_mask[:out_rows, : cfg.width].to(torch.int32))
+        stats = torch.stack(
+            [ov_opaque, ov_masked, ov_blended, ov_ui, mask_sat, blend_sat, ui_sat,
+             clamped, pair_demand, mask_demand, blend_demand, ui_demand,
+             shade_demand, row_demand, row_overflow]
+        ).to(torch.int32)
     return img[:out_rows, : cfg.width], stats
 
 
@@ -335,17 +353,20 @@ def render_frame(
     stats i32[N_STATS])."""
     from renderer_tpu_torch.scene.draw_stream import unpack_frame
 
-    frame = unpack_frame(frame, morph_k=morph_k, joint_cap=joint_cap)
-    vs = vertex_stage.run_vertex_stage(geom, frame, skin_start, morph_k=morph_k)
-    return render_shard(
-        geom, frame, materials, vs,
-        config=config,
-        has_masked=has_masked,
-        has_blended=has_blended,
-        local_tiles_y=config.tiles_y,
-        tile_row_offset=0,
-        out_rows=config.height,
-    )
+    with span("pipeline"):
+        with span("unpack"):
+            frame = unpack_frame(frame, morph_k=morph_k, joint_cap=joint_cap)
+        with span("vertex"):
+            vs = vertex_stage.run_vertex_stage(geom, frame, skin_start, morph_k=morph_k)
+        return render_shard(
+            geom, frame, materials, vs,
+            config=config,
+            has_masked=has_masked,
+            has_blended=has_blended,
+            local_tiles_y=config.tiles_y,
+            tile_row_offset=0,
+            out_rows=config.height,
+        )
 
 
 def render_frames_scan(
@@ -392,57 +413,76 @@ def _identity(tensors: dict) -> tuple:
     return tuple(sorted((k, id(v)) for k, v in tensors.items()))
 
 
+#: the hand-written kernels' launch counters (in profiling.COUNTERS): K1's,
+#: K2's per mode, the shading kernels S1 ("shade"), S2 ("alpha"), S3
+#: ("ui_shade") and the fused S3 ("ui_composite"), the candidate kernels C1
+#: ("cand_extract"), C2 ("cand_merge") and C3 ("cand_resolve"), and the
+#: front end's F1 ("setup") and F2-F4 (binning.LAUNCHES)
+LAUNCH_KEYS = (*raster_kernel.LAUNCHES, *layers.LAUNCHES, *shade.LAUNCHES,
+               *ui_stage.LAUNCHES, *candidates.LAUNCHES, *setup.LAUNCHES,
+               *binning.LAUNCHES)
+
+
 def launch_counts() -> dict:
-    """The hand-written kernels' launch counters: K1's, K2's per mode, the
-    shading kernels S1 ("shade"), S2 ("alpha"), S3 ("ui_shade") and the
-    fused S3 ("ui_composite"), the candidate kernels C1
-    ("cand_extract"), C2 ("cand_merge") and C3 ("cand_resolve"), and the
-    front end's F1 ("setup") and F2-F4 (binning.launches)."""
-    return {"k1": raster_kernel.launches, **layers.launches, **shade.launches,
-            "ui_shade": ui_stage.launches, "ui_composite": ui_stage.composite_launches,
-            **candidates.launches, **setup.launches, **binning.launches}
+    """The launch counters' values, by key (LAUNCH_KEYS)."""
+    return {k: profiling.COUNTERS[k] for k in LAUNCH_KEYS}
 
 
 def add_launches(delta: dict) -> None:
-    raster_kernel.launches += delta["k1"]
-    for mode in layers.launches:
-        layers.launches[mode] += delta[mode]
-    for which in shade.launches:
-        shade.launches[which] += delta[which]
-    ui_stage.launches += delta["ui_shade"]
-    ui_stage.composite_launches += delta["ui_composite"]
-    for counters in (candidates.launches, setup.launches, binning.launches):
-        for which in counters:
-            counters[which] += delta[which]
+    profiling.add_counts({k: delta[k] for k in LAUNCH_KEYS})
 
 
 class CapturedGraph:
     """fn() captured into one CUDA graph, following torch.cuda.graphs: one
-    eager run on a side stream first, then the capture on that stream, then
-    instantiation. A capture that fails raises; there is no eager fallback.
-    `out` is what fn returned at capture: the tensors each replay rewrites.
-    The kernel wrappers' launch counters move during capture, where nothing
-    launches: the capture's counts (`launches`) are taken back and added
-    again on every replay. `capture_s` and `instantiate_s` are the host
-    seconds of the two steps."""
+    eager run on a side stream first (span setup.capture_warmup), then the
+    capture on that stream (setup.capture), then instantiation
+    (setup.instantiate). A capture that fails raises; there is no eager
+    fallback. `out` is what fn returned at capture: the tensors each replay
+    rewrites. The kernel wrappers' launch counters move during capture,
+    where nothing launches: the capture's counts (`launches`) are taken
+    back and added again on every replay. `manifest` is the graph's
+    profiling.Manifest where device tracing is on (`_record`), else None."""
 
     def __init__(self, fn, device: torch.device):
         side = torch.cuda.Stream(device)
         side.wait_stream(torch.cuda.current_stream(device))
-        with torch.cuda.stream(side):
+        self.manifest = self._record(fn, side, device)
+        with torch.cuda.stream(side), profiling.setup_span("setup.capture_warmup"):
             fn()
         torch.cuda.current_stream(device).wait_stream(side)
         before = launch_counts()
         self.graph = torch.cuda.CUDAGraph(keep_graph=True)
-        t0 = time.perf_counter()
-        with torch.cuda.graph(self.graph, stream=side):
-            self.out = fn()
-        t1 = time.perf_counter()
-        self.graph.instantiate()
-        self.capture_s, self.instantiate_s = t1 - t0, time.perf_counter() - t1
+        with profiling.setup_span("setup.capture"):
+            with torch.cuda.graph(self.graph, stream=side):
+                self.out = fn()
+        with profiling.setup_span("setup.instantiate"):
+            self.graph.instantiate()
         after = launch_counts()
         self.launches = {k: after[k] - before[k] for k in after}
         add_launches({k: -v for k, v in self.launches.items()})
+
+    @staticmethod
+    def _record(fn, side, device):
+        """With device tracing on, fn() eagerly on the side stream inside a
+        torch.profiler session of the tracer's own (span setup.manifest;
+        again, up to three times in all, where the trace lost an op): its
+        device ops are the graph's manifest. None otherwise. It runs before
+        the untraced warm-up, which the capture follows as when untraced
+        (an eager run after the capture did not match the replays name for
+        name on the H100 at 1080p)."""
+        for _ in range(3):
+            session = profiling.recording_graph()
+            if session is None:
+                return None
+            side.wait_stream(torch.cuda.current_stream(device))
+            with torch.cuda.stream(side), session, \
+                    profiling.setup_span("setup.manifest") as root:
+                session.root = root.path
+                fn()
+            torch.cuda.current_stream(device).wait_stream(side)
+            if session.manifest is not None:
+                return session.manifest
+        return None
 
     def replay(self) -> None:
         self.graph.replay()
@@ -452,7 +492,8 @@ class CapturedGraph:
 class FrameGraph:
     """render_frame captured into one CUDA graph (CapturedGraph) that reads
     its frame blob from a static buffer; `run` replays it for each blob of
-    a batch, each replay timed by CUDA events (`replay_ms`)."""
+    a batch. While the tracer is on (profiling.tracing), each replay is
+    timed by CUDA events (`replay_ms`)."""
 
     def __init__(self, geom: dict, materials: dict, first_blob: torch.Tensor,
                  kwargs: dict):
@@ -474,21 +515,26 @@ class FrameGraph:
                            device=self.img.device)
         stats = torch.empty((k, *self.stats.shape), dtype=self.stats.dtype,
                             device=self.stats.device)
+        timed = profiling.tracing()
         self.events = []
         for i in range(k):
             self.blob.copy_(blobs[i])
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            self.captured.replay()
-            end.record()
+            if timed:
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                self.captured.replay()
+                end.record()
+                self.events.append((start, end))
+            else:
+                self.captured.replay()
             imgs[i].copy_(self.img)
             stats[i].copy_(self.stats)
-            self.events.append((start, end))
         return imgs, stats
 
     def replay_ms(self) -> list:
-        """CUDA-event ms of each replay of the last `run` (waits for them)."""
+        """CUDA-event ms of each replay of the last `run` (waits for them);
+        empty where the tracer was off during it."""
         for _, end in self.events:
             end.synchronize()
         return [start.elapsed_time(end) for start, end in self.events]

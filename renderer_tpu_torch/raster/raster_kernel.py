@@ -26,11 +26,13 @@ from __future__ import annotations
 import torch
 
 from renderer_tpu_torch import kernels
+from renderer_tpu_torch.engine import profiling
 from renderer_tpu_torch.raster.binning import B_ROWS, B_TID
 
-#: launches of the CUDA kernel in this process (the plain version does not
-#: count); callers reset it to 0 to see which kernels a run went through
-launches = 0
+#: K1's launch counter in profiling.COUNTERS (the plain version does not
+#: count; pipeline.launch_counts reads it)
+LAUNCHES = ("k1",)
+profiling.register_launches(LAUNCHES)
 
 # bin positions evaluated together by the plain version (any value gives
 # the same result: the merge is order-invariant)
@@ -265,6 +267,5 @@ def rasterize_binned(
             padded_width, int(tile_row_offset), row_stride, n_s, spos,
             kernels.current_stream())
     kernels.check_launch("rasterize_binned", err)
-    global launches
-    launches += 1
+    profiling.count("k1")
     return depth, tid

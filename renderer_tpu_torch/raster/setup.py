@@ -48,6 +48,7 @@ import ctypes
 import torch
 
 from renderer_tpu_torch import kernels
+from renderer_tpu_torch.engine import profiling
 from renderer_tpu_torch.raster.shade import check_tensor
 
 W_EPS = 1e-6
@@ -62,8 +63,10 @@ BBOX_ROWS = (15, 16, 17, 18)
 #: around its multiples
 TILE = 128
 
-#: launches of F1 in this process; the plain version does not count
-launches = {"setup": 0}
+#: F1's launch counter in profiling.COUNTERS; the plain version does not
+#: count
+LAUNCHES = ("setup",)
+profiling.register_launches(LAUNCHES)
 
 
 def count_arg(v, device: torch.device, what: str) -> tuple[int, int, int]:
@@ -123,7 +126,7 @@ def triangle_setup(
                            float(bbox_pad), float(max(width, height)), int(double_sided),
                            kernels.current_stream())
     kernels.check_launch("triangle_setup", err)
-    launches["setup"] += 1
+    profiling.count("setup")
     return out
 
 

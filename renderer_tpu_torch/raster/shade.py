@@ -42,11 +42,13 @@ import numpy as np
 import torch
 
 from renderer_tpu_torch import kernels
+from renderer_tpu_torch.engine import profiling
 from renderer_tpu_torch.materials.atlas import MAX_MIPS
 
-#: launches of the CUDA kernels in this process, S1 ("shade") and S2
+#: the launch counters in profiling.COUNTERS of S1 ("shade") and S2
 #: ("alpha"); the plain versions do not count
-launches = {"shade": 0, "alpha": 0}
+LAUNCHES = ("shade", "alpha")
+profiling.register_launches(LAUNCHES)
 
 # f32 constants the plain versions multiply by, as the kernels do
 # (csrc/shade_common.cuh): exact f32 values, so a product rounds alike on
@@ -597,7 +599,7 @@ def _launch_scene(which: str, tid, row0, geom, vs, frame, materials, *, width,
     with torch.cuda.device(dev):
         err = fn(ctypes.addressof(args), kernels.current_stream())
     kernels.check_launch(f"{which}_stack", err)
-    launches[which] += 1
+    profiling.count(which)
     return result
 
 

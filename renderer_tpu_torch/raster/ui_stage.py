@@ -32,6 +32,7 @@ import ctypes
 import torch
 
 from renderer_tpu_torch import kernels
+from renderer_tpu_torch.engine import profiling
 from renderer_tpu_torch.raster import binning, layers, setup
 from renderer_tpu_torch.raster.shade import (
     _dot3,
@@ -45,10 +46,10 @@ from renderer_tpu_torch.raster.shade import (
 TEX_KIND_FONT = 1
 TEX_KIND_RGBA = 2
 
-#: launches of S3 (shade_ui_layer) and of the fused S3 (shade_composite_ui)
-#: in this process (the plain versions do not count)
-launches = 0
-composite_launches = 0
+#: the launch counters in profiling.COUNTERS of S3 (shade_ui_layer) and of
+#: the fused S3 (shade_composite_ui); the plain versions do not count
+LAUNCHES = ("ui_shade", "ui_composite")
+profiling.register_launches(LAUNCHES)
 #: csrc/shade.cu UI_QUEUE: the fused S3's queued elements a round
 UI_QUEUE = 1024
 
@@ -91,7 +92,7 @@ def rasterize_ui(
     `sample_positions` — in-pixel coverage evaluation points: pixel centers
     by default, the MSAA sample positions under RenderConfig.ui_msaa.
     Returns (layer tids [S, K, Hp, Wp] i32, overflow scalar, aux counts
-    [S, Hp, Wp]); the K2 launch counts under layers.launches["ui"]."""
+    [S, Hp, Wp]); the K2 launch counts under "ui"."""
     cfg = config
     pad_h = local_tiles_y * cfg.tile_h
     n_s = len(sample_positions)
@@ -208,8 +209,7 @@ def shade_ui_layer(
     with torch.cuda.device(lt.device):
         err = lib.rt_shade_ui(ctypes.addressof(args), kernels.current_stream())
     kernels.check_launch("shade_ui_layer", err)
-    global launches
-    launches += 1
+    profiling.count("ui_shade")
     return rgb, alpha
 
 
@@ -302,5 +302,4 @@ def shade_composite_ui(
     with torch.cuda.device(lt.device):
         err = lib.rt_shade_composite_ui(ctypes.addressof(args), kernels.current_stream())
     kernels.check_launch("shade_composite_ui", err)
-    global composite_launches
-    composite_launches += 1
+    profiling.count("ui_composite")

@@ -83,6 +83,7 @@ import numpy as np
 import torch
 
 import renderer_tpu_torch as rt
+from renderer_tpu_torch.engine.profiling import Profiler
 from renderer_tpu_torch.engine.stats import card_line
 from renderer_tpu_torch.raster import binning, pipeline, setup, vertex_stage
 from renderer_tpu_torch.scene import draw_stream
@@ -351,7 +352,10 @@ def _replay_pass(bench: Bench, times: list, frames: int, grow: bool):
     _sync(dev)
     t0 = time.perf_counter()
     scenes = [bench.fresh_scene(t) for t in times[WARMUP:]]
-    imgs, stats = renderer.render_frames_device(scenes)
+    # a profiler attached turns the tracer on, so each replay is timed by
+    # its CUDA events (FrameGraph.run)
+    with Profiler(enabled=True).span("timed batch"):
+        imgs, stats = renderer.render_frames_device(scenes)
     _sync(dev)
     fps = frames / (time.perf_counter() - t0)
     gaps = []

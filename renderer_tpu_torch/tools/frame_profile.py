@@ -15,7 +15,10 @@ kernels C1-C3 (csrc/candidates.cu) and the front end's F1-F4
 (csrc/frontend.cu); and the UI pass of the
 frame's own DrawList, piece by piece (`ui_pass_ms`): its raster (bin + K2's
 UI launch) and the fused S3 (shade and composite, the pipeline's call).
-Needs CUDA; without it, it exits with an error. `profile_frame`
+The profiled frame's traffic comes with them (`traffic`: its host→device
+uploads and bytes, device→host reads and bytes, and capacity grows and
+shrinks, from profiling.COUNTERS; a steady frame grows and shrinks
+nothing). Needs CUDA; without it, it exits with an error. `profile_frame`
 profiles any renderer's frame the same way (chip_smoke.py phase 12 runs it
 on scenes B and C, and `ui_pass_ms` on C).
 """
@@ -29,6 +32,7 @@ import torch
 
 import renderer_tpu_torch as trt
 from renderer_tpu_torch.assets import demo_scenes
+from renderer_tpu_torch.engine import profiling
 from renderer_tpu_torch.engine.stats import SPIN_CYCLES, card_line, held_stream
 from renderer_tpu_torch.interop import from_numpy_arrays
 from renderer_tpu_torch.raster import ui_stage
@@ -85,19 +89,24 @@ def profile_frame(renderer, scene, ui=None) -> dict:
     """One render_frame_device call under torch.profiler: its CUDA-event ms,
     the summed device time of its kernels and copies (device-side events
     only) and their count, the ten PyTorch ops with the most device time,
-    and each hand-written kernel's device ms, launches and share of the
-    busy time."""
+    each hand-written kernel's device ms, launches and share of the busy
+    time, and the frame's traffic (profiling.TRAFFIC counters)."""
     e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    before = {k: profiling.COUNTERS[k] for k in profiling.TRAFFIC}
     with torch.profiler.profile(activities=acts) as prof:
         e0.record()
         renderer.render_frame_device(scene, 0, ui=ui)
         e1.record()
         torch.cuda.synchronize()
+    traffic = {k: profiling.COUNTERS[k] - v for k, v in before.items()}
     # device-side events (kernels, copies) carry the device time once; a
     # PyTorch op's own entry repeats its kernels' time
+    # the program's spans (record_function ranges, profiling.prefix()) are
+    # left out: their device-side copies span kernels counted already
     cuda = torch.autograd.DeviceType.CUDA
-    rows = [e for e in prof.key_averages() if e.self_device_time_total > 0]
+    rows = [e for e in prof.key_averages() if e.self_device_time_total > 0
+            and not e.key.startswith(profiling.prefix())]
     kernels = [e for e in rows if e.device_type == cuda]
     busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
     top = sorted((e for e in rows if e.device_type != cuda),
@@ -114,6 +123,7 @@ def profile_frame(renderer, scene, ui=None) -> dict:
         "top_ops_device_ms": [[e.key, e.self_device_time_total / 1e3, e.count]
                               for e in top],
         "own_kernels": own,
+        "traffic": traffic,
     }
 
 

@@ -37,6 +37,8 @@ from pathlib import Path
 
 import numpy as np
 
+from renderer_tpu_torch.engine import profiling
+
 CSRC = Path(__file__).resolve().parents[2] / "csrc"
 SOURCES = ("bc7enc.cpp", "atlas_pack.cpp", "draw_prologue.cpp", "anim_pose.cpp")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
@@ -149,30 +151,31 @@ def load() -> ctypes.CDLL | None:
     with _lock:
         if _status is not None:
             return _lib
-        so = library_path()
-        cxx = _compiler()
-        seconds = 0.0
-        if not so.exists():
-            if cxx is None:
-                _status = {"path": "numpy", "library": None, "build_seconds": 0.0,
-                           "reason": "no C++ compiler (g++) found"}
-                _announce(_status)
-                return None
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            t0 = time.perf_counter()
-            with open(BUILD_DIR / "lock", "w") as lock:
-                fcntl.flock(lock, fcntl.LOCK_EX)
-                if not so.exists():
-                    _build(cxx, so)
-                    seconds = time.perf_counter() - t0
-        lib = ctypes.CDLL(str(so))
-        for name, (args, res) in _SIGNATURES.items():
-            fn = getattr(lib, name)
-            fn.argtypes = list(args)
-            fn.restype = res
-        _lib = lib
-        _status = {"path": "native", "library": str(so), "build_seconds": seconds,
-                   "reason": "built" if seconds else "already built"}
+        with profiling.setup_span("setup.native"):
+            so = library_path()
+            cxx = _compiler()
+            seconds = 0.0
+            if not so.exists():
+                if cxx is None:
+                    _status = {"path": "numpy", "library": None, "build_seconds": 0.0,
+                               "reason": "no C++ compiler (g++) found"}
+                    _announce(_status)
+                    return None
+                BUILD_DIR.mkdir(parents=True, exist_ok=True)
+                t0 = time.perf_counter()
+                with open(BUILD_DIR / "lock", "w") as lock:
+                    fcntl.flock(lock, fcntl.LOCK_EX)
+                    if not so.exists():
+                        _build(cxx, so)
+                        seconds = time.perf_counter() - t0
+            lib = ctypes.CDLL(str(so))
+            for name, (args, res) in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = list(args)
+                fn.restype = res
+            _lib = lib
+            _status = {"path": "native", "library": str(so), "build_seconds": seconds,
+                       "reason": "built" if seconds else "already built"}
         _announce(_status)
         return lib
 

@@ -9,7 +9,8 @@ tests/fixtures/strided.gltf):
 - kernel_build_s: kernels.load() on the card. "cold" builds the library
   into an empty temporary directory that the probe points kernels.BUILD_DIR
   at; "warm" loads the one under build/kernels/ (building it only if it is
-  missing; nvcc_s, from kernels.build_seconds, is then 0.0). Null on the CPU;
+  missing; nvcc_s, the set-up span setup.nvcc, is then 0.0). Null on the
+  CPU;
 - load_gltf_s: load_gltf of the fixture (parse, accessors, the embedded
   texture decode) and the vertex library build;
 - atlas_s: build_atlas_plan and realize_atlas of its registry, synced;
@@ -50,6 +51,7 @@ def main(mode: str = "warm", device="cuda", width: int = 1280,
     import renderer_tpu_torch as rt
     from renderer_tpu_torch import kernels
     from renderer_tpu_torch.core import math3d
+    from renderer_tpu_torch.engine import profiling
     from renderer_tpu_torch.interop import resolve_device
     from renderer_tpu_torch.materials import atlas_device
 
@@ -80,7 +82,7 @@ def main(mode: str = "warm", device="cuda", width: int = 1280,
             else:
                 kernels.load()
             out["kernel_build_s"] = time.perf_counter() - t0
-            out["nvcc_s"] = kernels.build_seconds
+            out["nvcc_s"] = profiling.setup_seconds("setup.nvcc")
 
         t0 = time.perf_counter()
         registry, builder = rt.MaterialRegistry(), rt.VertexLibraryBuilder()

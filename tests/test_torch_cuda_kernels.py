@@ -38,6 +38,7 @@ from renderer_tpu_torch.raster import (
     binning,
     candidates,
     layers,
+    pipeline,
     raster_kernel,
     setup,
     shade,
@@ -109,10 +110,10 @@ def test_k1_kernel_equals_plain(cuda, msaa):
     b, s, c, h, w = soup_bins(cuda)
     kw = dict(padded_height=h, padded_width=w,
               sample_positions=STANDARD_SAMPLE_POSITIONS[msaa])
-    before = raster_kernel.launches
+    before = pipeline.launch_counts()["k1"]
     z, t = raster_kernel.rasterize_binned(b, s[0], c[0], **kw)
     torch.cuda.synchronize()
-    assert raster_kernel.launches == before + 1
+    assert pipeline.launch_counts()["k1"] == before + 1
     pz, pt = raster_kernel.rasterize_binned_plain(b, s[0], c[0], **kw)
     assert (t >= 0).float().mean() > 0.2
     assert _bits_equal(t, pt) and _bits_equal(z, pz)
@@ -127,11 +128,11 @@ def test_k2_kernel_equals_plain(cuda, mode, msaa, n_layers):
               sample_positions=STANDARD_SAMPLE_POSITIONS[msaa])
     floor, _ = raster_kernel.rasterize_binned(b, s[0], c[0], **kw)
     cls = 1 if mode == "masked" else 2
-    before = layers.launches[mode]
+    before = pipeline.launch_counts()[mode]
     out = layers.rasterize_layers(b, s[cls], c[cls], floor, mode=mode,
                                   n_layers=n_layers, **kw)
     torch.cuda.synchronize()
-    assert layers.launches[mode] == before + 1
+    assert pipeline.launch_counts()[mode] == before + 1
     ref = layers.rasterize_layers_plain(b, s[cls], c[cls], floor, mode=mode,
                                         n_layers=n_layers, **kw)
     assert int(ref[2].max()) > 1
@@ -188,11 +189,11 @@ def test_k2_ui_launch_exact(cuda, case, n_layers, msaa):
     b, s, c, ov = ui_stage.bin_ui(ui, config=cfg, local_tiles_y=cfg.tiles_y,
                                   tile_row_offset=0, n_samples=msaa)
     assert int(ov) == 0
-    before = layers.launches["ui"]
+    before = pipeline.launch_counts()["ui"]
     lt, _ov, aux = ui_stage.rasterize_ui(ui, config=cfg, local_tiles_y=cfg.tiles_y,
                                          tile_row_offset=0, sample_positions=spos)
     torch.cuda.synchronize()
-    assert layers.launches["ui"] == before + 1
+    assert pipeline.launch_counts()["ui"] == before + 1
     floor = torch.zeros((msaa, cfg.padded_height, cfg.padded_width), device=cuda)
     kw = dict(mode="blended", n_layers=n_layers, padded_height=cfg.padded_height,
               padded_width=cfg.padded_width, sample_positions=spos)
@@ -248,9 +249,9 @@ def test_renderer_on_card_matches_goldens(cuda, case):
         msaa = 4 if case == "triangle-msaa4" else 1
         cfg, mode = trt.RenderConfig(width=160, height=96, msaa_samples=msaa), 3
     r = trt.Renderer(registry, cfg, device=cuda)
-    before = shade.launches["shade"]
+    before = pipeline.launch_counts()["shade"]
     img = r.render_frame(scene, mode)
-    assert shade.launches["shade"] > before
+    assert pipeline.launch_counts()["shade"] > before
     expected = np.load(GOLDEN)[case]
     diff = np.abs(img.astype(int) - expected.astype(int)).max(axis=-1)
     assert (diff > 2).mean() < 0.005
@@ -310,14 +311,14 @@ def test_eager_frame_syncs_nowhere(cuda):
     r.render_frame(scene)
     r.overflow_policy = "off"  # "auto" and "sync" read stats on the host
     torch.cuda.synchronize()
-    before = dict(shade.launches)
+    before = {k: pipeline.launch_counts()[k] for k in shade.LAUNCHES}
     torch.cuda.set_sync_debug_mode("error")
     try:
         img = r.render_frame_device(scene)
     finally:
         torch.cuda.set_sync_debug_mode(0)
     assert img.shape == (96, 160, 3) and img.device.type == "cuda"
-    assert all(shade.launches[k] > before[k] for k in before), shade.launches
+    assert all(pipeline.launch_counts()[k] > before[k] for k in before), pipeline.launch_counts()
 
 
 def test_graph_replays_equal_eager_frames(cuda):
@@ -349,7 +350,9 @@ def test_replays_add_the_capture_launch_counts(cuda):
                                        "cand_merge": 1, "cand_resolve": 1, "setup": 1,
                                        "bin_spans": 1, "bin_rows": 1, "bin_pairs": 1,
                                        "bin_scan": 1, "bin_scatter": 1}
+    assert graph.replay_ms() == []  # the tracer was off: no timing events
     before = pipeline.launch_counts()
+    r.profiler = trt.Profiler(enabled=True)  # attached: the tracer is on
     r.render_frames_device(scenes + scenes[:1])
     assert r.frame_graphs.graph is graph
     after = pipeline.launch_counts()
@@ -640,7 +643,7 @@ def test_s1_compaction_bit_equal(cuda, coverage, dtype):
     mats = _random_atlas(mats, seed=5)
     tid = _coverage_tid(coverage, geom["tri_v"].shape[0]).to(cuda)
     row0 = torch.full((COVERAGE_SHAPE[1], 1), 3.0, device=cuda)
-    before = shade.launches["shade"]
+    before = pipeline.launch_counts()["shade"]
     for mode in range(7):
         fr = dict(frame)
         fr["debug_mode"] = torch.full((), mode, dtype=torch.int32, device=cuda)
@@ -656,7 +659,7 @@ def test_s1_compaction_bit_equal(cuda, coverage, dtype):
             _assert_bits_equal(replayed, want, what + " replayed")
             if coverage == "none":
                 assert not eager[0].any()
-    assert shade.launches["shade"] > before
+    assert pipeline.launch_counts()["shade"] > before
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -811,9 +814,9 @@ def test_s3c_fused_composite_bit_equal(cuda, coverage, tri0, ui_msaa):
     want = [t.clone() for t in inputs]
     ui_stage.shade_composite_ui_plain(want, lt, ui, mats, row0=row0)
     got = [t.clone() for t in inputs]
-    before = ui_stage.composite_launches
+    before = pipeline.launch_counts()["ui_composite"]
     ui_stage.shade_composite_ui(got, lt, ui, mats, config=None, row0=row0)
-    assert ui_stage.composite_launches == before + 1
+    assert pipeline.launch_counts()["ui_composite"] == before + 1
     _assert_bits_equal(tuple(got), tuple(want), f"{coverage} {tri0} eager")
 
     from renderer_tpu_torch.raster.pipeline import CapturedGraph
@@ -843,10 +846,10 @@ def test_s3_every_element_bit_equal(cuda, coverage, tri0):
     ui, mats, row0 = _ui_inputs(cuda, tri0)
     lt = _ui_layers(coverage, (4,), ui["tris"].shape[0]).to(cuda)
     want = ui_stage.shade_ui_layer_plain(lt, ui, mats, row0=row0)
-    before = ui_stage.launches
+    before = pipeline.launch_counts()["ui_shade"]
     eager, replayed = _eager_and_replayed(
         cuda, lambda: ui_stage.shade_ui_layer(lt, ui, mats, config=None, row0=row0))
-    assert ui_stage.launches > before
+    assert pipeline.launch_counts()["ui_shade"] > before
     _assert_bits_equal(eager, want, f"{coverage} {tri0} eager")
     _assert_bits_equal(replayed, want, f"{coverage} {tri0} replayed")
 
@@ -956,9 +959,9 @@ def _assert_candidates_equal(calls, what: str) -> None:
     from renderer_tpu_torch.tools.candidate_check import compare, run_candidates
 
     for i, (kind, args, kw) in enumerate(calls):
-        before = candidates.launches[CANDIDATE_COUNTERS[kind]]
+        before = pipeline.launch_counts()[CANDIDATE_COUNTERS[kind]]
         got = run_candidates(kind, args, kw, plain=False)
-        assert candidates.launches[CANDIDATE_COUNTERS[kind]] == before + 1
+        assert pipeline.launch_counts()[CANDIDATE_COUNTERS[kind]] == before + 1
         want = run_candidates(kind, args, kw, plain=True)
         counts = compare(got, want)
         assert counts["differing"] == 0, (what, i, kind, counts)
@@ -989,7 +992,7 @@ def test_candidate_kernels_raise_past_their_limits(cuda):
     """129 slots, 24 candidates, 9 solid candidates and non-contiguous
     inputs raise ValueError before any launch."""
     z = torch.zeros((129, 8, 8), dtype=torch.int32, device=cuda)
-    before = dict(candidates.launches)
+    before = {k: pipeline.launch_counts()[k] for k in candidates.LAUNCHES}
     with pytest.raises(ValueError):
         candidates.extract_candidates(z, 4)
     with pytest.raises(ValueError):
@@ -1013,7 +1016,7 @@ def test_candidate_kernels_raise_past_their_limits(cuda):
     with pytest.raises(ValueError):
         candidates.resolve(z[:4], z[:4], torch.zeros((4, 8, 8, 4), device=cuda), clamp,
                            lt, z[:24], torch.zeros((24, 8, 8, 4), device=cuda))
-    assert candidates.launches == before
+    assert {k: pipeline.launch_counts()[k] for k in candidates.LAUNCHES} == before
 
 
 def test_merge_info_on_the_card(cuda):
@@ -1370,10 +1373,10 @@ def test_f1_takes_tri_v_views_and_refuses_a_misaligned_clip(cuda):
     buf[1:] = clip.reshape(-1)
     shifted = buf[1:].view(-1, 4)
     assert shifted.is_contiguous() and shifted.data_ptr() % 16
-    before = setup.launches["setup"]
+    before = pipeline.launch_counts()["setup"]
     with pytest.raises(ValueError, match="16-byte aligned"):
         setup.triangle_setup(shifted, tri_v, num64, inp["width"], inp["height"])
-    assert setup.launches["setup"] == before
+    assert pipeline.launch_counts()["setup"] == before
     got = setup.triangle_setup(shifted.clone(), tri_v, num64, inp["width"], inp["height"])
     want = setup.triangle_setup_plain(clip, tri_v, num64, inp["width"], inp["height"])
     assert _bits_equal(got, want)

@@ -27,6 +27,7 @@ from renderer_tpu.raster import vertex_stage as jvs
 from renderer_tpu.scene import draw_stream as jds
 from renderer_tpu_torch.interop import from_numpy_arrays
 from renderer_tpu_torch.raster import layers as tlayers
+from renderer_tpu_torch.raster import pipeline as tpipeline
 from renderer_tpu_torch.raster import raster_kernel as trk
 from renderer_tpu_torch.raster.pipeline import STANDARD_SAMPLE_POSITIONS
 from tests.torch_parity import host_inputs
@@ -201,12 +202,12 @@ def test_cpu_tensors_take_the_plain_version(bins):
     kw = dict(padded_height=bins["hp"], padded_width=bins["wp"], tile_h=TILE_H,
               tile_w=TILE_W)
     b, s, c = bins["torch"]
-    k1, k2 = trk.launches, dict(tlayers.launches)
+    before = tpipeline.launch_counts()
     z, t = trk.rasterize_binned(b, s[0], c[0], **kw)
     pz, pt = trk.rasterize_binned_plain(b, s[0], c[0], **kw)
     out = tlayers.rasterize_layers(b, s[2], c[2], z, mode="blended", n_layers=2, **kw)
     ref = tlayers.rasterize_layers_plain(b, s[2], c[2], z, mode="blended",
                                          n_layers=2, **kw)
-    assert trk.launches == k1 and tlayers.launches == k2
+    assert tpipeline.launch_counts() == before
     assert z.equal(pz) and t.equal(pt)
     assert all(x.equal(y) for x, y in zip(out, ref))

@@ -24,6 +24,7 @@ import jax.numpy as jnp
 import renderer_tpu as jrt
 from renderer_tpu.raster import ui_stage as jstage
 from renderer_tpu_torch.interop import from_numpy_arrays
+from renderer_tpu_torch.raster import pipeline
 from renderer_tpu_torch.raster import ui_stage as tstage
 from renderer_tpu_torch.raster.pipeline import STANDARD_SAMPLE_POSITIONS
 from tests import torch_parity  # noqa: F401 — one torch thread a worker
@@ -101,11 +102,11 @@ def test_composite_matches_jax(perf_case, ui_msaa):
                                      config=jcfg, row0=jnp.asarray(row0))
     want = [np.asarray(h) for h in _loop([jnp.asarray(h) for h in hdr], jrgb, ja)]
     got = [torch.from_numpy(h.copy()) for h in hdr]
-    before = tstage.composite_launches
+    before = pipeline.launch_counts()["ui_composite"]
     tstage.shade_composite_ui(got, tlt, from_numpy_arrays(packed, device="cpu"),
                               from_numpy_arrays(mats, device="cpu"), config=tcfg,
                               row0=torch.from_numpy(row0))
-    assert tstage.composite_launches == before  # the plain version launches nothing
+    assert pipeline.launch_counts()["ui_composite"] == before  # the plain version launches nothing
     live = np.asarray(ja).max(axis=-3) > 0  # [.., H, W]: a live layer covers the pixel
     assert live.sum() > 1000
     for s, (g, w) in enumerate(zip(got, want, strict=True)):
