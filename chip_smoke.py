@@ -1612,8 +1612,9 @@ def shade_work(counter, args, kw, outs, tensors: dict) -> tuple[int, int]:
     pixel)s only (115 operations of perspective interpolation, then the
     samples of its debug mode with the channels each uses, S1_CHANNELS —
     lit: base colour 4, emissive 3, occlusion 1, normal 3, so 11 — and 60
-    of lighting when lit); S2 every (candidate, pixel) (interpolation and
-    one sample of one channel, alpha); S3 every (layer, pixel) (70 of
+    of lighting when lit); S2 covered (candidate, pixel)s only too
+    (interpolation and one sample of one channel, alpha), as
+    benchmark/work/shade.py counts it; S3 every (layer, pixel) (70 of
     affine interpolation and the clip test, one trilinear sample of four
     channels, decoded after the filter). Adds the call's input tensors to
     `tensors` (address → bytes; the recorded calls hold them, so each is
@@ -1662,13 +1663,13 @@ def shade_work(counter, args, kw, outs, tensors: dict) -> tuple[int, int]:
         ops, taps = sampler_work(lt.numel(), int(slot_srgb.sum()), True, 1, False)
         return ops + lt.numel() * 70, taps
     tid = args[0]
+    n = int((tid >= 0).sum())
     if counter == "s1":
         mode = int(args[4]["debug_mode"])
         lit = mode not in S1_CHANNELS
         channels = S1_LIT_CHANNELS if lit else S1_CHANNELS[mode]
-        n = int((tid >= 0).sum())
     else:
-        lit, channels, n = False, (1,), tid.numel()
+        lit, channels = False, (1,)
     ops, taps = n * (115 + (60 if lit else 0)), 0
     for c in channels:
         o, t = sampler_work(n, 0, kw["trilinear"], kw["aniso"], kw["srgb_per_tap"], c)
@@ -1799,13 +1800,19 @@ def shading_rows(scene, renderer, sc, ui, main_launches, card) -> list:
             library_ms=None, launches_per_frame=None, operations=ops, bytes=n_bytes,
             texel_taps=taps, resources=res, scene=scene, counter=counter)
         row["share"] = row["bound_ms"] / row["ms"]
+        covered = ""
+        if counter == "s2":  # the share of the elements S2 was given that it shades
+            tids = [a[0] for a, _ in mine]
+            row["s2_covered_share"] = (sum(int((t >= 0).sum()) for t in tids)
+                                       / sum(t.numel() for t in tids))
+            covered = f", s2_covered_share {row['s2_covered_share']:.4f}"
         print(f"kernel: {row['name']}: vs plain max_abs_err {row['max_abs_err']:.3e}, "
               f"{counts['differing']} of {counts['values']} values differ in bits, "
               f"{counts['over_fine']} by more than 2^-18, {counts['nan']} NaN | "
               f"{row['ms']:.3f} ms (queued {row['ms_queued']:.3f}) vs plain "
               f"{plain_ms:.1f} ms | bound {row['bound_ms']:.4f} ms ({row['bound_by']}: "
               f"{ops / 1e9:.2f} GFLOP, {n_bytes / 1e6:.1f} MB, {taps / 1e9:.3f} G texel "
-              f"taps), share {row['share']:.1%} ({row['bound_ms'] / row['ms_queued']:.1%} "
+              f"taps{covered}), share {row['share']:.1%} ({row['bound_ms'] / row['ms_queued']:.1%} "
               f"queued) | {res['registers']} registers, spills {res['spill_stores']} B "
               f"stored / {res['spill_loads']} B loaded, {res['local_bytes']} B local, "
               f"{res['shared_bytes']} B shared a block, {res['blocks_per_sm']} blocks an "
@@ -2127,7 +2134,8 @@ def phase12(dev, card, main_launches, frame_ms) -> tuple[list, dict]:
         print(f"shading: profiled eager frame {name}: {p['kernels_and_copies']} kernels "
               f"and copies (loops as torch ops: {was_n}), device busy "
               f"{p['device_busy_ms']:.2f} ms (loops as torch ops: {was_ms:.2f}) of "
-              f"{p['profiled_frame_ms']:.2f} ms | {own} | top ops "
+              f"{p['profiled_frame_ms']:.2f} ms | {own} (S2 covered share "
+              f"{p['own_kernels']['S2']['covered_share']}) | top ops "
               f"{[(k, round(ms, 3), n) for k, ms, n in p['top_ops_device_ms'][:6]]} "
               f"| traffic {p['traffic']} | {card}", flush=True)
     print(f"phase 12 took {out['seconds']:.1f} s", flush=True)

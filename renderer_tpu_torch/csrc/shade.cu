@@ -48,10 +48,21 @@
 // conflicts. A persistent block fills it once.
 //
 // S2 design. base_alpha needs the alpha channel alone, which is never
-// decoded: S2 samples that one channel with the byte's value in registers,
-// one element a thread, and uses no shared memory (its carveout is set to
-// the minimum, leaving L1 to the atlas). Every element is computed,
-// background included: the plain version does not mask base_alpha.
+// decoded: S2 samples that one channel with the byte's value in registers.
+// Its stack is the masked pass's candidates, whose deeper planes are almost
+// all empty (on the patch wall at 1080p, 16 masked layers, about 4% of its
+// (candidate, pixel)s are covered), and no later step reads an uncovered
+// element's alpha or cutoff (C2 gathers only the candidates that a live
+// slot, whose id is >= 0, matches). So S2 takes S1's design: persistent
+// blocks walk rounds b, b + grid, ... of 256 consecutive elements, write
+// the uncovered ones' alpha and cutoff +0 coalesced (the plain version
+// masks to the same +0), queue the covered ones in order in shared memory
+// and sample them 256 at a time, so its time follows the covered elements
+// and not the configured planes. A round's tids are loaded while the round
+// before it is scanned and sampled, and a round covered whole while nothing
+// waits is sampled in place. Its queue is its only shared memory: its
+// carveout is the smallest that holds it at the blocks an SM its registers
+// allow, leaving the rest of each SM to L1 and the atlas.
 //
 // S3 and the fused S3 design. A UI layer is live (covered, inside its clip
 // rect, of a textured kind) only under the UI's windows, a small part of
@@ -81,12 +92,14 @@ __device__ __forceinline__ float4 ldg_row4(const float* p, long long i) {
 }
 
 // S1's consecutive elements a block takes at once, and the blocks an SM
-// its __launch_bounds__ asks registers for (3: 80 registers; 1 gives 96
-// and 2 blocks, 4 spills; both slower on scenes B and C). Measured with
-// tools/shade_probe.py, which builds other values.
+// the __launch_bounds__ of S1 and S2 ask registers for (S1 3: 80 registers;
+// 1 gives 96 and 2 blocks, 4 spills; both slower on scenes B and C. S2 1:
+// 62 registers, 4 blocks; 5 and 6 spill, and were slower on B and C).
+// Measured with tools/shade_probe.py, which builds other values.
 constexpr int SPAN = 256;
 constexpr int S1_MIN_BLOCKS = 3;
-constexpr int QUEUE = 2 * THREADS;  // S1: covered elements waiting (< 2 rounds)
+constexpr int S2_MIN_BLOCKS = 1;
+constexpr int QUEUE = 2 * THREADS;  // S1, S2: covered elements waiting (< 2 rounds)
 static_assert(SPAN % THREADS == 0, "a span is whole rounds of the block");
 
 // S1's shade of one covered element e (its tid >= 0)
@@ -264,25 +277,76 @@ __global__ void __launch_bounds__(THREADS, S1_MIN_BLOCKS) shade_kernel(const Sha
   }
 }
 
-// S2: one element a thread, the alpha channel alone, no shared memory
+// S2's alpha and cutoff of one covered element e (its tid >= 0)
 template <bool BF>
-__global__ void __launch_bounds__(THREADS) alpha_kernel(const ShadeArgs A) {
-  const long long n = A.n_cand * A.h * A.w;
-  const long long idx = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
-  if (idx >= n) return;
-  const int x = static_cast<int>(idx % A.w);
-  const int y = static_cast<int>((idx / A.w) % A.h);
-  // every pixel is computed, background included (the plain version does
-  // not mask base_alpha; background pixels shade triangle 0)
-  const Interp it = interpolate(A, __ldg(A.tid + idx), x, y);
+__device__ __forceinline__ void alpha_one(const ShadeArgs& A, long long e) {
+  const int x = static_cast<int>(e % A.w);
+  const int y = static_cast<int>((e / A.w) % A.h);
+  const Interp it = interpolate(A, __ldg(A.tid + e), x, y);
   const long long draw = row_idx(it.draw, A.n_draws);
   const long long mat = row_idx(__ldg(A.material_id + draw * A.mat_stride), A.n_mats);
   const LaneBytes<BF> by{nullptr, 0};  // alpha is stored linear: raw values only
   const float4 s = sample<BF, false, CH_A>(atlas_of(A), by, __ldg(A.tex_indices + 5 * mat),
                                            it.u, it.v_, it.dxu, it.dxv, it.dyu, it.dyv,
                                            A.trilinear != 0, A.aniso);
-  A.out[idx] = s.w * __ldg(A.base_color_factor + 4 * mat + 3);
-  A.out2[idx] = __ldg(A.arm + 4 * mat);
+  A.out[e] = s.w * __ldg(A.base_color_factor + 4 * mat + 3);
+  A.out2[e] = __ldg(A.arm + 4 * mat);
+}
+
+// S2: persistent blocks, covered elements compacted in order (see the top).
+// Block b walks rounds b, b + grid, ... of THREADS consecutive elements; a
+// round's tids are loaded while the round before it is scanned and shaded.
+// A round covered whole while nothing waits is shaded in place.
+template <bool BF>
+__global__ void __launch_bounds__(THREADS, S2_MIN_BLOCKS) alpha_kernel(const ShadeArgs A) {
+  __shared__ long long queue[QUEUE];
+  __shared__ int warp_n[THREADS / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const long long n = A.n_cand * A.h * A.w;
+  const long long step = static_cast<long long>(gridDim.x) * THREADS;
+  int head = 0, tail = 0;  // the queue's read and write counts (the same in every thread)
+  long long e = static_cast<long long>(blockIdx.x) * THREADS + threadIdx.x;
+  bool scanning = e - threadIdx.x < n;  // the block has a round left
+  int t = e < n ? __ldg(A.tid + e) : -1;
+  for (;;) {
+    if (scanning) {  // one round: THREADS consecutive elements
+      const bool covered = t >= 0;
+      if (!covered && e < n) {
+        A.out[e] = 0.0f;
+        A.out2[e] = 0.0f;
+      }
+      const unsigned m = __ballot_sync(0xffffffffu, covered);
+      __syncthreads();  // the last shading has read the queue, and warp_n
+      if (lane == 0) warp_n[warp] = __popc(m);
+      __syncthreads();
+      int before = 0, total = 0;
+#pragma unroll
+      for (int i = 0; i < THREADS / 32; ++i) {
+        const int k = warp_n[i];
+        before += i < warp ? k : 0;
+        total += k;
+      }
+      const long long here = e;
+      e += step;
+      scanning = e - threadIdx.x < n;
+      t = scanning && e < n ? __ldg(A.tid + e) : -1;  // the next round's, in flight
+      if (total == THREADS && head == tail) {  // covered whole, nothing waiting
+        alpha_one<BF>(A, here);
+        continue;
+      }
+      if (covered) queue[(tail + before + __popc(m & ((1u << lane) - 1u))) % QUEUE] = here;
+      tail += total;
+    }
+    // shade a full round of queued elements, and what is left at the end
+    if (tail - head < (scanning ? THREADS : 1)) {
+      if (scanning) continue;
+      break;
+    }
+    __syncthreads();  // the queue's writes are seen
+    if (head + static_cast<int>(threadIdx.x) < tail)
+      alpha_one<BF>(A, queue[(head + threadIdx.x) % QUEUE]);
+    head = min(head + THREADS, tail);
+  }
 }
 
 // ---- S3 and the fused S3: imgui.frag at pixel centres --------------------
@@ -576,8 +640,9 @@ inline unsigned blocks_for(long long n) {
 
 namespace {
 
-// The grid of S1 (persistent blocks) and the launch attributes, found once
-// a device and kernel: SMs x the blocks an SM holds at THREADS threads.
+// The grid of S1 and S2 (persistent blocks) and the launch attributes,
+// found once a device and kernel: SMs x the blocks an SM holds at THREADS
+// threads.
 struct Occupancy {
   int blocks_per_sm = 0, sms = 0;
 };
@@ -614,10 +679,27 @@ cudaError_t s2_occupancy(Occupancy* out) {
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess && dev >= 0 && dev < 64 && !carveout[dev]) {
-    // S2 uses no shared memory: leave the most of each SM's 256 KB to L1
-    err = cudaFuncSetAttribute(rs::alpha_kernel<BF>,
-                               cudaFuncAttributePreferredSharedMemoryCarveout,
-                               cudaSharedmemCarveoutMaxL1);
+    // S2's queue is its only shared memory: the smallest carveout that
+    // holds it at the blocks an SM its registers allow (found under the
+    // default carveout), leaving the rest of each SM's 256 KB to L1
+    cudaFuncAttributes fa;
+    int per_sm = 0, reserved = 0, blocks = 0;
+    err = cudaFuncGetAttributes(&fa, rs::alpha_kernel<BF>);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+    if (err == cudaSuccess)
+      err = cudaDeviceGetAttribute(&reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
+    if (err == cudaSuccess)
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, rs::alpha_kernel<BF>,
+                                                          rs::THREADS, 0);
+    if (err == cudaSuccess) {
+      const long long need =
+          static_cast<long long>(blocks) * (static_cast<long long>(fa.sharedSizeBytes) + reserved);
+      const long long pct = std::min(100LL, (need * 100 + per_sm - 1) / std::max(per_sm, 1));
+      err = cudaFuncSetAttribute(rs::alpha_kernel<BF>,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 static_cast<int>(pct));
+    }
     carveout[dev] = err == cudaSuccess;
   }
   if (err != cudaSuccess) return err;
@@ -631,17 +713,16 @@ template <bool BF, bool PT>
 cudaError_t launch_shade(const rs::ShadeArgs& a, cudaStream_t st, bool alpha) {
   const long long n = a.n_cand * a.h * a.w;
   Occupancy o;
+  cudaError_t err = alpha ? s2_occupancy<BF>(&o) : s1_occupancy<BF, PT>(&o);
+  if (err != cudaSuccess) return err;
+  const long long grain = alpha ? rs::THREADS : rs::SPAN;  // S2 deals rounds, S1 spans
+  const long long blocks = (n + grain - 1) / grain;
+  const unsigned grid = static_cast<unsigned>(
+      std::min(blocks, static_cast<long long>(o.sms) * std::max(o.blocks_per_sm, 1)));
   if (alpha) {
-    cudaError_t err = s2_occupancy<BF>(&o);
-    if (err != cudaSuccess) return err;
-    rs::alpha_kernel<BF><<<rs::blocks_for(n), rs::THREADS, 0, st>>>(a);
+    rs::alpha_kernel<BF><<<grid, rs::THREADS, 0, st>>>(a);
   } else {
-    cudaError_t err = s1_occupancy<BF, PT>(&o);
-    if (err != cudaSuccess) return err;
-    const long long spans = (n + rs::SPAN - 1) / rs::SPAN;
-    const long long grid = std::min(spans, static_cast<long long>(o.sms) *
-                                               std::max(o.blocks_per_sm, 1));
-    rs::shade_kernel<BF, PT><<<static_cast<unsigned>(grid), rs::THREADS, 0, st>>>(a);
+    rs::shade_kernel<BF, PT><<<grid, rs::THREADS, 0, st>>>(a);
   }
   return cudaGetLastError();
 }
@@ -685,7 +766,7 @@ int kernel_info(K kernel, const Occupancy& o, long long grid_cap, long long* out
 // out[0..5] = registers a thread, local bytes a thread (stack frame and
 // spills), static shared bytes a block, blocks an SM (the occupancy the
 // launches use), SMs, and the most blocks a launch of a persistent kernel
-// (S1, the fused S3; 0 for S2 and S3, whose grid is one thread an element).
+// (S1, S2, the fused S3; 0 for S3, whose grid is one thread an element).
 extern "C" int rt_shade_info(int kernel, int bf16, int per_tap, long long* out) {
   Occupancy o;
   cudaError_t err = cudaSuccess;
@@ -707,8 +788,9 @@ extern "C" int rt_shade_info(int kernel, int bf16, int per_tap, long long* out) 
   if (kernel == 2) {
     err = bf16 ? s2_occupancy<true>(&o) : s2_occupancy<false>(&o);
     if (err != cudaSuccess) return static_cast<int>(err);
-    return bf16 ? kernel_info(rs::alpha_kernel<true>, o, 0, out)
-                : kernel_info(rs::alpha_kernel<false>, o, 0, out);
+    const long long cap = static_cast<long long>(o.sms) * std::max(o.blocks_per_sm, 1);
+    return bf16 ? kernel_info(rs::alpha_kernel<true>, o, cap, out)
+                : kernel_info(rs::alpha_kernel<false>, o, cap, out);
   }
   if (kernel == 3) {
     err = occupancy(rs::ui_kernel, s3_occupancy_cache, &o);

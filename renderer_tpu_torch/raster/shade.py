@@ -492,10 +492,15 @@ def shade_stack_plain(tid, row0, geom, vs, frame, materials, *, width: int,
 def alpha_stack_plain(tid, row0, geom, vs, frame, materials, *, width: int,
                       height: int, trilinear: bool = True, aniso: int = 1,
                       srgb_per_tap: bool = False, compute_dtype=torch.float32):
-    """Plain version of S2: base_alpha over interpolants."""
+    """Plain version of S2: base_alpha over interpolants at the covered
+    elements (tid >= 0), +0.0 alpha and cutoff at the others, whose values
+    no later step reads (the masked merge uses a candidate's values only
+    where a live slot, whose id is >= 0, matches it)."""
     it = interpolants(tid, geom, vs, width=width, height=height, row0=row0)
-    return base_alpha(it, frame, materials, trilinear, aniso, srgb_per_tap,
-                      compute_dtype)
+    alpha, cutoff = base_alpha(it, frame, materials, trilinear, aniso, srgb_per_tap,
+                               compute_dtype)
+    covered = tid >= 0
+    return torch.where(covered, alpha, 0.0), torch.where(covered, cutoff, 0.0)
 
 
 def check_tensor(name: str, t: torch.Tensor, dtype, shape: tuple | None = None,
@@ -632,10 +637,11 @@ def alpha_stack(tid, row0, geom, vs, frame, materials, *, width: int,
                 height: int, trilinear: bool = True, aniso: int = 1,
                 srgb_per_tap: bool = False, compute_dtype=torch.float32):
     """Masked alpha test inputs of a candidate stack: (alpha, cutoff), each
-    [..., h, w] f32, at every pixel (background pixels evaluate triangle 0,
-    as the plain version does). CPU tensors run alpha_stack_plain; CUDA
-    tensors launch S2 (csrc/shade.cu), which replaces the JAX package's
-    XLA-fused base_alpha (renderer_tpu/raster/shade.py:312)."""
+    [..., h, w] f32, base_alpha's at the covered elements (tid >= 0) and
+    +0.0 at the others. CPU tensors run alpha_stack_plain; CUDA tensors
+    launch S2 (csrc/shade.cu), which replaces the JAX package's XLA-fused
+    base_alpha (renderer_tpu/raster/shade.py:312): persistent blocks that
+    sample only the covered elements, as S1 does."""
     kw = dict(width=width, height=height, trilinear=trilinear, aniso=aniso,
               srgb_per_tap=srgb_per_tap, compute_dtype=compute_dtype)
     return _dispatch("alpha", alpha_stack_plain, tid, row0, geom, vs, frame,

@@ -15,6 +15,9 @@ kernels C1-C3 (csrc/candidates.cu) and the front end's F1-F4
 (csrc/frontend.cu); and the UI pass of the
 frame's own DrawList, piece by piece (`ui_pass_ms`): its raster (bin + K2's
 UI launch) and the fused S3 (shade and composite, the pipeline's call).
+S2's entry gives `covered_share`, the covered elements (tid >= 0) over
+the elements of the stacks the frame gave it, the share S2 shades (None
+where the frame makes no S2 call).
 The profiled frame's traffic comes with them (`traffic`: its host→device
 uploads and bytes, device→host reads and bytes, and capacity grows and
 shrinks, from profiling.COUNTERS; a steady frame grows and shrinks
@@ -37,6 +40,7 @@ from renderer_tpu_torch.engine.stats import SPIN_CYCLES, card_line, held_stream
 from renderer_tpu_torch.interop import from_numpy_arrays
 from renderer_tpu_torch.raster import ui_stage
 from renderer_tpu_torch.raster.pipeline import STANDARD_SAMPLE_POSITIONS
+from renderer_tpu_torch.tools.shade_check import recorded_shading
 
 W, H = 1920, 1080
 
@@ -90,11 +94,13 @@ def profile_frame(renderer, scene, ui=None) -> dict:
     the summed device time of its kernels and copies (device-side events
     only) and their count, the ten PyTorch ops with the most device time,
     each hand-written kernel's device ms, launches and share of the busy
-    time, and the frame's traffic (profiling.TRAFFIC counters)."""
+    time (S2's with its covered share), and the frame's traffic
+    (profiling.TRAFFIC counters)."""
     e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     before = {k: profiling.COUNTERS[k] for k in profiling.TRAFFIC}
-    with torch.profiler.profile(activities=acts) as prof:
+    with recorded_shading(kinds=("S2",)) as s2_calls, \
+            torch.profiler.profile(activities=acts) as prof:
         e0.record()
         renderer.render_frame_device(scene, 0, ui=ui)
         e1.record()
@@ -117,6 +123,9 @@ def profile_frame(renderer, scene, ui=None) -> dict:
         ms = sum(e.self_device_time_total for e in hits) / 1e3
         own[name] = {"device_ms": ms, "launches": sum(e.count for e in hits),
                      "share": ms / busy_ms if busy_ms else 0.0}
+    tids = [args[0] for _, args, _ in s2_calls]
+    own["S2"]["covered_share"] = (sum(int((t >= 0).sum()) for t in tids)
+                                  / sum(t.numel() for t in tids)) if tids else None
     return {
         "profiled_frame_ms": e0.elapsed_time(e1), "device_busy_ms": busy_ms,
         "kernels_and_copies": sum(e.count for e in kernels),

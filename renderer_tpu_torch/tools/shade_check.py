@@ -36,11 +36,13 @@ MAX_ABS, FINE, OVER_SHARE = 2.0**-12, 2.0**-18, 0.001
 
 
 @contextlib.contextmanager
-def recorded_shading():
+def recorded_shading(kinds: tuple | None = None):
     """Yields a list that receives (kind, args, kwargs) of every call made to
-    the entry points inside the block; the calls still run."""
+    the entry points inside the block (those of `kinds` alone, if given);
+    the calls still run."""
     calls = []
-    originals = [getattr(mod, name) for mod, name, _ in ENTRY_POINTS]
+    points = [p for p in ENTRY_POINTS if kinds is None or p[2] in kinds]
+    originals = [getattr(mod, name) for mod, name, _ in points]
 
     def recorder(kind, fn):
         def call(*args, **kw):
@@ -51,12 +53,12 @@ def recorded_shading():
             return fn(*args, **kw)
         return call
 
-    for (mod, name, kind), fn in zip(ENTRY_POINTS, originals):
+    for (mod, name, kind), fn in zip(points, originals):
         setattr(mod, name, recorder(kind, fn))
     try:
         yield calls
     finally:
-        for (mod, name, _), fn in zip(ENTRY_POINTS, originals):
+        for (mod, name, _), fn in zip(points, originals):
             setattr(mod, name, fn)
 
 

@@ -1,12 +1,14 @@
 """Probe of the shading kernels S1 and S2 (csrc/shade.cu) on one NVIDIA GPU.
 
 Builds csrc/shade.cu once for each variant (one constant edited: S1's span
-or the minimum blocks an SM of its __launch_bounds__), and, with
+or the minimum blocks an SM of S1's or S2's __launch_bounds__), and, with
 `--against DIR`, another version's shade.cu (DIR holds its shade.cu and
 shade_common.cuh; the ShadeArgs interface must be the same), in a temporary
 directory with renderer_tpu_torch.kernels' flags. It records every S1 and S2 call of one
-1920×1080 frame of chip_smoke.py's scenes B and C, holds each variant's
-outputs to the plain versions' bit for bit (NaN at the same values), and
+1920×1080 frame of chip_smoke.py's scenes B and C, and B's S2 calls again
+on stacks with every element covered ("B-full", fully_covered), holds each variant's
+outputs to the plain versions' bit for bit (NaN at the same values; of the
+other version's S2, its covered elements: see held), and
 times every variant over the frame's calls in turns (first to last, then
 last to first; CUDA events as issued and queued behind a spin kernel),
 with each build's registers and spills and, where the source has
@@ -48,6 +50,8 @@ VARIANTS = {
     "span1024": ("SPAN", 1024),
     "minblocks1": ("S1_MIN_BLOCKS", 1),
     "minblocks4": ("S1_MIN_BLOCKS", 4),
+    "s2minblocks5": ("S2_MIN_BLOCKS", 5),
+    "s2minblocks6": ("S2_MIN_BLOCKS", 6),
 }
 REPS = 10  # runs of a frame's calls a timing
 
@@ -116,8 +120,27 @@ def differing(got: tuple, want: tuple) -> int:
     return n
 
 
+def fully_covered(tid: torch.Tensor) -> torch.Tensor:
+    """A candidate stack with every element covered: an uncovered element
+    takes the largest id its pixel holds in any plane (triangle 0 where it
+    holds none, as a kernel that shades every element shades there)."""
+    top = tid.amax(0, keepdim=True).clamp(min=0).expand_as(tid)
+    return torch.where(tid >= 0, tid, top).contiguous()
+
+
+def held(name: str, kind: str, args: tuple, out: tuple) -> tuple:
+    """The outputs of build `name` that are held to the plain version: all
+    of them, but of another version's S2 (--against) its covered elements
+    alone, since a version that shades every element gives the uncovered
+    ones values that no later step reads, where alpha_stack_plain gives +0."""
+    if name != "against" or kind != "S2":
+        return out
+    return tuple(torch.where(args[0] >= 0, t, 0.0) for t in out)
+
+
 def scene_calls(dev) -> dict:
-    """{scene: recorded calls} of one 1920×1080 frame of scenes B and C."""
+    """{scene: recorded calls} of one 1920×1080 frame of scenes B and C, and
+    B's S2 calls on fully covered stacks ("B-full")."""
     reg_b, sc_b, cfg_b, pol_b = cs.scene_b()
     frames_c, cfg_c, pol_c = cs.scene_c()
     rb = trt.Renderer(reg_b, cfg_b, overflow_policy=pol_b, device=dev)
@@ -130,6 +153,8 @@ def scene_calls(dev) -> dict:
         with recorded_shading() as calls:
             r.render_frame_device(sc, 0, ui=ui)
         out[name] = [c for c in calls if c[0] in ("S1", "S2")]
+    out["B-full"] = [(kind, (fully_covered(args[0]), *args[1:]), kw)
+                     for kind, args, kw in out["B"] if kind == "S2"]
     torch.cuda.synchronize()
     return out
 
@@ -186,13 +211,15 @@ def main(argv: list[str]) -> int:
         for scene, calls in scene_calls(dev).items():
             for kind in ("S1", "S2"):
                 mine = [(a, k) for c, a, k in calls if c == kind]
+                if not mine:
+                    continue
                 plain = [run_shading(kind, a, k, plain=True) for a, k in mine]
                 torch.cuda.synchronize()
                 times = {n: [] for n in order}
                 for n in order:
                     with using(libs[n]):
-                        diff = sum(differing(run_shading(kind, a, k, plain=False), w)
-                                   for (a, k), w in zip(mine, plain))
+                        diff = sum(differing(held(n, kind, a, run_shading(kind, a, k, plain=False)),
+                                             w) for (a, k), w in zip(mine, plain))
                     if diff != 0:
                         raise RuntimeError(f"{n}: {kind} on {scene}: {diff} values differ")
 

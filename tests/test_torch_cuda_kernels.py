@@ -662,19 +662,37 @@ def test_s1_compaction_bit_equal(cuda, coverage, dtype):
     assert pipeline.launch_counts()["shade"] > before
 
 
+# S2's stacks: _coverage_tid's four, and "deep-planes-empty": the ragged
+# stack's three planes over eight more that are all -2, as the patch wall's
+# masked stack holds past the layers its pixels fill
+S2_COVERAGE = ("none", "one-lane-a-warp", "full", "ragged", "deep-planes-empty")
+
+
+def _s2_tid(coverage: str, n_tris: int) -> torch.Tensor:
+    if coverage != "deep-planes-empty":
+        return _coverage_tid(coverage, n_tris)
+    ragged = _coverage_tid("ragged", n_tris)
+    return torch.cat([ragged, torch.full((8, *ragged.shape[1:]), -2, dtype=torch.int32)])
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_s2_alpha_only_bit_equal(cuda, dtype):
-    """S2 (the alpha channel alone, no shared memory) against
-    alpha_stack_plain bit for bit on sRGB textures, whose alpha must stay
-    linear, with random texels, NaN and infinite UV derivatives and a w = 0
-    vertex, every element (background included) at a count that is not a
-    multiple of 256; both samplers; eagerly and replayed from a captured
-    graph. Cutoffs equal."""
+@pytest.mark.parametrize("coverage", S2_COVERAGE)
+def test_s2_alpha_only_bit_equal(cuda, coverage, dtype):
+    """S2 (persistent blocks that compact the covered elements of each span,
+    the alpha channel alone) against alpha_stack_plain bit for bit at every
+    element, on sRGB textures, whose alpha must stay linear, with random
+    texels, NaN and infinite UV derivatives and a w = 0 vertex: a stack
+    with no covered element, one covered lane in each warp, full cover, a
+    ragged 8% cover and deep planes all -2, at counts that are multiples of
+    neither 256 nor the span; every sampler; eagerly and replayed from a
+    captured graph (outputs pre-filled with NaN). The uncovered elements'
+    alpha and cutoff are +0.0 in bits, in both versions."""
     _tid, _row0, geom, vs, frame, mats, _cfg = _crafted_inputs(cuda, "nan-derivatives")
     mats = _random_atlas(mats, seed=9)
     mats["atlas_srgb"] = torch.ones_like(mats["atlas_srgb"])
-    tid = _coverage_tid("ragged", geom["tri_v"].shape[0]).to(cuda)
-    row0 = torch.zeros((COVERAGE_SHAPE[1], 1), device=cuda)
+    tid = _s2_tid(coverage, geom["tri_v"].shape[0]).to(cuda)
+    row0 = torch.zeros((tid.shape[1], 1), device=cuda)
+    before = pipeline.launch_counts()["alpha"]
     for trilinear, aniso, per_tap in SAMPLERS:
         kw = dict(width=96, height=64, trilinear=trilinear, aniso=aniso,
                   srgb_per_tap=per_tap, compute_dtype=dtype)
@@ -682,25 +700,32 @@ def test_s2_alpha_only_bit_equal(cuda, dtype):
         want = shade.alpha_stack_plain(*args, **kw)
         eager, replayed = _eager_and_replayed(
             cuda, lambda args=args, kw=kw: shade.alpha_stack(*args, **kw))
-        _assert_bits_equal(eager, want, f"{kw} eager")
-        _assert_bits_equal(replayed, want, f"{kw} replayed")
-        assert torch.isnan(want[0]).any() and (want[0][~torch.isnan(want[0])] < 1).any()
+        what = f"{coverage} {kw}"
+        _assert_bits_equal(eager, want, what + " eager")
+        _assert_bits_equal(replayed, want, what + " replayed")
+        for out in (*want, *eager, *replayed):
+            assert not out.view(torch.int32)[tid < 0].any(), what
+        if coverage != "none":
+            a = want[0][tid >= 0]
+            assert torch.isnan(a).any() and (a[~torch.isnan(a)] < 1).any(), what
+    assert pipeline.launch_counts()["alpha"] > before
 
 
 def test_shade_info_on_the_card(cuda):
     """kernels.shade_info: every shading kernel's registers and the blocks
-    an SM its launches assume; S1's grid is SMs × those blocks."""
+    an SM its launches assume; the grid of S1, S2 and the fused S3
+    (persistent blocks) is SMs × those blocks."""
     for kernel, bf16, per_tap in (("s1", False, True), ("s1", True, False),
                                   ("s2", False, False), ("s2", True, False),
                                   ("s3", False, False), ("s3c", False, False)):
         info = kernels.shade_info(kernel, bf16, per_tap)
         assert 0 < info["registers"] <= 255 and info["blocks_per_sm"] >= 1, info
         assert info["sms"] == torch.cuda.get_device_properties(0).multi_processor_count
-        persistent = kernel in ("s1", "s3c")
+        persistent = kernel in ("s1", "s2", "s3c")
         assert info["grid_cap"] == (info["sms"] * info["blocks_per_sm"] if persistent else 0)
-        # S2 and S3 sample with the byte's value in registers: no shared table
-        assert (info["shared_bytes"] == 0 if kernel in ("s2", "s3")
-                else info["shared_bytes"] > 0)
+        # S3 samples with the byte's value in registers and queues nothing:
+        # no shared memory; S2 holds its queue alone
+        assert (info["shared_bytes"] == 0 if kernel == "s3" else info["shared_bytes"] > 0)
     report = kernels.ptxas_report()
     assert any("shade_kernel" in k for k in report) and any("alpha_kernel" in k for k in report)
 

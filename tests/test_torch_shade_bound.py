@@ -5,8 +5,8 @@ tap, so the FP32 operations of a sample are 470 + 417 a channel with the
 exact sampler (trilinear, 16 anisotropic taps, sRGB per tap) and its texel
 reads 4 a mip-tap whatever the channels:
 
-- S2 (masked alpha): one channel, 115 + 887 = 1002 operations an element,
-  every element;
+- S2 (masked alpha): one channel, 115 + 887 = 1002 operations a covered
+  element (S2 shades those alone);
 - S1 (full shade), lit: base colour 4, emissive 3, occlusion 1, normal 3 —
   11 channels, 115 + 60 + 4 × 470 + 11 × 417 = 6642 operations a covered
   element, 512 texel reads;
@@ -87,7 +87,7 @@ def test_shade_work_counts_the_channels_used():
     assert ops == 5 * 6642
     alpha = (torch.zeros(tid.shape), torch.zeros(tid.shape))
     ops, taps = cs.shade_work("s2", _scene_args(tid, 0), EXACT, alpha, {})
-    assert (ops, taps) == (48 * 1002, 48 * 128)
+    assert (ops, taps) == (5 * 1002, 5 * 128)
     # each input once, each output under its own key
     args = _scene_args(tid, 0)
     n_in = sum(t.numel() * t.element_size() for a in args

@@ -16,6 +16,10 @@ mapping, roughness/metalness, occlusion).
 Tolerance, as tests/test_torch_stages.py's shade: ≤ 2^-12 absolute on
 every value, ≥ 99.9% within 2^-18 (sRGB pow, log2 mip selection and the
 sin hash differ by a few ULP between the two libraries), cutoffs equal.
+alpha_stack (S2) gives +0.0 alpha and cutoff at the uncovered (-1, -2)
+elements, whose values no later step reads, where base_alpha shades
+triangle 0: its alpha is compared with base_alpha's at the covered
+elements, its cutoff in full with base_alpha's masked.
 """
 
 import numpy as np
@@ -128,21 +132,47 @@ def _compare(c, sampler, *, row0=None, **kw):
     alpha, cutoff = shade.alpha_stack(tid, row0, tgeom, vs, frame, tmats, **skw)
     jc, ja, jco = _jax_stage(sampler, jnp.asarray(tid.numpy()),
                              jnp.asarray(row0.numpy()), *jargs)
+    covered = (tid >= 0).numpy()
     _close(jc, color.numpy())
-    _close(ja, alpha.numpy())
-    np.testing.assert_array_equal(np.asarray(jco), cutoff.numpy())
-    return color, alpha
+    _close(np.asarray(ja)[covered], alpha.numpy()[covered])
+    np.testing.assert_array_equal(np.where(covered, np.asarray(jco), 0), cutoff.numpy())
+    return color, alpha, cutoff
 
 
 @pytest.mark.parametrize("sampler", ["exact", "fast"])
 def test_stack_matches_jax(case, sampler):
     """Both samplers, lit mode, no wrap table; background (-1) and -2
-    candidates shade to (0, 0, 0, 0) and keep base_alpha's unmasked value."""
-    color, alpha = _compare(case, sampler)
+    candidates shade to (0, 0, 0, 0), and their alpha and cutoff are +0.0
+    (no later step reads them; base_alpha's value is compared at the
+    covered elements)."""
+    color, alpha, cutoff = _compare(case, sampler)
     neg = (case["tid"] < 0).numpy()
     assert (case["tid"] == -2).any()
     assert not color.numpy()[neg].any() and color.numpy()[~neg].any()
-    assert alpha.numpy()[neg].any()
+    for t in (alpha, cutoff):
+        assert not t.numpy()[neg].view(np.int32).any()  # +0.0 in bits
+    assert alpha.numpy()[~neg].any()
+
+
+def test_alpha_stack_plain_is_base_alpha_where_covered(case):
+    """alpha_stack_plain at 160×96, every sampler: the port's own base_alpha
+    over interpolants bit for bit at the covered elements, +0.0 (in bits)
+    alpha and cutoff at the -1 and -2 ones."""
+    (tgeom, vs, frame, tmats), _ = _inputs(case)
+    tid, row0 = case["tid"], torch.zeros((case["tid"].shape[1], 1))
+    covered = tid >= 0
+    it = shade.interpolants(tid, tgeom, vs, width=160, height=96, row0=row0)
+    for trilinear, aniso, per_tap in SAMPLERS.values():
+        alpha, cutoff = shade.alpha_stack_plain(
+            tid, row0, tgeom, vs, frame, tmats, width=160, height=96,
+            trilinear=trilinear, aniso=aniso, srgb_per_tap=per_tap)
+        ba, bco = shade.base_alpha(it, frame, tmats, trilinear, aniso, per_tap)
+        for got, want in ((alpha, ba), (cutoff, bco)):
+            assert got.dtype == torch.float32 and got.shape == tid.shape
+            assert torch.equal(got.view(torch.int32)[covered],
+                               want.view(torch.int32)[covered])
+            assert not got.view(torch.int32)[~covered].any()
+        assert ba[~covered].any()  # base_alpha itself is not masked
 
 
 @pytest.mark.parametrize("wrap", list(WRAPS))
@@ -152,7 +182,7 @@ def test_wrap_modes_match_jax(case, wrap):
 
 @pytest.mark.parametrize("mode", range(7))
 def test_debug_modes_match_jax(case, mode):
-    color, _ = _compare(case, "nearest-mip", mode=mode)
+    color, _, _ = _compare(case, "nearest-mip", mode=mode)
     assert color.numpy()[..., :3].std() > 0.01
 
 
@@ -162,7 +192,7 @@ def test_two_strip_row0_matches_jax(case):
     matches JAX."""
     (tgeom, vs, frame, tmats), _ = _inputs(case)
     row0 = torch.zeros((96, 1))
-    color, _ = _compare(case, "trilinear", row0=row0)
+    color, _, _ = _compare(case, "trilinear", row0=row0)
     kw = dict(width=160, height=96, trilinear=True, aniso=1, srgb_per_tap=False)
     strips = _shade_striped(case["tid"], row0, 48, lambda tid, r0: shade.shade_stack(
         tid.contiguous(), r0, tgeom, vs, frame, tmats, **kw))
